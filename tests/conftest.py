@@ -17,6 +17,12 @@ import jax
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one "
+        "(run with: pytest -m gpu tests/test_torch_gpu.py)")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)
