@@ -24,9 +24,10 @@ them, and ``solve.calls`` the solves.
 
 The smoother runs the Hopper stencil kernel through
 ``kernels.ops.thermal_sweep`` (``backend="auto"`` on CUDA, or
-``"kernel"``), or its plain PyTorch version (``"auto"`` on the CPU, or
-``"torch"``). The coarse inverse and the prolongations are plain dense
-products (``torch.bmm``, and a product-and-sum for the coarse inverse).
+``"kernel"``, which refuses a solve on the CPU), or its plain PyTorch
+version (``"auto"`` on the CPU, or ``"torch"``). The coarse inverse and the
+prolongations are plain dense products (``torch.bmm``, and a
+product-and-sum for the coarse inverse).
 """
 from __future__ import annotations
 
@@ -50,7 +51,9 @@ class ThermalConfig:
     tol: float = 5e-5  # convergence |dT|_inf per sweep/cycle [degC]
     max_iters: int = 50_000  # sweep budget (jacobi tier)
     solver: str = "multigrid"  # "multigrid" | "jacobi"
-    backend: str = "auto"  # smoother: "auto" (kernel on CUDA) | "kernel" | "torch"
+    # smoother: "auto" (the kernel on CUDA, the plain version on the CPU) |
+    # "kernel" (CUDA only: a solve on the CPU raises) | "torch" (plain)
+    backend: str = "auto"
     n_smooth: int = 1  # RB-GS pre- and post-smoothing sweeps per V-cycle
     coarse_cells: int = 512  # direct-solve at <= this many cells
     max_cycles: int = 200  # V-cycle budget (multigrid tier)
@@ -286,6 +289,9 @@ def solve(power_mw, m: int, n: int, t_amb, tc: ThermalConfig = ThermalConfig(),
     cold start (multigrid tier) or the seed's analytic estimate (jacobi).
     """
     dev = resolve_device(device)
+    if tc.backend == "kernel" and dev.type != "cuda":
+        raise ValueError("ThermalConfig(backend='kernel') needs a CUDA "
+                         f"device; the solve runs on {dev}")
     solve.calls += 1
     P = torch.as_tensor(power_mw, dtype=torch.float32, device=dev)
     batched = P.dim() == 2

@@ -2,8 +2,9 @@
 
 Each source is compiled at first use into a shared library with a plain C
 interface, under ``build/kernels/`` at the repository root, keyed by a hash
-of the source and the flags, and loaded with ``ctypes``. The source includes
-no PyTorch headers, so a build takes seconds. ``nvcc -Xptxas -v`` reports
+of the source and the flags, and loaded with ``ctypes``; ``build_all``
+starts one ``nvcc`` per source at once. The sources include no PyTorch
+headers, so a build takes seconds. ``nvcc -Xptxas -v`` reports
 each kernel's registers, shared memory and spills; the report is kept beside
 the library (``build_log``).
 """
@@ -53,18 +54,35 @@ def _paths(name: str):
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless this source's library exists."""
-    src, so, log = _paths(name)
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    log.write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
-    os.replace(tmp, so)
-    return so
+    return build_all([name])[name]
+
+
+def build_all(names) -> dict:
+    """Compile every ``csrc/<name>.cu`` whose library is missing, one
+    ``nvcc`` per source, all started together; return {name: library}."""
+    jobs, out = [], {}
+    for name in names:
+        src, so, log = _paths(name)
+        out[name] = so
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(src)], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((src, so, log, tmp, proc))
+    failed = []
+    for src, so, log, tmp, proc in jobs:
+        stdout, stderr = proc.communicate()
+        log.write_text(stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src.name}:\n{stderr}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 def build_log(name: str) -> str:

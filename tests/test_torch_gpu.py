@@ -3,7 +3,9 @@
 Run on a machine with a CUDA card: ``pytest -m gpu tests/test_torch_gpu.py``.
 Without one every test here skips (the ``cuda`` fixture decides, at run
 time). The stencil kernel rounds every operation as the plain version does,
-so the two must agree bit for bit.
+and the error-injecting int8 matmuls decide every output in integer
+arithmetic and the reference's float32 rounding, so each must agree with
+its plain version bit for bit.
 """
 import numpy as np
 import pytest
@@ -82,3 +84,91 @@ def test_solve_kernel_backend_matches_torch_backend(cuda):
                         thermal.ThermalConfig(theta_ja=12.0, backend="torch"),
                         device=cuda)
     assert torch.equal(T_k, T_t)
+
+
+# --- the error-injecting int8 matmuls -----------------------------------------
+
+def _mm_inputs(M, K, N, device, seed=5, probs=None):
+    from repro_torch.kernels import overscale_matmul as OM
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    a = torch.randint(-128, 128, (M, K), dtype=torch.int8, generator=g,
+                      device=device)
+    b = torch.randint(-128, 128, (K, N), dtype=torch.int8, generator=g,
+                      device=device)
+    u_gate, u_bit = OM.random_planes(g, (M, N), device)
+    if probs is None:
+        probs = np.zeros(32)
+        probs[24:] = 0.02
+    return a, b, u_gate, u_bit, OM.bit_probs_to_cdf(probs, device)
+
+
+# LeNet's products at 1024 images, llama3.2-1b's MLP widths at 48 tokens,
+# and ragged edges
+MM_SHAPES = [(262144, 9, 8), (65536, 72, 16), (1024, 256, 10),
+             (48, 2048, 8192), (48, 8192, 2048), (1, 1, 1), (65, 33, 127)]
+
+
+@pytest.mark.parametrize("M,K,N", MM_SHAPES)
+def test_int8_error_kernels_equal_plain(cuda, M, K, N):
+    from repro_torch.kernels import abft_matmul as AB
+    from repro_torch.kernels import overscale_matmul as OM
+    args = _mm_inputs(M, K, N, cuda)
+    before = (OM.overscale_matmul.launches, AB.abft_matmul.launches)
+    c, clean = OM.overscale_matmul(*args, return_clean=True)
+    want, want_clean = OM.overscale_matmul_ref(*args, return_clean=True)
+    got = AB.abft_matmul(*args)
+    ref = AB.abft_matmul_ref(*args)
+    torch.cuda.synchronize()
+    assert (OM.overscale_matmul.launches, AB.abft_matmul.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(c, want) and torch.equal(clean, want_clean)
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+
+
+def test_int8_error_kernels_wrap(cuda):
+    """K = 2^17 products of (-128)(-128): every accumulator wraps to -2^31
+    and every checksum wraps again."""
+    from repro_torch.kernels import abft_matmul as AB
+    from repro_torch.kernels import overscale_matmul as OM
+    M, K, N = 8, 1 << 17, 8
+    a = torch.full((M, K), -128, dtype=torch.int8, device=cuda)
+    b = torch.full((K, N), -128, dtype=torch.int8, device=cuda)
+    never = torch.full((M, N), -1, dtype=torch.int32, device=cuda)
+    cdf = OM.bit_probs_to_cdf(np.full(32, 0.01), cuda)
+    got = AB.abft_matmul(a, b, never, never, cdf)
+    ref = AB.abft_matmul_ref(a, b, never, never, cdf)
+    assert int(got[0][0, 0]) == -2 ** 31
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+
+
+def test_int8_error_matmul_refuses_bad_input(cuda):
+    from repro_torch.kernels import overscale_matmul as OM
+    a, b, ug, ub, cdf = _mm_inputs(16, 16, 16, cuda)
+    with pytest.raises(ValueError):
+        OM.overscale_matmul(a.to(torch.int32), b, ug, ub, cdf)
+    with pytest.raises(ValueError):
+        OM.overscale_matmul(a, b, ug.cpu(), ub, cdf)
+
+
+def test_app_paths_kernel_equals_plain(cuda):
+    """make_int8_error_matmul and AbftMatmul through the kernel and through
+    the plain version, on the same seed: equal outputs and ledgers."""
+    from repro_torch.kernels import overscale_matmul as OM
+    from repro_torch.tolerance import AbftMatmul, TimingFaultModel
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    a = torch.randn((4096, 2048), generator=g, device=cuda)
+    w = torch.randn((2048, 8192), generator=g, device=cuda) * 0.02
+    probs = TimingFaultModel().bit_probs(0.70, 0.85, 65.0)
+    outs = [OM.make_int8_error_matmul(probs, 3, use_kernel=k,
+                                      device=cuda)(a, w) for k in (True, False)]
+    assert torch.equal(*outs)
+    mms = [AbftMatmul(probs, 3, use_kernel=k, device=cuda) for k in (True,
+                                                                     False)]
+    outs = [mm(a, w) for mm in mms]
+    assert torch.equal(*outs)
+    assert mms[0].counters == mms[1].counters
+    assert mms[0].counters.injected > 0

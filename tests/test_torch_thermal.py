@@ -128,3 +128,14 @@ def test_no_card_and_no_device_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_backend_refuses_a_cpu_solve():
+    """``backend="kernel"`` asks for the CUDA kernel: a solve on the CPU
+    raises instead of running the plain version."""
+    with pytest.raises(ValueError, match="kernel"):
+        TT.solve(np.zeros(4), 2, 2, 25.0, TT.ThermalConfig(backend="kernel"),
+                 device=CPU)
+    ok = TT.solve(np.zeros(4), 2, 2, 25.0, TT.ThermalConfig(backend="auto"),
+                  device=CPU)
+    assert torch.allclose(ok, torch.full((4,), 25.0))
