@@ -37,9 +37,29 @@ Phases, each of which exits non-zero on failure:
    paths 5 and 6 and five bit profiles, plus a product whose accumulators
    and checksums wrap (tolerance 0: int32 equality), timed beside the bound
    and, where it accepts the shape, ``torch._int_mm`` (the product alone);
-8. profile: one warm Table II run and one warm LeNet inference at gamma =
-   1.35 under ``torch.profiler``: device time by kernel and the card's idle
-   share of the wall time.
+8. attention kernels vs plain: the paged-attention kernel on decode rows
+   (8 rows over 128 permuted pages, one row at pos = -1, window 0 and 48)
+   and on a flattened 8 x 256 extend, and the flash-attention kernel at
+   B = 4, H = 32 / 8 kv heads, S = T in {128, 1000, 2048}, causal and not,
+   held to their plain versions (1e-5 in float32, 5e-2 in bfloat16), timed
+   beside the bound, the plain version and one library call
+   (``F.scaled_dot_product_attention``, timed only, never used);
+9. serve path: ``Engine`` on llama3.2-1b at full width with random weights
+   from a seed. The float32 gate: the paged engine (the paged-attention
+   kernel, launched ticks x 16 layers times) serves 8 prompts plus one
+   submitted after 10 ticks, token for token equal to the contiguous engine
+   (plain ``_sdpa``), or a printed near-tie (top-2 margin under 1e-4) at
+   the first differing token; ``speculate=3`` on the two repeating prompts
+   gives the same streams. Then the same traffic in bfloat16 with its
+   times, launches, peak memory and agreement with the contiguous engine
+   (reported), one decode tick through the kernel and through the plain
+   version from the same cache (|d logits| <= 0.06 and top-1 agreement >
+   0.95), and the prefill step (B = 4, S = 2048, every position's logits)
+   through the flash kernel against the plain version under the same gate;
+10. profile: one warm Table II run, one warm LeNet inference at gamma =
+   1.35, one warm all-decode tick and one prefill-chunk tick of the bf16
+   engine under ``torch.profiler``: device time by kernel and the card's
+   idle share of the wall time.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The last lines are the kernel table as one JSON object, the
@@ -47,6 +67,8 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -61,6 +83,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # the card's published peaks (H100 SXM data sheet) for the bound
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # bf16 tensor cores, dense
 INT8_OP_PER_S = 1979e12  # int8 tensor cores, dense
 # float operations per cell and sweep: 3 adds of neighbours, P + g_v_tamb,
 # one product, one add, one division
@@ -133,7 +156,8 @@ def device_phase(torch) -> str:
     return card
 
 
-KERNEL_SOURCES = ("thermal_stencil", "int8_error_matmul")
+KERNEL_SOURCES = ("thermal_stencil", "int8_error_matmul", "paged_attention",
+                  "flash_attention")
 
 
 def build_phase() -> None:
@@ -149,11 +173,15 @@ def build_phase() -> None:
 
 def _wrappers():
     from repro_torch.kernels import abft_matmul as AB
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import overscale_matmul as OM
+    from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import thermal_stencil as TS
     return {"thermal_stencil": TS.thermal_stencil,
             "overscale_matmul": OM.overscale_matmul,
-            "abft_matmul": AB.abft_matmul}
+            "abft_matmul": AB.abft_matmul,
+            "paged_attention": PA.paged_attention,
+            "flash_attention": FA.flash_attention}
 
 
 def reset_counts() -> None:
@@ -199,6 +227,15 @@ def _time_ms(torch, fn, reps: int = 0) -> float:
         one = max(_events_ms(torch, fn, 1), 1e-3)
         reps = int(min(max(100.0 / one, 3), 200))
     return _events_ms(torch, fn, reps)
+
+
+def _time_once_ms(torch, fn) -> float:
+    """One call after one warm-up, with CUDA events: for the plain
+    versions that repeat a kernel's arithmetic one operation at a time and
+    take up to seconds a call."""
+    fn()
+    torch.cuda.synchronize()
+    return _events_ms(torch, fn, 1)
 
 
 def stencil_bound(T, P, diag, iters: int):
@@ -677,6 +714,456 @@ def profile_phase(torch, table2_launches: int, lenet_params, fig8_probs):
     _profile(torch, "lenet gamma=1.35 n=1024", lenet)
 
 
+# --- attention kernels (the serving tier) ------------------------------------
+ATT_H, ATT_HKV, ATT_D, ATT_PS = 32, 8, 64, 16  # llama3.2-1b's heads, pages
+PAGED_DECODE_POS = [-1, 37, 255, 700, 1000, 1500, 2000, 2047]
+PAGED_N_PAGES = 128  # 2048 positions of 16
+EXTEND_S = 256  # the gate's prefill chunk, 8 slots
+FLASH_B, FLASH_S = 4, [128, 1000, 2048]
+ATT_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+
+
+def _peak(dtype: str) -> float:
+    return BF16_FLOP_PER_S if dtype == "bfloat16" else FP32_FLOP_PER_S
+
+
+def _paged_pool(torch, dtype, slot_ends, g):
+    """A pool laid out as the serving tier lays it out: slot b owns the
+    pages of positions [0, slot_ends[b]) (its K, V and ids written), drawn
+    from a permutation of the pool; the rest of its table is the null page
+    (the last page, ids -1). Returns (k, v, ids, bt)."""
+    n, ps = PAGED_N_PAGES, ATT_PS
+    B = len(slot_ends)
+    P = B * n
+    k = torch.randn((P + 1, ps, ATT_HKV, ATT_D), generator=g,
+                    device=DEV).to(dtype)
+    v = torch.randn((P + 1, ps, ATT_HKV, ATT_D), generator=g,
+                    device=DEV).to(dtype)
+    perm = torch.randperm(P, generator=g, device=DEV).to(torch.int32)
+    bt = torch.full((B, n), P, dtype=torch.int32, device=DEV)
+    ids = torch.full((P + 1, ps), -1, dtype=torch.int32, device=DEV)
+    for b, end in enumerate(slot_ends):
+        pages = -(-end // ps)
+        bt[b, :pages] = perm[b * n:b * n + pages]
+        span = torch.arange(pages * ps, dtype=torch.int32, device=DEV)
+        ids[bt[b, :pages].long()] = torch.where(
+            span < end, span, -1).reshape(pages, ps).to(torch.int32)
+    return k, v, ids, bt
+
+
+def paged_cases(torch, dtype, g):
+    """{name: (q, k, v, ids, bt, pos)}: the decode rows and the flattened
+    extend of the serving path."""
+    k, v, ids, bt = _paged_pool(torch, dtype,
+                                [p + 1 for p in PAGED_DECODE_POS], g)
+    pos = torch.tensor(PAGED_DECODE_POS, dtype=torch.int32, device=DEV)
+    q = torch.randn((len(PAGED_DECODE_POS), ATT_H, ATT_D), generator=g,
+                    device=DEV).to(dtype)
+    cases = {"decode": (q, k, v, ids, bt, pos)}
+    starts = [EXTEND_S * i for i in range(8)]  # the chunk just written
+    k, v, ids, bt = _paged_pool(torch, dtype,
+                                [s + EXTEND_S for s in starts], g)
+    pos = (torch.tensor(starts, dtype=torch.int32, device=DEV)[:, None]
+           + torch.arange(EXTEND_S, dtype=torch.int32, device=DEV)[None])
+    q = torch.randn((8 * EXTEND_S, ATT_H, ATT_D), generator=g,
+                    device=DEV).to(dtype)
+    cases["extend"] = (q, k, v, ids, bt.repeat_interleave(EXTEND_S, 0),
+                       pos.reshape(-1).contiguous())
+    return cases
+
+
+def paged_bound(torch, dtype, q, k, ids, bt, pos, window=0):
+    """(ms, "bytes" | "operations"): the distinct pages the rows' tables
+    name (K, V and ids), q and the output once, against 4 * H * D
+    operations per entry each row may see."""
+    pages = torch.unique(bt.long())
+    page_bytes = 2 * k[0].numel() * k.element_size() + ids.shape[1] * 4
+    nbytes = (pages.numel() * page_bytes + 2 * q.numel() * q.element_size()
+              + bt.numel() * 4 + pos.numel() * 4)
+    seen = ids[bt.long()].reshape(bt.shape[0], -1)
+    p = pos.long()[:, None]
+    vis = (seen >= 0) & (seen <= p)
+    if window:
+        vis &= seen > p - window
+    ops = 4.0 * q.shape[1] * q.shape[2] * float(vis.sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / _peak(dtype)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def paged_library_call(torch, q, k, v, ids, bt, pos, rows_per_slot):
+    """One ``F.scaled_dot_product_attention`` over the gathered logical
+    cache with a boolean mask: the slots' tables (one per ``rows_per_slot``
+    rows), their queries as (slots, H, S, D)."""
+    import torch.nn.functional as F
+    slots = bt.shape[0] // rows_per_slot
+    btu = bt[::rows_per_slot].long()
+    n, ps = btu.shape[1], k.shape[1]
+    kl = k[btu].reshape(slots, n * ps, ATT_HKV, ATT_D).transpose(1, 2)
+    vl = v[btu].reshape(slots, n * ps, ATT_HKV, ATT_D).transpose(1, 2)
+    idl = ids[btu].reshape(slots, 1, 1, n * ps)
+    p = pos.reshape(slots, 1, rows_per_slot, 1).long()
+    mask = (idl >= 0) & (idl <= p)
+    ql = q.reshape(slots, rows_per_slot, ATT_H, ATT_D).transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(
+        ql, kl, vl, attn_mask=mask, enable_gqa=True)
+
+
+def flash_bound(dtype, B, S, T, causal, elem):
+    ops = 4.0 * B * ATT_H * S * T * ATT_D * (0.5 if causal else 1.0)
+    nbytes = elem * ATT_D * (2 * B * S * ATT_H + 2 * B * T * ATT_HKV)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / _peak(dtype)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_kernel_phase(torch) -> dict:
+    """Both attention kernels against their plain versions at the serving
+    path's shapes, both dtypes; then times beside the bound, the plain
+    version and the library call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    g = torch.Generator(device=DEV)
+    g.manual_seed(23)
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    worst = {"paged_attention": {}, "flash_attention": {}}
+    rows = {"paged_attention": [], "flash_attention": []}
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    for dt in ("float32", "bfloat16"):
+        cases = paged_cases(torch, tdt[dt], g)
+        for name, args in cases.items():
+            for window in ((0, 48) if name == "decode" else (0,)):
+                got = PA.paged_attention(*args, window=window)
+                want = PA.paged_attention_ref(*args, window=window)
+                torch.cuda.synchronize()
+                e = err(got, want)
+                worst["paged_attention"][dt] = max(
+                    worst["paged_attention"].get(dt, 0.0), e)
+                if name == "decode":
+                    check(bool((got[0] == 0).all()),
+                          "paged: the pos = -1 row is exactly zero")
+                print(f"paged {name} {dt} R={args[0].shape[0]} window="
+                      f"{window}: max|kernel-plain|={e:.3e}")
+            q, k, v, ids, bt, pos = args
+            per_slot = 1 if name == "decode" else EXTEND_S
+            k_ms = _time_ms(torch, lambda: PA.paged_attention(*args))
+            p_ms = _time_once_ms(torch,
+                                 lambda: PA.paged_attention_ref(*args))
+            l_ms = _time_ms(torch, paged_library_call(torch, *args, per_slot))
+            bound, by = paged_bound(torch, dt, q, k, ids, bt, pos)
+            rows["paged_attention"].append({
+                "case": name, "dtype": dt, "R": q.shape[0],
+                "n_pages": bt.shape[1], "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": l_ms})
+            print(f"time paged {name} {dt}: kernel {k_ms:.5f} ms, plain "
+                  f"{p_ms:.5f} ms, bound {bound:.7f} ms ({by}), sdpa over "
+                  f"the gathered cache {l_ms:.5f} ms")
+        for S in FLASH_S:
+            q = torch.randn((FLASH_B, S, ATT_H, ATT_D), generator=g,
+                            device=DEV).to(tdt[dt])
+            k = torch.randn((FLASH_B, S, ATT_HKV, ATT_D), generator=g,
+                            device=DEV).to(tdt[dt])
+            v = torch.randn((FLASH_B, S, ATT_HKV, ATT_D), generator=g,
+                            device=DEV).to(tdt[dt])
+            for causal in (True, False):
+                got = FA.flash_attention(q, k, v, causal=causal)
+                want = FA.flash_attention_ref(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                e = err(got, want)
+                worst["flash_attention"][dt] = max(
+                    worst["flash_attention"].get(dt, 0.0), e)
+                print(f"flash {dt} S=T={S} causal={causal}: "
+                      f"max|kernel-plain|={e:.3e}")
+                if not (causal or S == FLASH_S[-1]):
+                    continue
+                k_ms = _time_ms(torch, lambda: FA.flash_attention(
+                    q, k, v, causal=causal))
+                p_ms = _time_once_ms(torch, lambda: FA.flash_attention_ref(
+                    q, k, v, causal=causal))
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                l_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True))
+                bound, by = flash_bound(dt, FLASH_B, S, S, causal,
+                                        q.element_size())
+                rows["flash_attention"].append({
+                    "dtype": dt, "B": FLASH_B, "S": S, "T": S,
+                    "causal": causal, "ms": k_ms, "plain_ms": p_ms,
+                    "bound_ms": bound, "bound_by": by, "library_ms": l_ms})
+                print(f"time flash {dt} S=T={S} causal={causal}: kernel "
+                      f"{k_ms:.5f} ms, plain {p_ms:.5f} ms, bound "
+                      f"{bound:.7f} ms ({by}), sdpa {l_ms:.5f} ms")
+    for kern, by_dt in worst.items():
+        for dt, e in by_dt.items():
+            check(e <= ATT_TOL[dt], f"{kern} {dt}: kernel == plain within "
+                                    f"{ATT_TOL[dt]} (max {e:.3e})")
+    return {"max_abs_err": {k: max(v.values()) for k, v in worst.items()},
+            "max_abs_err_by_dtype": worst, "rows": rows}
+
+
+# --- the serve path: llama3.2-1b at full width ----------------------------------
+SERVE_ARCH = "llama3.2-1b"
+SERVE_SEED = 0
+SERVE_PROMPTS = [37, 100, 255, 256, 511, 700, 1000, 1500]
+LATE_PROMPT, LATE_AT = 300, 10  # one more request after 10 ticks
+SERVE_NEW = 32
+SERVE_KW = dict(batch_slots=8, max_len=2048, page_size=16,
+                prefill_chunk=256, eos_id=-1)
+NEAR_TIE = 1e-4
+BF16_ATOL, BF16_TOP1 = 0.06, 0.95
+PREFILL_B, PREFILL_S = 4, 2048
+
+
+def serve_prompts(vocab: int):
+    """The gate's traffic, numpy-seeded: prompts 0 and 1 repeat a short
+    pattern (the speculative run drafts from them), the rest are random;
+    the last one is the late request."""
+    rng = np.random.default_rng(SERVE_SEED)
+    prompts = []
+    for i, n in enumerate(SERVE_PROMPTS):
+        if i < 2:
+            pat = rng.integers(0, vocab, 5 + 2 * i)
+            prompts.append(np.resize(pat, n).astype(np.int32))
+        else:
+            prompts.append(rng.integers(0, vocab, n).astype(np.int32))
+    prompts.append(rng.integers(0, vocab, LATE_PROMPT).astype(np.int32))
+    return prompts
+
+
+def drive(engine, prompts, late=True):
+    """Submit the prompts (the last after LATE_AT ticks when ``late``), run
+    to the end; return ({rid: tokens}, [(width, tick_s, tokens)], wall)."""
+    from repro_torch.serve import Request
+    ticks = []
+    engine.on_tick.append(lambda smp: ticks.append(
+        (engine.tick_width, smp.tick_s, smp.tokens)))
+    first = prompts[:-1] if late else prompts
+    for rid, p in enumerate(first):
+        engine.submit(Request(rid, p, max_new=SERVE_NEW))
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    while engine.step():
+        n += 1
+        if late and n == LATE_AT:
+            engine.submit(Request(len(first), prompts[-1],
+                                  max_new=SERVE_NEW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {r.rid: list(r.out) for r in engine.finished}, ticks, wall
+
+
+def _first_diff(a, b):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def plain_margin(torch, model, prompt, out, i) -> float:
+    """Top-2 margin of the plain path's float32 logits after the prompt and
+    the first i tokens of the plain run: one extend of the whole context
+    through a fresh contiguous cache (``_sdpa``)."""
+    ctx = np.concatenate([prompt, np.asarray(out[:i], np.int32)])
+    cache = model.cache(1, SERVE_KW["max_len"])
+    logits, _ = model.decode(torch.as_tensor(ctx, device=DEV)[None], cache, 0)
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def hold_streams(torch, label, model, prompts, got, want) -> int:
+    """Every stream of ``got`` equals ``want``'s, or differs first at a
+    near-tie of the plain run; returns the count of equal streams."""
+    same = 0
+    for rid, w in want.items():
+        i = _first_diff(got[rid], w)
+        if i is None:
+            same += 1
+            continue
+        m = plain_margin(torch, model, prompts[rid], w, i)
+        print(f"{label}: request {rid} first differs at generated token {i} "
+              f"({got[rid][i] if i < len(got[rid]) else None} vs "
+              f"{w[i] if i < len(w) else None}); the plain run's top-2 "
+              f"margin there is {m:.3e}")
+        check(m < NEAR_TIE, f"{label}: request {rid} differs only at a "
+                            f"near-tie (margin {m:.3e} < {NEAR_TIE})")
+    print(f"{label}: {same} of {len(want)} streams equal token for token")
+    return same
+
+
+def _tick_times(ticks):
+    dec = [t for w, t, _ in ticks if w == 1]
+    pre = [t for w, t, _ in ticks if w > 1]
+    mean = lambda xs: sum(xs) / len(xs) if xs else None
+    return {"ticks": len(ticks), "decode_ticks": len(dec),
+            "prefill_ticks": len(pre), "decode_tick_s": mean(dec),
+            "prefill_tick_s": mean(pre),
+            "tokens": sum(n for _, _, n in ticks)}
+
+
+def bf16_gate(torch, label, got, want) -> dict:
+    """The reference's bf16 bound between the kernel path and the plain
+    path: |d logits| <= 0.06 and top-1 agreement > 0.95 over the rows of
+    the bf16 logits as the model returns them (what the engine samples)."""
+    d = (got.float() - want.float()).abs().max().item()
+    a = got.reshape(-1, got.shape[-1]).argmax(-1)
+    b = want.reshape(-1, want.shape[-1]).argmax(-1)
+    agree = float((a == b).float().mean())
+    print(f"{label}: max|kernel-plain| {d:.4f}, top-1 agreement {agree:.4f} "
+          f"over {a.numel()} rows")
+    check(d <= BF16_ATOL and agree > BF16_TOP1,
+          f"{label}: |d logits| <= {BF16_ATOL} and top-1 > {BF16_TOP1}")
+    return {"max_abs_diff": d, "top1_agreement": agree, "rows": a.numel()}
+
+
+def serve_path(torch) -> dict:
+    """The serving tier at full width: the float32 gate and speculative
+    run, the bf16 run, the bf16 decode-tick gate, the bf16 prefill gate."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import Model
+    from repro_torch.serve import Engine, Request, make_prefill_step
+
+    cfg = registry.get(SERVE_ARCH)
+    n_layers = cfg.num_layers
+    prompts = serve_prompts(cfg.vocab_size)
+    out = {}
+
+    # 1. the float32 gate: paged (the kernel) against contiguous (_sdpa)
+    t0 = time.perf_counter()
+    m32 = Model(cfg.replace(dtype="float32")).init(SERVE_SEED)
+    print(f"serve: {SERVE_ARCH} ({m32.n_params()} parameters, "
+          f"{n_layers} layers) float32 from seed {SERVE_SEED} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    eng = Engine(m32, paged=True, **SERVE_KW)
+    reset_counts()
+    paged, ticks, wall = drive(eng, prompts)
+    counts = read_counts()
+    n_ticks = sum(1 for w, _, _ in ticks if w > 0)
+    print(f"serve gate float32 paged: wall {wall:.3f} s, {n_ticks} ticks, "
+          f"launches {counts}")
+    check(counts["paged_attention"] > 0
+          and counts["paged_attention"] == n_ticks * n_layers,
+          f"paged launches == ticks x {n_layers} layers")
+    out["gate_counts"] = counts
+    out["gate"] = dict(_tick_times(ticks), wall_s=wall)
+    del eng
+    cont, _, wall_c = drive(Engine(m32, **SERVE_KW), prompts)
+    print(f"serve gate float32 contiguous: wall {wall_c:.3f} s")
+    out["gate_equal_streams"] = hold_streams(
+        torch, "float32 paged vs contiguous", m32, prompts, paged, cont)
+    for rid in sorted(paged):
+        print(f"  request {rid} ({len(prompts[rid])} prompt tokens): "
+              f"{paged[rid][:8]}...")
+
+    # 2. speculative, float32: the two repeating prompts
+    eng = Engine(m32, paged=True, speculate=3, **SERVE_KW)
+    spec, _, wall_s = drive(eng, prompts[:2], late=False)
+    print(f"serve speculate=3 float32: wall {wall_s:.3f} s, accepted "
+          f"{eng.spec_accepted} of {eng.spec_proposed} drafts")
+    hold_streams(torch, "speculative vs greedy", m32, prompts, spec,
+                 {rid: paged[rid] for rid in spec})
+    out["spec"] = {"accepted": eng.spec_accepted,
+                   "proposed": eng.spec_proposed, "wall_s": wall_s}
+    del eng, m32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. bf16, the working type
+    m16 = Model(cfg).init(SERVE_SEED)
+    eng = Engine(m16, paged=True, **SERVE_KW)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    got16, ticks, wall = drive(eng, prompts)
+    counts = read_counts()
+    tt = _tick_times(ticks)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serve bf16 paged: wall {wall:.3f} s, {tt['tokens']} tokens, "
+          f"{tt['tokens'] / wall:.1f} tokens/s, decode tick "
+          f"{tt['decode_tick_s']:.5f} s ({tt['decode_ticks']}), prefill tick "
+          f"{tt['prefill_tick_s']:.5f} s ({tt['prefill_ticks']}), launches "
+          f"{counts}, peak memory {peak / 2 ** 20:.1f} MiB")
+    check(counts["paged_attention"] > 0, "the bf16 run launched the kernel")
+    del eng
+    cont16, _, _ = drive(Engine(m16, **SERVE_KW), prompts)
+    agree = sum(a == b for rid in cont16
+                for a, b in zip(got16[rid], cont16[rid]))
+    total = sum(len(v) for v in cont16.values())
+    same = sum(got16[rid] == cont16[rid] for rid in cont16)
+    print(f"serve bf16 paged vs contiguous (reported): {same} of "
+          f"{len(cont16)} streams equal, {agree} of {total} tokens agree "
+          f"position by position")
+    out["bf16"] = dict(tt, wall_s=wall, tokens_per_s=tt["tokens"] / wall,
+                       counts=counts, peak_memory_bytes=peak,
+                       streams_equal_contiguous=same,
+                       tokens_agree_contiguous=agree, tokens_total=total)
+
+    # the decode-tick gate and the profile's engine: 8 slots of 256-token
+    # prompts, one prefill tick, then decode ticks
+    eng = Engine(m16, paged=True, **SERVE_KW)
+    for rid in range(SERVE_KW["batch_slots"]):
+        eng.submit(Request(rid, prompts[3], max_new=64))
+    _profile(torch, "serve bf16 prefill-chunk tick (8 x 256)", eng.step)
+    for _ in range(3):
+        eng.step()
+    _profile(torch, "serve bf16 all-decode tick (8 x 1)", eng.step)
+    plan, spec_tick = eng._compose()
+    check(plan is not None and not spec_tick and plan.width == 1
+          and eng._reserve_pages(plan), "a decode tick to compare")
+    pool = eng.mgr.pool["stack"]
+    saved = {k: v.clone() for k, v in pool.items()}
+
+    def tick(plain: bool):
+        """The planned tick from the saved cache state, pool restored."""
+        with attn.plain_kernels() if plain else contextlib.nullcontext():
+            logits = eng.step_logits(plan.tokens, plan.pos, plan.n_valid)
+        for k, v in saved.items():
+            pool[k].copy_(v)
+        return logits
+
+    out["decode_tick_gate"] = bf16_gate(torch, "bf16 decode tick",
+                                        tick(False), tick(True))
+    del saved
+
+    # 4. the prefill step, bf16, through the flash kernel
+    toks = torch.as_tensor(np.random.default_rng(SERVE_SEED + 1).integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S)), device=DEV)
+    step = make_prefill_step(m16, PREFILL_S)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last_k, _ = step({"tokens": toks})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"prefill bf16 B={PREFILL_B} S={PREFILL_S}: first call {wall:.3f}"
+          f" s, launches {counts}")
+    check(counts["flash_attention"] == n_layers,
+          "the prefill step launched the flash kernel once per layer")
+    out["prefill_counts"] = counts
+    del last_k
+    p_ms = _time_ms(torch, lambda: step({"tokens": toks}), 3)
+    with attn.plain_kernels():
+        pp_ms = _time_once_ms(torch, lambda: step({"tokens": toks}))
+    print(f"prefill step bf16: {p_ms:.3f} ms through the kernel, {pp_ms:.3f}"
+          f" ms through the plain version")
+
+    def full(plain):
+        """The logits of every position (the step returns the last)."""
+        with attn.plain_kernels() if plain else contextlib.nullcontext():
+            return m16.prefill({"tokens": toks}, max_len=PREFILL_S)[0]
+
+    out["prefill_gate"] = bf16_gate(torch, "bf16 prefill, every position",
+                                    full(False), full(True))
+    out["prefill_ms"] = {"kernel": p_ms, "plain": pp_ms}
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, err, rep, shapes):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -700,9 +1187,12 @@ def main() -> int:
     osp = overscaling_path(torch)
     sec5 = sec5_path(torch)
     mm = int8_kernel_phase(torch, osp["fig8_probs"])
+    att = attention_kernel_phase(torch)
+    serve = serve_path(torch)
     profile_phase(torch,
                   mp["runs"]["table2_mkDelayWorker32B"]["stencil_launches"],
                   osp["params"], osp["fig8_probs"])
+    print(f"serve path: {json.dumps(serve)}")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/csrc/"
     rep_stencil = dict(k["rows"][0], library_ms=None)  # 92x92, B = 1
@@ -711,6 +1201,13 @@ def main() -> int:
     rep_os = mm["rows"]["overscale_matmul"][1]
     rep_abft = next(r for r in mm["rows"]["abft_matmul"]
                     if (r["M"], r["K"], r["N"]) == (4096, D_MODEL, D_FF))
+    # the serve path's working type: the bf16 decode rows, and the bf16
+    # prefill's causal 2048-token attention
+    rep_paged = next(r for r in att["rows"]["paged_attention"]
+                     if (r["case"], r["dtype"]) == ("decode", "bfloat16"))
+    rep_flash = next(r for r in att["rows"]["flash_attention"]
+                     if (r["dtype"], r["S"], r["causal"])
+                     == ("bfloat16", FLASH_S[-1], True))
     print(json.dumps({"kernels": [
         _kernel_entry("thermal_stencil", src + "thermal_stencil.cu",
                       "src/repro/kernels/thermal_stencil.py:82",
@@ -726,6 +1223,16 @@ def main() -> int:
                       sec5["counts"]["abft_matmul"],
                       mm["max_abs_err"]["abft_matmul"], rep_abft,
                       mm["rows"]["abft_matmul"]),
+        _kernel_entry("paged_attention", src + "paged_attention.cu",
+                      "src/repro/kernels/paged_attention.py:118",
+                      serve["gate_counts"]["paged_attention"],
+                      att["max_abs_err"]["paged_attention"], rep_paged,
+                      att["rows"]["paged_attention"]),
+        _kernel_entry("flash_attention", src + "flash_attention.cu",
+                      "src/repro/kernels/flash_attention.py:76",
+                      serve["prefill_counts"]["flash_attention"],
+                      att["max_abs_err"]["flash_attention"], rep_flash,
+                      att["rows"]["flash_attention"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

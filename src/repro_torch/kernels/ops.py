@@ -4,8 +4,24 @@ PyTorch version on the CPU, the Hopper kernel on CUDA."""
 from __future__ import annotations
 
 from repro_torch.kernels.abft_matmul import abft_matmul as _abft
+from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.overscale_matmul import overscale_matmul as _omm
+from repro_torch.kernels.paged_attention import paged_attention as _paged
 from repro_torch.kernels.thermal_stencil import thermal_stencil as _stencil
+
+
+def flash_attention_bh(q, k, v, *, causal=True):
+    """Batched, multi-head attention: q (B, S, H, D), k/v (B, T, Hkv, D),
+    GQA inside (query head h reads kv head h // (H / Hkv))."""
+    return _flash(q, k, v, causal=causal)
+
+
+def paged_attention_decode(q, k_pool, v_pool, ids_pool, block_table, pos, *,
+                           window=0):
+    """Paged attention: q (R, H, D), pools (P, ps, Hkv, D) / (P, ps),
+    block_table (R, n_pages) physical page ids, pos (R,) query positions."""
+    return _paged(q, k_pool, v_pool, ids_pool, block_table, pos,
+                  window=window)
 
 
 def thermal_sweep(T, P, diag, *, g_lat, g_v_tamb, iters=64, phase=None):

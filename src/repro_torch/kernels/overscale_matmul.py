@@ -159,9 +159,10 @@ overscale_matmul.launches = 0
 
 # --- helpers and the app-facing wrapper ----------------------------------------
 
-def bit_probs_to_cdf(bit_probs, device="cpu") -> torch.Tensor:
+def bit_probs_to_cdf(bit_probs, device=None) -> torch.Tensor:
     """(32,) per-bit flip probabilities -> (33,) float32 [0, cumsum...];
-    cdf[-1] = p_total, and the result moves to ``device``.
+    cdf[-1] = p_total, on ``device`` (None: the card, as for every entry
+    point; ``"cpu"`` for the CPU).
 
     The sum is rounded as the reference's float32 ``cumsum`` of 32 entries
     is on the CPU, where XLA runs it as two blocks of 16: a running sum
@@ -177,7 +178,7 @@ def bit_probs_to_cdf(bit_probs, device="cpu") -> torch.Tensor:
     blocks = np.cumsum(p.reshape(2, 16), axis=1, dtype=np.float32)
     blocks[1] += blocks[0, -1]
     cdf = np.concatenate([np.zeros(1, np.float32), blocks.reshape(-1)])
-    return torch.from_numpy(cdf).to(device)
+    return torch.from_numpy(cdf).to(resolve_device(device))
 
 
 def quantize(x: torch.Tensor, bits: int = 8):

@@ -1,0 +1,293 @@
+"""Attention, GQA (the counterpart of the reference's ``models/attention.py``).
+
+KV caches are dicts of tensors with an explicit per-slot ``pos_ids`` table
+(``(B, T)``), so one masking rule, evaluated per batch row, serves every
+cache:
+    valid(b, t) = 0 <= pos_ids[b, t] <= pos[b].
+
+Decode is *ragged*: ``pos`` is a scalar or a ``(B,)`` vector of per-slot
+positions, and the new-token axis ``S`` may exceed 1 (a chunked-prefill
+"extend": each row appends up to S tokens at its own offset; ``n_valid``
+marks how many are real, padded tails write ``pos_id = -1``).
+
+Two caches take the decode: the contiguous one (``(B, T, Hkv, D)`` rows,
+attention by :func:`_sdpa`) and the paged pool of the serving tier
+(``(P, page_size, Hkv, D)`` pages behind a block table, attention by the
+paged-attention kernel). Both are updated in place, where the reference
+returns new arrays. Causal self-attention without a window (``gqa_apply``:
+``Model.apply`` and ``Model.prefill``) runs on the flash-attention kernel.
+
+MLA (deepseek-v2) and the sliding-window ring (mixtral) wait for their
+slices of the port.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as PA
+from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.models.params import ParamMeta
+
+NEG_INF = -1e30
+
+#: the attention kernels the model calls (the wrappers of ``kernels.ops``,
+#: which launch the kernel on a CUDA tensor and run the plain version on a
+#: CPU one); :func:`plain_kernels` swaps in the plain versions, so that a run
+#: on the card can be held against them
+KERNELS = {"flash": ops.flash_attention_bh,
+           "paged": ops.paged_attention_decode}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within the block, the model's attention runs the kernels' plain
+    versions on every device."""
+    saved = dict(KERNELS)
+    KERNELS.update(flash=FA.flash_attention_ref,
+                   paged=PA.paged_attention_ref)
+    try:
+        yield
+    finally:
+        KERNELS.update(saved)
+
+
+def _not_ported(what: str, slice_name: str):
+    raise NotImplementedError(
+        f"{what} is not ported yet: it waits for the {slice_name} slice of "
+        f"the port")
+
+
+def decode_positions(pos, B: int, S: int, device) -> torch.Tensor:
+    """Absolute query positions ``(B, S)`` int32 from a scalar or ``(B,)``
+    pos."""
+    p = torch.as_tensor(pos, dtype=torch.int32, device=device)
+    if p.dim() == 0:
+        p = p.expand(B)
+    return p[:, None] + torch.arange(S, dtype=torch.int32, device=device)[None]
+
+
+def _chunk_index(start, S: int, T: int) -> torch.Tensor:
+    """Indices ``(B, S)`` that a width-S write at per-row ``start`` covers
+    in a length-T row, with the start clamped to [0, T - S] as XLA's
+    ``dynamic_update_slice`` clamps it: a chunk that would run past the end
+    lands shifted back instead."""
+    if S > T:
+        raise ValueError(f"a chunk of {S} tokens does not fit a {T}-entry "
+                         f"cache row")
+    s0 = start.long().clamp(0, T - S)
+    return s0[:, None] + torch.arange(S, device=start.device)[None]
+
+
+def _row_update(arr, new, start):
+    """Write ``new`` (B, S, ...) into ``arr`` (B, T, ...) at per-row offsets,
+    in place (the start clamped as the reference's update clamps it)."""
+    B, S = new.shape[:2]
+    t = _chunk_index(start, S, arr.shape[1])
+    rows = torch.arange(B, device=arr.device)[:, None].expand(B, S)
+    arr[rows, t] = new.to(arr.dtype)
+    return arr
+
+
+def _new_pos_ids(positions, n_valid):
+    """Position ids to record for an appended chunk: the absolute position,
+    or -1 (invalid) past each row's ``n_valid`` real tokens."""
+    if n_valid is None:
+        return positions
+    S = positions.shape[1]
+    nv = torch.as_tensor(n_valid, dtype=torch.int32, device=positions.device)
+    keep = torch.arange(S, device=positions.device)[None] < nv[:, None]
+    return torch.where(keep, positions, torch.full_like(positions, -1))
+
+
+# =============================================================================
+# GQA
+# =============================================================================
+
+def gqa_params(cfg: ModelConfig, cross: bool = False):
+    d, dh = cfg.d_model, cfg.head_dim
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    p = {
+        "wq": ParamMeta((d, h, dh), ("embed", "heads", None), fan_in=d),
+        "wk": ParamMeta((d, hkv, dh), ("embed", "kv_heads", None), fan_in=d),
+        "wv": ParamMeta((d, hkv, dh), ("embed", "kv_heads", None), fan_in=d),
+        "wo": ParamMeta((h, dh, d), ("heads", None, "embed"), fan_in=h * dh),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = ParamMeta((dh,), (None,), init="ones")
+        p["k_norm"] = ParamMeta((dh,), (None,), init="ones")
+    if cross:
+        p["gate"] = ParamMeta((1,), (None,), init="zeros")
+    return p
+
+
+def _proj(x, w):
+    """x (B, S, d) @ w (d, h, dh) -> (B, S, h, dh)."""
+    return (x @ w.reshape(w.shape[0], -1)).reshape(
+        *x.shape[:-1], w.shape[1], w.shape[2])
+
+
+def _qkv(p, x, kv_x, cfg: ModelConfig):
+    q = _proj(x, p["wq"])
+    k = _proj(kv_x, p["wk"])
+    v = _proj(kv_x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _out(o, wo):
+    """o (B, S, H, D) @ wo (H, D, d) -> (B, S, d)."""
+    return o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _sdpa(q, k, v, mask):
+    """q (B,S,H,D), k/v (B,T,Hkv,D), mask (B,1,1,S,T) or None -> (B,S,H,D).
+
+    Scores in float32 (the reference asks its dot for a float32 result;
+    here the inputs are widened, which gives the same products), softmax in
+    float32, weights cast to v's dtype before the product with v."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, H // Hkv, D).float()
+    scores = torch.einsum("bshgd,bthd->bhgst", qg, k.float())
+    scores = scores / math.sqrt(D)
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    o = torch.einsum("bhgst,bthd->bshgd", w, v)
+    return o.reshape(B, S, H, v.shape[-1])
+
+
+def causal_mask(S: int, T: int, q_offset, window: int = 0, device=None):
+    """(1,1,1,S,T) bool; query i attends key j iff j <= i (+ window)."""
+    qi = q_offset + torch.arange(S, device=device)[:, None]
+    kj = torch.arange(T, device=device)[None, :]
+    m = kj <= qi
+    if window:
+        m &= kj > qi - window
+    return m[None, None, None]
+
+
+def gqa_apply(p, x, cfg: ModelConfig, positions=None, kv_x=None,
+              cross: bool = False, causal: bool = True):
+    """Train/prefill path. x (B,S,D). Returns (out, (k, v)) — k, v for
+    cache seeding. Causal self-attention without a window runs on the
+    flash-attention kernel (its plain version on the CPU); cross and
+    non-causal attention, and windows, keep :func:`_sdpa`."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, x if kv_x is None else kv_x, cfg)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None]
+    if not cross:
+        q = apply_rope(q, positions, cfg)
+        k = apply_rope(k, positions, cfg)
+    if not cross and causal and not cfg.sliding_window and S == k.shape[1]:
+        o = KERNELS["flash"](q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=True)
+    else:
+        mask = (causal_mask(S, k.shape[1], 0, cfg.sliding_window, x.device)
+                if causal and not cross else None)
+        o = _sdpa(q, k, v, mask)
+    o = _out(o, p["wo"])
+    if cross:
+        o = o * torch.tanh(p["gate"])
+    return o, (k, v)
+
+
+# --- decode ------------------------------------------------------------------
+
+def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device=None):
+    if cfg.sliding_window:
+        _not_ported("the sliding-window ring cache", "mixtral")
+    hkv, dh = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, max_len, hkv, dh), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, max_len, hkv, dh), dtype=dtype,
+                         device=device),
+        "pos_ids": torch.full((batch, max_len), -1, dtype=torch.int32,
+                              device=device),
+    }
+
+
+def gqa_decode(p, x, cache, pos, cfg: ModelConfig, n_valid=None,
+               block_table=None):
+    """Ragged decode/extend. x (B,S,D); pos: scalar or (B,) per-slot
+    position. Appends S new tokens per row at that row's own offset, in
+    place; ``n_valid`` (B,) marks how many of the S tokens are real per row
+    (padded tails record ``pos_id = -1``).
+
+    With ``block_table`` (B, n_pages) int32, ``cache`` is one layer of the
+    paged pool, ``k``/``v`` (P, page_size, Hkv, D) and ``pos_ids``
+    (P, page_size): the chunk's logical index ``t`` (the start clamped as
+    the contiguous write clamps it) lands at ``(bt[b, t // ps], t % ps)``,
+    tails that map to unallocated entries on the inert null page, and the
+    paged-attention kernel reads the pool directly, the (B, S) queries
+    flattened to B * S rows with their slot's table and their own positions:
+    the reference's mask over the freshly written cache, without gathering
+    a logical cache or scattering it back."""
+    if cfg.sliding_window:
+        _not_ported("the sliding-window ring cache", "mixtral")
+    B, S, _ = x.shape
+    q, k_new, v_new = _qkv(p, x, x, cfg)
+    positions = decode_positions(pos, B, S, x.device)  # (B,S)
+    q = apply_rope(q, positions, cfg)
+    k_new = apply_rope(k_new, positions, cfg)
+    ids = _new_pos_ids(positions, n_valid)
+    if block_table is None:
+        T = cache["k"].shape[1]
+        start = positions[:, 0] % T
+        for name, new in (("k", k_new), ("v", v_new), ("pos_ids", ids)):
+            _row_update(cache[name], new, start)
+        pos_ids = cache["pos_ids"]
+        valid = (pos_ids >= 0)[:, None, :] & \
+            (pos_ids[:, None, :] <= positions[..., None])
+        o = _sdpa(q, cache["k"], cache["v"], valid[:, None, None])
+    else:
+        ps = cache["k"].shape[1]
+        n = block_table.shape[1]
+        t = _chunk_index(positions[:, 0] % (n * ps), S, n * ps)  # (B,S)
+        page = torch.gather(block_table.long(), 1, t // ps)
+        off = t % ps
+        cache["k"][page, off] = k_new.to(cache["k"].dtype)
+        cache["v"][page, off] = v_new.to(cache["v"].dtype)
+        cache["pos_ids"][page, off] = ids
+        H, D = q.shape[2], q.shape[3]
+        o = KERNELS["paged"](
+            q.reshape(B * S, H, D).contiguous(), cache["k"], cache["v"],
+            cache["pos_ids"], block_table.repeat_interleave(S, dim=0),
+            positions.reshape(-1).contiguous())
+        o = o.reshape(B, S, H, D)
+    return _out(o, p["wo"]), cache
+
+
+def gqa_seed_cache(cache, kv, prefill_len: int, lengths=None):
+    """Write prefill-time K/V into a zero decode cache, in place.
+
+    ``lengths`` (B,) optionally marks per-row true prompt lengths for
+    right-padded batched prefill: positions past a row's length record
+    ``pos_id = -1`` so they stay invisible to the decode mask."""
+    k, v = kv
+    B, S = k.shape[:2]
+    T = cache["k"].shape[1]
+    if S > T:
+        raise ValueError(f"a prefill of {S} tokens does not fit a cache of "
+                         f"{T} entries")
+    pos2 = torch.arange(S, dtype=torch.int32, device=k.device)[None].expand(
+        B, S)
+    if lengths is not None:
+        ln = torch.as_tensor(lengths, dtype=torch.int32, device=k.device)
+        pos2 = torch.where(pos2 < ln[:, None], pos2, torch.full_like(pos2, -1))
+    cache["k"][:, :S] = k.to(cache["k"].dtype)
+    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    cache["pos_ids"][:, :S] = pos2
+    return cache
+

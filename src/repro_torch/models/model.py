@@ -1,0 +1,145 @@
+"""The model facade (the counterpart of the reference's ``models/model.py``),
+dense family.
+
+    model = Model(cfg).init(seed)              # random weights, on the card
+    model = Model(cfg, device="cpu").load_reference(ref_params)
+    logits, aux = model.apply({"tokens": tokens})
+    logits, cache = model.prefill({"tokens": tokens}, max_len=...)
+    logits, cache = model.decode(tokens, cache, pos, n_valid=...)
+
+``Model`` is an ``nn.Module`` that holds the stacked parameters under the
+reference's tree paths (``blocks.stack.attn.wq``, ...), stored in
+``cfg.param_dtype``. The reference casts each weight to ``cfg.dtype`` at
+every use; the port keeps one cast copy, made when the weights are set,
+which gives the same values (at full width a fresh cast of 1.24 B
+parameters on every tick would move ~7.4 GB). It takes no sharding plan:
+one card has none.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import params as pm
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import cdt
+
+# leaves the reference casts to the compute dtype at use; the rest (norm
+# scales and biases, qk-norm scales) it reads in float32
+CAST_KEYS = frozenset({"wq", "wk", "wv", "wo", "wg", "wu", "wd", "embedding",
+                       "unembed", "gate"})
+
+
+class _Tree(nn.Module):
+    """A nested dict of parameters as nested modules, so that
+    ``named_parameters()`` gives the reference's tree paths."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _Tree(v))
+            else:
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
+
+    def tree(self) -> Dict[str, Any]:
+        out = {k: p for k, p in self._parameters.items()}
+        out.update({k: m.tree() for k, m in self._modules.items()})
+        return out
+
+
+def _cast(tree, dtype, key=None):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype, k) for k, v in tree.items()}
+    return tree.detach().to(dtype) if key in CAST_KEYS else tree.detach()
+
+
+def _tokens(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, device=device).long()
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        tf._dense_only(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self._compute: Optional[Dict[str, Any]] = None
+
+    # --- params -----------------------------------------------------------
+    def param_meta(self):
+        return tf.lm_params(self.cfg)
+
+    def n_params(self) -> int:
+        return pm.n_params(self.param_meta())
+
+    def init(self, seed: int) -> "Model":
+        """Random weights with the reference's init rules, drawn from a
+        ``torch.Generator`` seeded with ``seed`` on the model's device."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        return self._set(pm.materialize(self.param_meta(), gen,
+                                        self.cfg.param_dtype, self.device))
+
+    def load_reference(self, tree) -> "Model":
+        """The reference's parameter tree (numpy arrays under the same keys)
+        as the model's weights, in ``cfg.param_dtype``."""
+        dt = pm.torch_dtype(self.cfg.param_dtype)
+        tree = pm.tree_map(lambda t: t.to(dt), pm.from_reference(
+            tree, self.device))
+        return self._set(tree)
+
+    def _set(self, tree) -> "Model":
+        want = pm.tree_map(lambda m: tuple(m.shape), self.param_meta())
+        got = pm.tree_map(lambda t: tuple(t.shape), tree)
+        if want != got:
+            raise ValueError("the parameter tree does not match the "
+                             "config's shapes")
+        for k, v in tree.items():  # embed, final_ln, blocks
+            self.add_module(k, _Tree(v))
+        self._compute = _cast(self.weights(), cdt(self.cfg))
+        return self
+
+    def weights(self) -> Dict[str, Any]:
+        """The stored parameters as a nested dict (the reference's tree)."""
+        return {k: m.tree() for k, m in self._modules.items()}
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        """The weights in the compute dtype (norm scales in float32)."""
+        if self._compute is None:
+            raise RuntimeError("the model has no weights: call init(seed) or "
+                               "load_reference(tree) first")
+        return self._compute
+
+    # --- forward ------------------------------------------------------------
+    @torch.no_grad()
+    def apply(self, batch: Dict[str, Any]):
+        return tf.lm_apply(self.params, _tokens(batch["tokens"], self.device),
+                           self.cfg)
+
+    # --- serving ------------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, batch: Dict[str, Any], max_len: Optional[int] = None,
+                lengths=None):
+        return tf.lm_prefill(self.params,
+                             _tokens(batch["tokens"], self.device), self.cfg,
+                             max_len, lengths=lengths)
+
+    @torch.no_grad()
+    def decode(self, tokens, cache, pos, n_valid=None, block_table=None):
+        """Ragged decode: ``pos`` scalar or (B,) per-slot; tokens (B,S),
+        S >= 1; ``n_valid`` (B,) marks real tokens per row. The cache (or,
+        with ``block_table``, the page pool) is updated in place."""
+        return tf.lm_decode(self.params, _tokens(tokens, self.device), cache,
+                            pos, self.cfg, n_valid=n_valid,
+                            block_table=block_table)
+
+    def cache(self, batch_size: int, max_len: int):
+        return tf.lm_cache(self.cfg, batch_size, max_len, cdt(self.cfg),
+                           self.device)

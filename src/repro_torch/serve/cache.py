@@ -1,0 +1,524 @@
+"""KV-cache management for the continuous-batching engine (the counterpart
+of the reference's ``serve/cache.py``).
+
+``KVCacheManager`` owns the contiguous decode cache for a fixed set of slots
+and all per-slot bookkeeping the scheduler needs: per-slot positions
+(``pos[slot]`` is each slot's next decode position), slot recycling (a freed
+slot's ``pos_ids`` are invalidated and the arrays reused), and page
+accounting (``pages_in_use``/``peak_pages``, kept incrementally;
+``recount_pages()`` recomputes from scratch).
+
+``PagedKVCacheManager`` makes pages real: the device cache is a pool of
+``total_pages`` physical pages plus one permanently invalid **null page**;
+each slot owns a block table mapping logical page index -> physical page,
+filled from a free-list :class:`PageAllocator`. The engine's paged step
+hands the pool and the block tables to ``Model.decode``, which writes each
+chunk's K/V into the pages in place and runs the paged-attention kernel on
+the pool; ``gather_logical``/``scatter_logical`` (the reference's fused
+step) serve only ``read_rows``/``write_rows``/``restore`` here. Freed and
+trimmed pages get their ``pos_ids`` invalidated before they return to the
+pool.
+
+The reference finds each cache leaf's batch and sequence axes by building
+the abstract cache at two sizes; the port's attention caches have one known
+layout, ``{"stack": {"k", "v": (L, B, T, Hkv, D), "pos_ids": (L, B, T)}}``
+(pages on the batch axis and ``page_size`` entries on the sequence axis in
+the pool), so the axes are 1 and 2. The expandable managers wait for a
+later slice of the port.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+SEQ_AXIS = 2  # of every leaf: (L, batch or pages, sequence, ...)
+
+
+def tree_map(fn, *trees, _key=None):
+    """``fn(key, *leaves)`` over nested dicts of tensors (``key`` is the
+    leaf's own key, e.g. ``"pos_ids"``)."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees), _key=k)
+                for k in trees[0]}
+    return fn(_key, *trees)
+
+
+def _fill(key) -> int:
+    return -1 if key == "pos_ids" else 0
+
+
+class KVCacheManager:
+    """Fixed-capacity cache over ``slots`` rows of length ``max_len``."""
+
+    def __init__(self, model, slots: int, max_len: int,
+                 page_size: int = 16):
+        self.model = model
+        self.slots = slots
+        self.max_len = max_len
+        self.page_size = page_size
+        self.cache = model.cache(slots, max_len)
+        # host-side bookkeeping (no device sync needed to schedule)
+        self.pos = np.zeros(slots, np.int32)        # next decode position
+        self.lengths = np.zeros(slots, np.int32)    # prompt length
+        self._free: List[int] = list(range(slots))
+        self._pages_per_slot = math.ceil(max_len / page_size)
+        self.peak_pages = 0
+        self._slot_pages = np.zeros(slots, np.int32)
+        self._pages_in_use = 0
+
+    def _invalidate(self, cache, slot_ids):
+        """Mark the slots' rows invalid (``pos_ids = -1``), in place."""
+        ids = torch.as_tensor(slot_ids, dtype=torch.long,
+                              device=cache["stack"]["pos_ids"].device)
+        cache["stack"]["pos_ids"][:, ids] = -1
+        return cache
+
+    # -- slot lifecycle -------------------------------------------------------
+    @property
+    def free_slots(self) -> List[int]:
+        return list(self._free)
+
+    @property
+    def active_slots(self) -> List[int]:
+        return [s for s in range(self.slots) if s not in self._free]
+
+    def _set_slot_pages(self, slot: int, n: int) -> None:
+        self._pages_in_use += n - int(self._slot_pages[slot])
+        self._slot_pages[slot] = n
+        self.peak_pages = max(self.peak_pages, self._pages_in_use)
+
+    def allocate(self, prompt_len: int) -> int:
+        """Claim a free slot for a request; returns the slot id."""
+        slot = self._free.pop(0)
+        self.pos[slot] = 0
+        self.lengths[slot] = prompt_len
+        self._set_slot_pages(slot, 1)  # an allocated slot holds >= 1 page
+        return slot
+
+    def free(self, slot: int):
+        """Recycle a slot: pages return to the pool, row marked invalid.
+        Raises on double-free or free-of-unallocated."""
+        if not 0 <= slot < self.slots:
+            raise ValueError(
+                f"free of invalid slot {slot} (valid: 0..{self.slots - 1})")
+        if slot in self._free:
+            raise ValueError(f"double free of slot {slot}")
+        self.pos[slot] = 0
+        self.lengths[slot] = 0
+        self._set_slot_pages(slot, 0)
+        self._free.append(slot)
+        self._invalidate(self.cache, [slot])
+
+    # -- page accounting ------------------------------------------------------
+    @property
+    def total_pages(self) -> int:
+        return self.slots * self._pages_per_slot
+
+    @property
+    def pages_in_use(self) -> int:
+        return self._pages_in_use
+
+    @property
+    def free_pages(self) -> int:
+        return self.total_pages - self._pages_in_use
+
+    def slot_pages(self, slot: int) -> int:
+        return int(self._slot_pages[slot])
+
+    def recount_pages(self) -> int:
+        """Recompute page occupancy from scratch (O(slots))."""
+        used = 0
+        for s in range(self.slots):
+            if s in self._free:
+                continue
+            used += max(1, math.ceil(int(self.pos[s]) / self.page_size))
+        return used
+
+    # -- cache writes ---------------------------------------------------------
+    def write_rows(self, slot_ids, rows):
+        """Scatter cache rows (batch == len(slot_ids)) into slots."""
+        ids = list(slot_ids)
+
+        def put(key, leaf, row):
+            leaf[:, ids] = torch.as_tensor(row).to(leaf.device, leaf.dtype)
+            return leaf
+
+        tree_map(put, self.cache, rows)
+
+    def read_rows(self, slot_ids):
+        """Gather cache rows (batch == len(slot_ids)) out of slots — the
+        device->host read of preemption."""
+        ids = list(slot_ids)
+        return tree_map(lambda key, leaf: leaf[:, ids].clone(), self.cache)
+
+    def restore(self, slot: int, rows, pos: int):
+        """Scatter one preempted row set back into a (re)allocated slot and
+        rewind its decode position — the resume half of preemption."""
+        self.write_rows([slot], rows)
+        self.pos[slot] = int(pos)
+        self._set_slot_pages(
+            slot, max(1, math.ceil(int(pos) / self.page_size)))
+
+    def advance(self, slot_ids, counts):
+        for s, n in zip(slot_ids, counts):
+            self.pos[s] += int(n)
+            self._set_slot_pages(
+                s, max(1, math.ceil(int(self.pos[s]) / self.page_size)))
+
+
+class HostPagePool:
+    """Host-side page pool for preempted requests: evicted KV rows live in
+    host memory keyed by request id until resumption. The device slot is
+    freed meanwhile — preemption returns pages to the admission pool.
+
+    Accounting is page-exact: ``put`` records how many device pages the
+    eviction released, so ``pages_held``/``peak_pages`` match the allocator
+    ledger. Each entry carries a provenance ledger (origin allocator, device
+    page ids, whether the origin freed them): ``take(owner=...)`` refuses a
+    cross-allocator resume whose origin still owns the pages, and a resume
+    whose position does not fit the target's ``max_len``."""
+
+    def __init__(self):
+        self._rows: Dict[Any, Any] = {}
+        self._ledger: Dict[Any, Dict[str, Any]] = {}
+        self.puts = 0
+        self.peak = 0
+        self.pages_held = 0   # device pages currently parked host-side
+        self.pages_evicted = 0  # cumulative pages moved to host
+        self.peak_pages = 0
+        self.migrations = 0   # cross-allocator resumes (pod -> pod)
+
+    def put(self, rid, rows, pos: int, pages: int = 1, *,
+            owner=None, page_ids=None, freed: bool = True) -> None:
+        host = tree_map(lambda key, t: t.detach().cpu(), rows)
+        self._rows[rid] = (host, int(pos), int(pages))
+        self._ledger[rid] = {
+            "owner": owner,
+            "page_ids": (None if page_ids is None
+                         else [int(p) for p in np.asarray(page_ids).ravel()]),
+            "freed": bool(freed),
+        }
+        self.puts += 1
+        self.peak = max(self.peak, len(self._rows))
+        self.pages_held += int(pages)
+        self.pages_evicted += int(pages)
+        self.peak_pages = max(self.peak_pages, self.pages_held)
+
+    def put_pages(self, rid) -> int:
+        """Pages a parked request holds (0 if not parked)."""
+        entry = self._rows.get(rid)
+        return 0 if entry is None else entry[2]
+
+    def ledger(self, rid) -> Optional[Dict[str, Any]]:
+        return self._ledger.get(rid)
+
+    def take(self, rid, *, owner=None):
+        """Pop (rows, pos) for a request being resumed; ``owner`` is the
+        allocator about to receive the rows."""
+        led = self._ledger.get(rid, {})
+        rows, pos, pages = self._rows[rid]
+        if owner is not None:
+            origin = led.get("owner")
+            foreign = origin is not None and origin is not owner
+            if foreign and not led.get("freed", True):
+                raise RuntimeError(
+                    f"HostPagePool: refusing to resume request {rid!r} into "
+                    f"a foreign allocator while its origin still owns the "
+                    f"evicted pages; ledger={led}")
+            cap = getattr(owner, "max_len", None)
+            if cap is not None and int(pos) > int(cap):
+                raise RuntimeError(
+                    f"HostPagePool: request {rid!r} parked at pos={pos} "
+                    f"exceeds the target allocator's max_len {cap}; "
+                    f"ledger={led}")
+            if foreign:
+                self.migrations += 1
+        del self._rows[rid]
+        self._ledger.pop(rid, None)
+        self.pages_held -= pages
+        return rows, pos
+
+    def __contains__(self, rid) -> bool:
+        return rid in self._rows
+
+    def __len__(self) -> int:
+        return len(self._rows)
+
+
+# =============================================================================
+# paged attention: free-list allocator + block-table manager
+# =============================================================================
+
+
+class PageAllocator:
+    """Free-list allocator over ``total_pages`` physical pages, with an
+    ownership bitmap guarding double-frees."""
+
+    def __init__(self, total_pages: int):
+        self.total = int(total_pages)
+        self._free: List[int] = list(range(self.total))
+        self._owned = np.zeros(self.total, bool)
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return self.total - len(self._free)
+
+    def alloc(self, n: int) -> List[int]:
+        """Claim ``n`` pages; raises when the pool cannot cover them."""
+        if n > len(self._free):
+            raise RuntimeError(
+                f"page pool exhausted: want {n}, have {len(self._free)}")
+        take, self._free = self._free[:n], self._free[n:]
+        for p in take:
+            self._owned[p] = True
+        return take
+
+    def free(self, pages) -> None:
+        for p in pages:
+            p = int(p)
+            if not 0 <= p < self.total:
+                raise ValueError(
+                    f"free of invalid page {p} (valid: 0..{self.total - 1})")
+            if not self._owned[p]:
+                raise ValueError(f"double free of page {p}")
+            self._owned[p] = False
+            self._free.append(p)
+
+
+class PagedKVCacheManager:
+    """Block-table KV cache: non-contiguous pages behind the same slot API.
+
+    The device pool is ``model.cache(total_pages + 1, page_size)``: pages on
+    the batch axis, ``page_size`` tokens on the sequence axis, and index
+    ``total_pages`` is the **null page**, permanently invalid
+    (``pos_ids = -1``), the target of every unallocated block-table entry."""
+
+    def __init__(self, model, slots: int, max_len: int,
+                 page_size: int = 16, total_pages: Optional[int] = None):
+        cfg = getattr(model, "cfg", None)
+        window = getattr(cfg, "sliding_window", 0) or 0
+        if window and window <= page_size:
+            raise ValueError(
+                f"page_size {page_size} must be < sliding_window {window}")
+        self.model = model
+        self.slots = slots
+        self.max_len = max_len
+        self.page_size = page_size
+        self.seq_len = max_len  # the logical per-slot extent (no ring)
+        if self.seq_len % page_size:
+            raise ValueError(
+                f"sequence extent {self.seq_len} not divisible by "
+                f"page_size {page_size}")
+        self.pages_per_slot = self.seq_len // page_size
+        self.total_pages = (slots * self.pages_per_slot
+                            if total_pages is None else int(total_pages))
+        self.null_page = self.total_pages
+        self.pool = model.cache(self.total_pages + 1, page_size)
+        self.allocator = PageAllocator(self.total_pages)
+        self.block_table = np.full((slots, self.pages_per_slot),
+                                   self.null_page, np.int32)
+        # host-side bookkeeping, mirroring KVCacheManager
+        self.pos = np.zeros(slots, np.int32)
+        self.lengths = np.zeros(slots, np.int32)
+        self._free: List[int] = list(range(slots))
+        self._slot_pages = np.zeros(slots, np.int32)
+        self._pages_in_use = 0
+        self.peak_pages = 0
+
+    def _invalidate_pages(self, pool, page_ids):
+        """Mark pages invalid (``pos_ids = -1``), in place."""
+        ids = torch.as_tensor(page_ids, dtype=torch.long,
+                              device=pool["stack"]["pos_ids"].device)
+        pool["stack"]["pos_ids"][:, ids] = -1
+        return pool
+
+    # -- pool <-> logical layout (preemption and restore) ----------------------
+    def gather_logical(self, pool, bt):
+        """Gather block tables ``bt`` (n, pages) into a slot-contiguous
+        logical cache (n, pages * page_size)."""
+        bt = torch.as_tensor(bt, dtype=torch.long,
+                             device=pool["stack"]["pos_ids"].device)
+
+        def take(key, leaf):
+            g = leaf[:, bt]  # (L, n, pages, ps, ...)
+            return g.reshape(leaf.shape[0], bt.shape[0],
+                             bt.shape[1] * self.page_size, *leaf.shape[3:])
+
+        return tree_map(take, pool)
+
+    def inverse_map(self) -> np.ndarray:
+        """Host-side inverse of the block tables: physical page -> flat
+        logical page index (``slot * width + j``), or ``slots * width`` for
+        unallocated pages and the null page."""
+        B, W = self.block_table.shape
+        inv = np.full(self.total_pages + 1, B * W, np.int32)
+        flat = self.block_table.reshape(-1)
+        idx = np.arange(B * W, dtype=np.int32)
+        alloc = flat != self.null_page
+        inv[flat[alloc]] = idx[alloc]
+        return inv
+
+    def scatter_logical(self, pool, logical, bt):
+        """Scatter a logical cache back into the pool through ``bt``, in
+        place; the null page is re-filled (``pos_ids = -1``, zeros)
+        afterwards, since every unallocated entry aliases it."""
+        bt = torch.as_tensor(bt, dtype=torch.long,
+                             device=pool["stack"]["pos_ids"].device)
+        ps, null = self.page_size, self.null_page
+
+        def put(key, leaf, lg):
+            v = torch.as_tensor(lg).to(leaf.device, leaf.dtype)
+            leaf[:, bt] = v.reshape(leaf.shape[0], bt.shape[0], bt.shape[1],
+                                    ps, *leaf.shape[3:])
+            leaf[:, null] = _fill(key)
+            return leaf
+
+        return tree_map(put, pool, logical)
+
+    # -- slot lifecycle -------------------------------------------------------
+    @property
+    def cache(self):
+        return self.pool
+
+    @property
+    def free_slots(self) -> List[int]:
+        return list(self._free)
+
+    @property
+    def active_slots(self) -> List[int]:
+        return [s for s in range(self.slots) if s not in self._free]
+
+    @property
+    def pages_in_use(self) -> int:
+        return self._pages_in_use
+
+    @property
+    def free_pages(self) -> int:
+        return self.allocator.free_pages
+
+    def recount_pages(self) -> int:
+        """Count allocated block-table entries from scratch."""
+        return int(np.sum(self.block_table != self.null_page))
+
+    def slot_pages(self, slot: int) -> int:
+        return int(self._slot_pages[slot])
+
+    def pages_needed(self, slot: int, upto: int) -> int:
+        """New pages ``extend(slot, upto)`` would have to claim."""
+        upto = min(int(upto), self.block_table.shape[1] * self.page_size)
+        need = max(1, math.ceil(upto / self.page_size))
+        return max(0, min(need, self.block_table.shape[1])
+                   - int(self._slot_pages[slot]))
+
+    def allocate(self, prompt_len: int) -> int:
+        """Claim a free slot and its first page; returns the slot id."""
+        slot = self._free.pop(0)
+        self.pos[slot] = 0
+        self.lengths[slot] = prompt_len
+        (page,) = self.allocator.alloc(1)
+        self.block_table[slot, 0] = page
+        self._slot_pages[slot] = 1
+        self._pages_in_use += 1
+        self.peak_pages = max(self.peak_pages, self._pages_in_use)
+        return slot
+
+    def extend(self, slot: int, upto: int) -> int:
+        """Grow a slot's block table to cover positions ``[0, upto)``;
+        returns the number of pages claimed."""
+        width = self.block_table.shape[1]
+        upto = min(int(upto), width * self.page_size)
+        need = min(max(1, math.ceil(upto / self.page_size)), width)
+        have = int(self._slot_pages[slot])
+        if need <= have:
+            return 0
+        new = self.allocator.alloc(need - have)
+        self.block_table[slot, have:need] = new
+        self._slot_pages[slot] = need
+        self._pages_in_use += need - have
+        self.peak_pages = max(self.peak_pages, self._pages_in_use)
+        return need - have
+
+    def trim(self, slot: int, upto: int) -> int:
+        """Return pages past ``ceil(upto / page_size)`` to the pool (the
+        speculative-decode rollback); freed pages are invalidated. Returns
+        the number of pages freed."""
+        keep = max(1, math.ceil(int(upto) / self.page_size))
+        have = int(self._slot_pages[slot])
+        if keep >= have:
+            return 0
+        pages = self.block_table[slot, keep:have].copy()
+        self.block_table[slot, keep:have] = self.null_page
+        self._slot_pages[slot] = keep
+        self._pages_in_use -= have - keep
+        self.allocator.free(pages)
+        self._invalidate_pages(self.pool, pages)
+        return have - keep
+
+    def free(self, slot: int):
+        """Recycle a slot: all its pages are invalidated and returned."""
+        if not 0 <= slot < self.slots:
+            raise ValueError(
+                f"free of invalid slot {slot} (valid: 0..{self.slots - 1})")
+        if slot in self._free:
+            raise ValueError(f"double free of slot {slot}")
+        have = int(self._slot_pages[slot])
+        pages = self.block_table[slot, :have].copy()
+        self.block_table[slot, :have] = self.null_page
+        self._slot_pages[slot] = 0
+        self._pages_in_use -= have
+        self.allocator.free(pages)
+        self._invalidate_pages(self.pool, pages)
+        self.pos[slot] = 0
+        self.lengths[slot] = 0
+        self._free.append(slot)
+
+    # -- cache reads/writes (logical rows, for preemption) ---------------------
+    def write_rows(self, slot_ids, rows):
+        """Scatter logical rows (batch == len(slot_ids)) into the slots'
+        pages (the rows must already be covered by ``extend``)."""
+        bt = self.block_table[np.asarray(slot_ids)]
+        self.scatter_logical(self.pool, self._fit_rows(rows), bt)
+
+    def read_rows(self, slot_ids):
+        """Gather logical rows trimmed to the slots' allocated pages — the
+        page-exact device->host payload of preemption."""
+        ids = np.asarray(slot_ids)
+        width = int(max(1, self._slot_pages[ids].max()))
+        return self.gather_logical(self.pool, self.block_table[ids, :width])
+
+    def _fit_rows(self, rows):
+        """Pad logical rows out to the block-table width (fill -1 for
+        ``pos_ids``)."""
+        width = self.block_table.shape[1] * self.page_size
+
+        def fit(key, row):
+            row = torch.as_tensor(row)
+            pad = width - row.shape[SEQ_AXIS]
+            if pad <= 0:
+                return row
+            shape = list(row.shape)
+            shape[SEQ_AXIS] = pad
+            return torch.cat([row, torch.full(shape, _fill(key),
+                                              dtype=row.dtype,
+                                              device=row.device)], SEQ_AXIS)
+
+        return tree_map(fit, rows)
+
+    def restore(self, slot: int, rows, pos: int):
+        """Scatter a preempted row set back into a (re)allocated slot —
+        possibly onto other physical pages than it left."""
+        self.extend(slot, int(pos))
+        self.write_rows([slot], rows)
+        self.pos[slot] = int(pos)
+
+    def advance(self, slot_ids, counts):
+        for s, n in zip(slot_ids, counts):
+            self.pos[s] += int(n)
+            self.extend(s, int(self.pos[s]))

@@ -3,9 +3,10 @@
 Run on a machine with a CUDA card: ``pytest -m gpu tests/test_torch_gpu.py``.
 Without one every test here skips (the ``cuda`` fixture decides, at run
 time). The stencil kernel rounds every operation as the plain version does,
-and the error-injecting int8 matmuls decide every output in integer
-arithmetic and the reference's float32 rounding, so each must agree with
-its plain version bit for bit.
+the error-injecting int8 matmuls decide every output in integer arithmetic
+and the reference's float32 rounding, and the attention kernels' plain
+versions repeat the kernels' online softmax one operation at a time in the
+kernels' order, so each must agree with its plain version bit for bit.
 """
 import numpy as np
 import pytest
@@ -172,3 +173,108 @@ def test_app_paths_kernel_equals_plain(cuda):
     assert torch.equal(*outs)
     assert mms[0].counters == mms[1].counters
     assert mms[0].counters.injected > 0
+
+
+# --- the attention kernels ----------------------------------------------------
+
+def _paged_inputs(device, dtype, R=8, H=32, Hkv=8, D=64, ps=16, n=8,
+                  seed=3):
+    """Pages permuted across a pool with a null page; row 0 disabled
+    (pos = -1), the others at positions that end mid-page."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    P = R * n
+    q = torch.randn((R, H, D), generator=g, device=device).to(dtype)
+    k = torch.randn((P + 1, ps, Hkv, D), generator=g, device=device).to(dtype)
+    v = torch.randn((P + 1, ps, Hkv, D), generator=g, device=device).to(dtype)
+    perm = torch.randperm(P, generator=g, device=device).to(torch.int32)
+    bt = perm.reshape(R, n)
+    pos = torch.randint(0, n * ps, (R,), generator=g, device=device).to(
+        torch.int32)
+    pos[0] = -1
+    span = torch.arange(n * ps, device=device, dtype=torch.int32)
+    ids_log = torch.where(span[None] <= pos[:, None], span[None], -1)
+    ids = torch.full((P + 1, ps), -1, dtype=torch.int32, device=device)
+    ids[bt.long()] = ids_log.reshape(R, n, ps).to(torch.int32)
+    bt[1, 3:] = P  # a short row: the rest of its table is the null page
+    return q, k, v, ids, bt, pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("shape", [dict(), dict(H=4, Hkv=2, D=16, ps=8),
+                                   dict(H=8, Hkv=8, D=128, ps=4),
+                                   dict(ps=40)])
+def test_paged_attention_equals_plain(cuda, dtype, window, shape):
+    from repro_torch.kernels import paged_attention as PA
+    args = _paged_inputs(cuda, dtype, **shape)
+    before = PA.paged_attention.launches
+    got = PA.paged_attention(*args, window=window)
+    want = PA.paged_attention_ref(*args, window=window)
+    torch.cuda.synchronize()
+    assert PA.paged_attention.launches == before + 1
+    assert got.dtype == dtype
+    assert (got[0] == 0).all()  # pos = -1: exact zeros
+    assert torch.equal(got, want)
+
+
+def test_paged_attention_refuses_bad_input(cuda):
+    from repro_torch.kernels import paged_attention as PA
+    q, k, v, ids, bt, pos = _paged_inputs(cuda, torch.float32)
+    with pytest.raises(ValueError):
+        PA.paged_attention(q, k.to(torch.bfloat16), v, ids, bt, pos)
+    with pytest.raises(ValueError):
+        PA.paged_attention(q, k, v, ids, bt.long(), pos)
+    with pytest.raises(ValueError):
+        PA.paged_attention(q, k, v, ids, bt, pos.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,Hkv,D", [(2, 128, 4, 2, 64), (1, 37, 4, 4, 16),
+                                         (2, 100, 8, 2, 32),
+                                         (1, 130, 4, 1, 128)])
+def test_flash_attention_equals_plain(cuda, dtype, causal, B, S, H, Hkv, D):
+    from repro_torch.kernels import flash_attention as FA
+    g = torch.Generator(device=cuda)
+    g.manual_seed(S)
+    q = torch.randn((B, S, H, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, S, Hkv, D), generator=g, device=cuda).to(dtype)
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=causal)
+    want = FA.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_model_and_engine_on_the_card(cuda):
+    """The reduced llama in float32 on the card: the model through the
+    kernels equals the model through the plain versions bit for bit, and
+    the paged engine's greedy tokens equal the contiguous engine's."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import Model
+    from repro_torch.serve import Engine, Request
+    cfg = registry.get("llama3.2-1b").reduced().replace(dtype="float32")
+    model = Model(cfg, device=cuda).init(0)
+    toks = torch.arange(64, device=cuda).reshape(2, 32) % cfg.vocab_size
+    got, _ = model.apply({"tokens": toks})
+    with attn.plain_kernels():
+        want, _ = model.apply({"tokens": toks})
+    assert torch.equal(got, want)
+    outs = {}
+    for paged in (False, True):
+        eng = Engine(model, batch_slots=2, max_len=64, eos_id=-1,
+                     paged=paged)
+        for rid in range(4):
+            eng.submit(Request(rid, (np.arange(5 + 7 * rid) * 3 + rid)
+                               .astype(np.int32) % cfg.vocab_size,
+                               max_new=12))
+        before = PA.paged_attention.launches
+        eng.run()
+        outs[paged] = {r.rid: tuple(r.out) for r in eng.finished}
+        assert (PA.paged_attention.launches > before) == paged
+    assert outs[True] == outs[False]

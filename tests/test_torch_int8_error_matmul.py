@@ -75,11 +75,12 @@ def test_plain_equals_reference_oracle(M, K, N, profile):
     cdf = jcdf(PROBS[profile])
     want = np.asarray(kref.overscale_matmul_ref(a, b, ug, ub, cdf))
     got = OM.overscale_matmul_ref(_t(a), _t(b), _t(ug), _t(ub),
-                                  OM.bit_probs_to_cdf(PROBS[profile]))
+                                  OM.bit_probs_to_cdf(PROBS[profile], "cpu"))
     np.testing.assert_array_equal(got.numpy(), want)
     c, rs, cs = kref.abft_matmul_ref(a, b, ug, ub, cdf)
-    gc, grs, gcs = AB.abft_matmul_ref(_t(a), _t(b), _t(ug), _t(ub),
-                                      OM.bit_probs_to_cdf(PROBS[profile]))
+    gc, grs, gcs = AB.abft_matmul_ref(
+        _t(a), _t(b), _t(ug), _t(ub),
+        OM.bit_probs_to_cdf(PROBS[profile], "cpu"))
     np.testing.assert_array_equal(gc.numpy(), np.asarray(c))
     np.testing.assert_array_equal(grs.numpy(), np.asarray(rs))
     np.testing.assert_array_equal(gcs.numpy(), np.asarray(cs))
@@ -92,7 +93,7 @@ def test_plain_equals_interpret_mode_kernels(M, K, N):
     probs = PROBS["tail24"]
     out_k = np.asarray(jomm(a, b, ug, ub, jcdf(probs), interpret=True))
     c_k, rs_k, cs_k = jabft(a, b, ug, ub, jcdf(probs), interpret=True)
-    args = (_t(a), _t(b), _t(ug), _t(ub), OM.bit_probs_to_cdf(probs))
+    args = (_t(a), _t(b), _t(ug), _t(ub), OM.bit_probs_to_cdf(probs, "cpu"))
     np.testing.assert_array_equal(ops.overscale_mm(*args).numpy(), out_k)
     got = ops.abft_mm(*args)
     for g, w in zip(got, (c_k, rs_k, cs_k)):
@@ -112,7 +113,7 @@ def test_product_wraps_mod_2_32():
     cdf = jcdf(PROBS["tail24"])
     c, rs, cs = kref.abft_matmul_ref(a, b, ug, ub, cdf)
     got = AB.abft_matmul_ref(_t(a), _t(b), _t(ug), _t(ub),
-                             OM.bit_probs_to_cdf(PROBS["tail24"]))
+                             OM.bit_probs_to_cdf(PROBS["tail24"], "cpu"))
     assert int(got[0][0, 0]) == -2 ** 31
     for g, w in zip(got, (c, rs, cs)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
@@ -130,7 +131,7 @@ def test_bit_index_at_an_exact_cdf_entry():
     ub = np.array([[1 << 30, (1 << 30) - 64, 0xFFFFFFFF]], np.uint32)
     want = np.asarray(kref.overscale_matmul_ref(a, b, ug, ub, jcdf(probs)))
     got = OM.overscale_matmul(_t(a), _t(b), _t(ug), _t(ub),
-                              OM.bit_probs_to_cdf(probs)).numpy()
+                              OM.bit_probs_to_cdf(probs, "cpu")).numpy()
     np.testing.assert_array_equal(got, want)
     assert got.view(np.uint32).tolist() == [[1 << 29, 1 << 28, 1 << 31]]
 
@@ -138,13 +139,13 @@ def test_bit_index_at_an_exact_cdf_entry():
 def test_zero_probs_is_the_exact_product_and_clean_output():
     a, b, ug, ub = _case(64, 64, 64, seed=9)
     c, clean = OM.overscale_matmul(_t(a), _t(b), _t(ug), _t(ub),
-                                   OM.bit_probs_to_cdf(np.zeros(32)),
+                                   OM.bit_probs_to_cdf(np.zeros(32), "cpu"),
                                    return_clean=True)
     exact = a.astype(np.int64) @ b.astype(np.int64)
     np.testing.assert_array_equal(c.numpy(), exact.astype(np.int32))
     np.testing.assert_array_equal(clean.numpy(), c.numpy())
     _, clean = OM.overscale_matmul(_t(a), _t(b), _t(ug), _t(ub),
-                                   OM.bit_probs_to_cdf(PROBS["bit30"]),
+                                   OM.bit_probs_to_cdf(PROBS["bit30"], "cpu"),
                                    return_clean=True)
     np.testing.assert_array_equal(clean.numpy(), exact.astype(np.int32))
 
@@ -156,8 +157,9 @@ def test_flip_rate_tracks_probability():
     rng = np.random.default_rng(51)
     ug, ub = (rng.integers(0, 2 ** 32, (M, N), dtype=np.uint64)
               .astype(np.uint32) for _ in range(2))
-    out = OM.overscale_matmul(_t(a), _t(b), _t(ug), _t(ub),
-                              OM.bit_probs_to_cdf(PROBS["bit30"])).numpy()
+    out = OM.overscale_matmul(
+        _t(a), _t(b), _t(ug), _t(ub),
+        OM.bit_probs_to_cdf(PROBS["bit30"], "cpu")).numpy()
     assert float((out != K).mean()) == pytest.approx(0.05, abs=0.01)
     assert set(np.unique(out ^ K).tolist()) == {0, 1 << 30}
 
@@ -179,16 +181,29 @@ def _profiles():
 def test_bit_probs_to_cdf_bit_for_bit():
     for name, probs in _profiles().items():
         want = np.asarray(jcdf(probs))
-        got = OM.bit_probs_to_cdf(probs).numpy()
+        got = OM.bit_probs_to_cdf(probs, "cpu").numpy()
         assert got.dtype == np.float32
         np.testing.assert_array_equal(got, want, err_msg=name)
     rng = np.random.default_rng(0)
     for _ in range(200):
         probs = rng.uniform(0, 10.0 ** rng.uniform(-6, 0), 32)
-        np.testing.assert_array_equal(OM.bit_probs_to_cdf(probs).numpy(),
-                                      np.asarray(jcdf(probs)))
+        np.testing.assert_array_equal(
+            OM.bit_probs_to_cdf(probs, "cpu").numpy(),
+            np.asarray(jcdf(probs)))
     with pytest.raises(ValueError):
-        OM.bit_probs_to_cdf(np.zeros(16))
+        OM.bit_probs_to_cdf(np.zeros(16), "cpu")
+
+
+def test_bit_probs_to_cdf_device(monkeypatch):
+    """``device="cpu"`` gives the reference's cdf on the CPU; the default
+    is the card, and without one the call raises."""
+    probs = PROBS["tail24"]
+    got = OM.bit_probs_to_cdf(probs, device="cpu")
+    assert got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jcdf(probs)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OM.bit_probs_to_cdf(probs)
 
 
 @pytest.mark.parametrize("shape,scale", [((64, 64), 1.0), ((2048, 9), 3.0),
@@ -270,7 +285,8 @@ def test_random_planes_are_seeded_and_cover_32_bits():
 
 def test_cpu_runs_the_plain_version_and_launches_nothing():
     a, b, ug, ub = _case(16, 16, 16, seed=1)
-    args = (_t(a), _t(b), _t(ug), _t(ub), OM.bit_probs_to_cdf(PROBS["tail24"]))
+    args = (_t(a), _t(b), _t(ug), _t(ub),
+            OM.bit_probs_to_cdf(PROBS["tail24"], "cpu"))
     before = (OM.overscale_matmul.launches, AB.abft_matmul.launches)
     assert torch.equal(OM.overscale_matmul(*args),
                        OM.overscale_matmul_ref(*args))
@@ -280,7 +296,8 @@ def test_cpu_runs_the_plain_version_and_launches_nothing():
 
 def test_other_devices_and_bad_inputs_are_refused():
     a, b, ug, ub = _case(8, 8, 8, seed=1)
-    args = [_t(a), _t(b), _t(ug), _t(ub), OM.bit_probs_to_cdf(np.zeros(32))]
+    args = [_t(a), _t(b), _t(ug), _t(ub),
+            OM.bit_probs_to_cdf(np.zeros(32), "cpu")]
     meta = [x.to("meta") for x in args]
     with pytest.raises(ValueError):
         OM.overscale_matmul(*meta)
