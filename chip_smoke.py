@@ -44,7 +44,17 @@ Phases, each of which exits non-zero on failure:
    held to their plain versions (1e-5 in float32, 5e-2 in bfloat16), timed
    beside the bound, the plain version and one library call
    (``F.scaled_dot_product_attention``, timed only, never used);
-9. serve path: ``Engine`` on llama3.2-1b at full width with random weights
+9. scan kernel vs plain: the Mamba2 SSD-scan kernel at the reference
+   test's shapes and at both recurrent models' prefill shapes (mamba2: 48
+   heads of 64, state 128; zamba2: 64 heads of 64, state 64; chunk 256,
+   S = 256 and 512 at B = 1 and 4, and at B = 1 every prompt length of
+   path 11 that ends inside a 32-row tile), float32 and bfloat16, held to
+   its plain version (tolerance 0: bit for bit, y and the final state) and
+   in float32 to the reference-form ``ssd_chunked`` (2e-4, the reference's
+   kernel-vs-oracle bound), timed beside the bound (C B^T at the peak of
+   the inputs' type, the products with a float32 operand at the float32
+   rate) and the plain version;
+10. serve path: ``Engine`` on llama3.2-1b at full width with random weights
    from a seed. The float32 gate: the paged engine (the paged-attention
    kernel, launched ticks x 16 layers times) serves 8 prompts plus one
    submitted after 10 ticks, token for token equal to the contiguous engine
@@ -56,10 +66,23 @@ Phases, each of which exits non-zero on failure:
    version from the same cache (|d logits| <= 0.06 and top-1 agreement >
    0.95), and the prefill step (B = 4, S = 2048, every position's logits)
    through the flash kernel against the plain version under the same gate;
-10. profile: one warm Table II run, one warm LeNet inference at gamma =
-   1.35, one warm all-decode tick and one prefill-chunk tick of the bf16
-   engine under ``torch.profiler``: device time by kernel and the card's
-   idle share of the wall time.
+   one warm all-decode tick and one prefill-chunk tick of the bf16 engine
+   profiled;
+11. recurrent serve path: the stateful ``Engine`` on mamba2-780m (8 slots,
+   max_len 1024, prompts of 37 to 256 tokens and one of 512, one more
+   after 4 ticks, 32 new tokens each) and zamba2-1.2b (4 slots, four
+   prompts and one late, 16 new tokens) at full width with random weights
+   from a seed. The float32 gate: the engine through the kernels (the scan
+   kernel launched layers x prefills times; zamba2's flash kernel groups x
+   prefills times) serves the same greedy streams as the same engine under
+   ``plain_kernels()``, or a printed near-tie (top-2 margin under 1e-4) at
+   the first differing token. Then bf16 with its times, launches and peak
+   memory, and a ``preempt_to`` mid-run whose resumed streams equal the
+   uninterrupted bf16 run's; one bf16 mamba2 decode tick and one 512-token
+   prefill profiled;
+12. profile: one warm Table II run and one warm LeNet inference at gamma =
+   1.35 under ``torch.profiler``: device time by kernel and the card's idle
+   share of the wall time (the serve profiles run in phases 10 and 11).
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The last lines are the kernel table as one JSON object, the
@@ -157,7 +180,7 @@ def device_phase(torch) -> str:
 
 
 KERNEL_SOURCES = ("thermal_stencil", "int8_error_matmul", "paged_attention",
-                  "flash_attention")
+                  "flash_attention", "mamba_scan")
 
 
 def build_phase() -> None:
@@ -174,6 +197,7 @@ def build_phase() -> None:
 def _wrappers():
     from repro_torch.kernels import abft_matmul as AB
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mamba_scan as MS
     from repro_torch.kernels import overscale_matmul as OM
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import thermal_stencil as TS
@@ -181,7 +205,8 @@ def _wrappers():
             "overscale_matmul": OM.overscale_matmul,
             "abft_matmul": AB.abft_matmul,
             "paged_attention": PA.paged_attention,
-            "flash_attention": FA.flash_attention}
+            "flash_attention": FA.flash_attention,
+            "mamba_scan": MS.mamba_scan}
 
 
 def reset_counts() -> None:
@@ -933,25 +958,28 @@ def serve_prompts(vocab: int):
     return prompts
 
 
-def drive(engine, prompts, late=True):
-    """Submit the prompts (the last after LATE_AT ticks when ``late``), run
-    to the end; return ({rid: tokens}, [(width, tick_s, tokens)], wall)."""
+def drive(engine, prompts, late=True, new=SERVE_NEW, late_at=LATE_AT,
+          hook=None):
+    """Submit the prompts (the last after ``late_at`` ticks when ``late``),
+    run to the end, calling ``hook(engine, ticks_done)`` after each step;
+    return ({rid: tokens}, [(width, tick_s, tokens, admitted)], wall)."""
     from repro_torch.serve import Request
     ticks = []
     engine.on_tick.append(lambda smp: ticks.append(
-        (engine.tick_width, smp.tick_s, smp.tokens)))
+        (engine.tick_width, smp.tick_s, smp.tokens, smp.admitted)))
     first = prompts[:-1] if late else prompts
     for rid, p in enumerate(first):
-        engine.submit(Request(rid, p, max_new=SERVE_NEW))
+        engine.submit(Request(rid, p, max_new=new))
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     n = 0
     while engine.step():
         n += 1
-        if late and n == LATE_AT:
-            engine.submit(Request(len(first), prompts[-1],
-                                  max_new=SERVE_NEW))
+        if late and n == late_at:
+            engine.submit(Request(len(first), prompts[-1], max_new=new))
+        if hook is not None:
+            hook(engine, n)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return {r.rid: list(r.out) for r in engine.finished}, ticks, wall
@@ -975,7 +1003,27 @@ def plain_margin(torch, model, prompt, out, i) -> float:
     return float(top[0] - top[1])
 
 
-def hold_streams(torch, label, model, prompts, got, want) -> int:
+def replay_margin(torch, model, prompt, out, i) -> float:
+    """Top-2 margin of the plain path's logits after the prompt and the
+    first i tokens of the plain run, for the stateful path: the prompt's
+    exact-length prefill, then i one-token steps, at batch 1, through the
+    plain versions (the engine's run had the other slots beside it)."""
+    from repro_torch.models import attention as attn
+    with attn.plain_kernels():
+        logits, cache = model.prefill(
+            {"tokens": torch.as_tensor(prompt, device=DEV)[None]},
+            max_len=len(prompt) + i + 1)
+        last = logits[0, -1]
+        for t in range(i):
+            logits, cache = model.decode(
+                torch.tensor([[out[t]]], device=DEV), cache, len(prompt) + t)
+            last = logits[0, 0]
+    top = torch.topk(last.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def hold_streams(torch, label, model, prompts, got, want,
+                 margin=plain_margin) -> int:
     """Every stream of ``got`` equals ``want``'s, or differs first at a
     near-tie of the plain run; returns the count of equal streams."""
     same = 0
@@ -984,7 +1032,7 @@ def hold_streams(torch, label, model, prompts, got, want) -> int:
         if i is None:
             same += 1
             continue
-        m = plain_margin(torch, model, prompts[rid], w, i)
+        m = margin(torch, model, prompts[rid], w, i)
         print(f"{label}: request {rid} first differs at generated token {i} "
               f"({got[rid][i] if i < len(got[rid]) else None} vs "
               f"{w[i] if i < len(w) else None}); the plain run's top-2 "
@@ -995,14 +1043,18 @@ def hold_streams(torch, label, model, prompts, got, want) -> int:
     return same
 
 
-def _tick_times(ticks):
-    dec = [t for w, t, _ in ticks if w == 1]
-    pre = [t for w, t, _ in ticks if w > 1]
+def _tick_times(ticks, stateful=False):
+    """Tick counts and mean tick times by kind: a prefill tick streams a
+    prompt chunk (width > 1) or, on the stateful path, admits a request
+    (its exact-length prefill runs inside the tick)."""
+    is_pre = lambda w, a: w > 1 or (stateful and a > 0)
+    dec = [t for w, t, _, a in ticks if w == 1 and not is_pre(w, a)]
+    pre = [t for w, t, _, a in ticks if is_pre(w, a)]
     mean = lambda xs: sum(xs) / len(xs) if xs else None
     return {"ticks": len(ticks), "decode_ticks": len(dec),
             "prefill_ticks": len(pre), "decode_tick_s": mean(dec),
             "prefill_tick_s": mean(pre),
-            "tokens": sum(n for _, _, n in ticks)}
+            "tokens": sum(n for _, _, n, _ in ticks)}
 
 
 def bf16_gate(torch, label, got, want) -> dict:
@@ -1044,7 +1096,7 @@ def serve_path(torch) -> dict:
     reset_counts()
     paged, ticks, wall = drive(eng, prompts)
     counts = read_counts()
-    n_ticks = sum(1 for w, _, _ in ticks if w > 0)
+    n_ticks = sum(1 for w, _, _, _ in ticks if w > 0)
     print(f"serve gate float32 paged: wall {wall:.3f} s, {n_ticks} ticks, "
           f"launches {counts}")
     check(counts["paged_attention"] > 0
@@ -1163,6 +1215,259 @@ def serve_path(torch) -> dict:
     out["prefill_ms"] = {"kernel": p_ms, "plain": pp_ms}
     return out
 
+# --- the Mamba2 SSD-scan kernel ---------------------------------------------------
+# (b, S, H, P, G, N, chunk): the reference test's shapes (per-head B and C),
+# then the recurrent models' prefills (one B/C group, chunk 256)
+SCAN_REF_SHAPES = [(2, 128, 4, 16, 4, 32, 32), (2, 256, 8, 32, 8, 64, 64),
+                   (2, 64, 2, 8, 2, 16, 64)]
+SCAN_MODELS = {"mamba2": (48, 64, 128), "zamba2": (64, 64, 64)}  # H, P, N
+SCAN_ARCH = {"mamba2": "mamba2-780m", "zamba2": "zamba2-1.2b"}
+SCAN_PREFILL = [(B, S) for B in (1, 4) for S in (256, 512)]
+SCAN_ORACLE_TOL = 2e-4  # tests/test_kernels.py: kernel vs ssd_chunked
+
+
+def scan_inputs(torch, b, S, H, P, G, N, dtype, g):
+    """The reference test's scales: x 0.5 N(0,1), dt softplus(N(0,1)),
+    A = -exp(0.3 N(0,1)), B and C 0.3 N(0,1)."""
+    r = lambda *shape: torch.randn(shape, generator=g, device=DEV)
+    xh = (0.5 * r(b, S, H, P)).to(dtype)
+    dt = torch.nn.functional.softplus(r(b, S, H)).to(dtype)
+    A = -torch.exp(0.3 * r(H))
+    return (xh, dt, A, (0.3 * r(b, S, G, N)).to(dtype),
+            (0.3 * r(b, S, G, N)).to(dtype))
+
+
+def scan_bound(b, S, H, P, G, N, chunk, dtype, elem):
+    """(ms, "bytes" | "operations"): x, dt, B, C and A read once, y and the
+    final state written once, against the chunk's four products per chunk
+    and head. The lower triangle of C B^T (Q(Q+1)/2 N multiply-adds) takes
+    two operands of the inputs' type, so it is priced at that type's peak
+    (bf16 tensor cores for bf16 inputs); its weighted sum over x, the
+    read-out and the state update (Q(Q+1)/2 P + 2 Q P N) each have a
+    float32 operand (the weights, the state, the decay) and are priced at
+    the float32 rate of the CUDA cores."""
+    Q = min(chunk, S)
+    nbytes = (elem * (2 * b * S * H * P + b * S * H + 2 * b * S * G * N)
+              + 4 * H + 4 * b * H * P * N)
+    flops = 2.0 * (S // Q) * b * H  # per multiply-add, chunk and head
+    t_ops = (flops * (Q * (Q + 1) // 2 * N) / _peak(dtype)
+             + flops * (Q * (Q + 1) // 2 * P + 2 * Q * P * N)
+             / FP32_FLOP_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def scan_kernel_phase(torch) -> dict:
+    """The scan kernel against its plain version (y and the final state, bit
+    for bit) at the reference test's shapes and the models' prefill shapes,
+    both dtypes; against the reference-form ``ssd_chunked`` in float32;
+    then times beside the bound and the plain version. The prefill shapes
+    are S = 256 and 512 at B = 1 and 4, and, at B = 1, every prompt length
+    of the recurrent serve path that ends inside a row tile (Q = S there,
+    so the kernel's masked rows run)."""
+    from repro_torch.kernels import mamba_scan as MS
+    from repro_torch.models import ssm
+    g = torch.Generator(device=DEV)
+    g.manual_seed(29)
+
+    def prefills(name):
+        _, lengths, late, _, _ = REC_SERVE[SCAN_ARCH[name]]
+        ragged = sorted({n for n in [*lengths, late] if n % MS.TILE})
+        return SCAN_PREFILL + [(1, S) for S in ragged]
+
+    cases = [("ref", sh) for sh in SCAN_REF_SHAPES] + [
+        (name, (B, S, H, P, 1, N, 256))
+        for name, (H, P, N) in SCAN_MODELS.items() for B, S in prefills(name)]
+    worst, worst_oracle, rows = 0.0, 0.0, []
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for name, (b, S, H, P, G, N, chunk) in cases:
+            args = scan_inputs(torch, b, S, H, P, G, N, dtype, g)
+            y, st = MS.mamba_scan(*args, chunk=chunk)
+            y_p, st_p = MS.mamba_scan_ref(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            e = max(float((y.float() - y_p.float()).abs().max()),
+                    float((st - st_p).abs().max()))
+            worst = max(worst, e)
+            line = (f"scan {name} {dt} b={b} S={S} H={H} P={P} G={G} N={N} "
+                    f"chunk={chunk}: max|kernel-plain|={e:.3e}")
+            if dt == "float32":
+                heads = torch.arange(H, device=DEV) // (H // G)
+                y_o, st_o = ssm.ssd_chunked(*args[:3], args[3][:, :, heads],
+                                            args[4][:, :, heads], chunk)
+                rel = max(float(((a - o).abs() / (SCAN_ORACLE_TOL
+                                                 + SCAN_ORACLE_TOL * o.abs()))
+                                .max()) for a, o in ((y, y_o), (st, st_o)))
+                worst_oracle = max(worst_oracle, rel)
+                line += (f", max|kernel-ssd_chunked| "
+                         f"{float((y - y_o).abs().max()):.3e} (y), "
+                         f"{float((st - st_o).abs().max()):.3e} (state), "
+                         f"|d| / (atol + rtol|ref|) {rel:.3f}")
+            print(line)
+            if name == "ref":
+                continue
+            k_ms = _time_ms(torch, lambda: MS.mamba_scan(*args, chunk=chunk))
+            p_ms = _time_once_ms(torch, lambda: MS.mamba_scan_ref(
+                *args, chunk=chunk))
+            bound, by = scan_bound(b, S, H, P, G, N, chunk, dt,
+                                   args[0].element_size())
+            rows.append({"model": name, "dtype": dt, "B": b, "S": S, "H": H,
+                         "P": P, "N": N, "chunk": chunk, "ms": k_ms,
+                         "plain_ms": p_ms, "bound_ms": bound,
+                         "bound_by": by, "library_ms": None})
+            print(f"time scan {name} {dt} B={b} S={S}: kernel {k_ms:.5f} ms,"
+                  f" plain {p_ms:.5f} ms, bound {bound:.7f} ms ({by})")
+    print("library: no single PyTorch call computes the chunked SSD scan; "
+          "library_ms is null")
+    # tolerance 0: the plain version repeats the kernel's order of sums
+    check(worst == 0.0, f"scan kernel equals plain bit for bit (max {worst})")
+    check(worst_oracle <= 1.0, f"scan kernel within {SCAN_ORACLE_TOL} of "
+                               f"ssd_chunked in float32 ({worst_oracle:.3f})")
+    return {"max_abs_err": worst, "rows": rows}
+
+
+# --- the recurrent serve path: mamba2-780m and zamba2-1.2b at full width ------
+REC_SERVE = {
+    # arch: (engine kwargs, prompt lengths, late prompt, late after ticks,
+    #        new tokens); 512 = two chunks of the scan, the only length
+    #        above ssm_chunk (256) the reference's stateful engine serves here
+    "mamba2-780m": (dict(batch_slots=8, max_len=1024, eos_id=-1),
+                    [37, 64, 100, 128, 200, 255, 256, 512], 150, 4, 32),
+    "zamba2-1.2b": (dict(batch_slots=4, max_len=1024, eos_id=-1),
+                    [37, 128, 256, 512], 100, 3, 16),
+}
+PROFILE_PREFILL_S = 512
+
+
+def rec_prompts(vocab: int, lengths, late: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n).astype(np.int32)
+            for n in list(lengths) + [late]]
+
+
+def recurrent_serve(torch, arch: str, profile: bool) -> dict:
+    """One recurrent model through the stateful engine: the float32 gate
+    (kernels vs plain versions), the bf16 run, a preemption run, and (for
+    mamba2) the decode-tick and 512-token prefill profiles."""
+    from repro_torch.configs import registry
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import Model
+    from repro_torch.serve import Engine, Request
+    kw, lengths, late, late_at, new = REC_SERVE[arch]
+    cfg = registry.get(arch)
+    prompts = rec_prompts(cfg.vocab_size, lengths, late, SERVE_SEED)
+    n_req = len(prompts)
+    # every layer is a mamba layer; zamba2's one shared attention block runs
+    # after each group of hybrid_attn_every of them
+    layers = cfg.num_layers
+    groups = (cfg.num_layers // cfg.hybrid_attn_every
+              if cfg.family == "hybrid" else 0)
+    run = lambda eng, hook=None: drive(eng, prompts, new=new,
+                                       late_at=late_at, hook=hook)
+    # a tick counts the tokens its decode step samples; each request's
+    # first token comes from its admission's prefill, so count the streams
+    times = lambda ticks, streams: dict(
+        _tick_times(ticks, stateful=True),
+        tokens=sum(len(v) for v in streams.values()))
+    out = {}
+
+    # 1. the float32 gate: the kernels against their plain versions
+    t0 = time.perf_counter()
+    m32 = Model(cfg.replace(dtype="float32")).init(SERVE_SEED)
+    print(f"serve: {arch} ({m32.n_params()} parameters, {cfg.num_layers} "
+          f"mamba layers, {groups} shared-attention groups) float32 from seed "
+          f"{SERVE_SEED} in {time.perf_counter() - t0:.1f} s")
+    eng = Engine(m32, **kw)
+    reset_counts()
+    got, ticks, wall = run(eng)
+    counts = read_counts()
+    print(f"serve {arch} float32 gate through the kernels: wall {wall:.3f} "
+          f"s, {len(ticks)} ticks, launches {counts}")
+    check(counts["mamba_scan"] == layers * n_req,
+          f"{arch}: scan launches == {layers} mamba layers x {n_req} "
+          f"prefills")
+    check(counts["flash_attention"] == groups * n_req,
+          f"{arch}: flash launches == {groups} shared-attention groups x "
+          f"{n_req} prefills")
+    out["gate_counts"] = counts
+    out["gate"] = dict(times(ticks, got), wall_s=wall)
+    del eng
+    with attn.plain_kernels():
+        plain, _, wall_p = run(Engine(m32, **kw))
+    print(f"serve {arch} float32 through the plain versions: wall "
+          f"{wall_p:.3f} s")
+    out["gate_equal_streams"] = hold_streams(
+        torch, f"{arch} float32 kernels vs plain", m32, prompts, got, plain,
+        margin=replay_margin)
+    for rid in sorted(got):
+        print(f"  request {rid} ({len(prompts[rid])} prompt tokens): "
+              f"{got[rid][:8]}...")
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. bf16, the working type; then the same traffic with a preemption
+    m16 = Model(cfg).init(SERVE_SEED)
+    eng = Engine(m16, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    got16, ticks, wall = run(eng)
+    counts = read_counts()
+    tt = times(ticks, got16)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serve {arch} bf16: wall {wall:.3f} s, {tt['tokens']} tokens, "
+          f"{tt['tokens'] / wall:.1f} tokens/s, decode tick "
+          f"{tt['decode_tick_s']:.5f} s ({tt['decode_ticks']}), prefill tick "
+          f"{tt['prefill_tick_s']:.5f} s ({tt['prefill_ticks']}), launches "
+          f"{counts}, peak memory {peak / 2 ** 20:.1f} MiB")
+    check(counts["mamba_scan"] == layers * n_req,
+          f"{arch}: the bf16 run launched the scan kernel per layer and "
+          f"prefill")
+    out["bf16"] = dict(tt, wall_s=wall, tokens_per_s=tt["tokens"] / wall,
+                       counts=counts, peak_memory_bytes=peak)
+    del eng
+    keep = kw["batch_slots"] // 2
+    evicted = []
+
+    def preempt(engine, n):
+        if n == late_at + 4:
+            evicted.append(engine.preempt_to(keep))
+
+    eng = Engine(m16, **kw)
+    resumed, _, wall_r = run(eng, hook=preempt)
+    print(f"serve {arch} bf16 with preempt_to({keep}) after {late_at + 4} "
+          f"ticks: {evicted[0]} requests parked in the host pool and "
+          f"resumed, wall {wall_r:.3f} s")
+    check(evicted[0] > 0 and eng.pool.pages_held == 0,
+          f"{arch}: the preemption parked requests and resumed them all")
+    check(resumed == got16, f"{arch}: the resumed streams equal the "
+                            f"uninterrupted bf16 run's")
+    out["preempt"] = {"evicted": evicted[0], "wall_s": wall_r,
+                      "streams_equal": True}
+    del eng
+
+    if profile:
+        eng = Engine(m16, **kw)
+        for rid in range(kw["batch_slots"]):
+            eng.submit(Request(rid, prompts[3], max_new=64))
+        for _ in range(3):
+            eng.step()  # admits every slot, then decode ticks
+        _profile(torch, f"serve {arch} bf16 all-decode tick "
+                        f"({kw['batch_slots']} x 1)", eng.step)
+        del eng
+        toks = torch.as_tensor(np.random.default_rng(SERVE_SEED + 2).integers(
+            0, cfg.vocab_size, (1, PROFILE_PREFILL_S)), device=DEV)
+        pre = lambda: m16.prefill({"tokens": toks}, max_len=kw["max_len"])
+        pre()
+        torch.cuda.synchronize()
+        _profile(torch, f"{arch} bf16 prefill of {PROFILE_PREFILL_S} tokens",
+                 pre)
+    del m16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
 
 def _kernel_entry(name, source, replaces, launches, err, rep, shapes):
     return {"name": name, "route": "cuda", "source": source,
@@ -1180,19 +1485,34 @@ def main() -> int:
     from repro_torch import resolve_device
     resolve_device(None)
     t_start = time.perf_counter()
-    card = device_phase(torch)
-    build_phase()
-    k = kernel_phase(torch)
-    mp = main_path_phase(torch)
-    osp = overscaling_path(torch)
-    sec5 = sec5_path(torch)
-    mm = int8_kernel_phase(torch, osp["fig8_probs"])
-    att = attention_kernel_phase(torch)
-    serve = serve_path(torch)
-    profile_phase(torch,
-                  mp["runs"]["table2_mkDelayWorker32B"]["stencil_launches"],
-                  osp["params"], osp["fig8_probs"])
+    took = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        took[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    card = timed("device", device_phase, torch)
+    timed("build", build_phase)
+    k = timed("stencil vs plain", kernel_phase, torch)
+    mp = timed("main path", main_path_phase, torch)
+    osp = timed("over-scaling path", overscaling_path, torch)
+    sec5 = timed("§V path", sec5_path, torch)
+    mm = timed("int8 vs plain", int8_kernel_phase, torch, osp["fig8_probs"])
+    att = timed("attention vs plain", attention_kernel_phase, torch)
+    scan = timed("scan vs plain", scan_kernel_phase, torch)
+    serve = timed("serve path", serve_path, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {arch: timed(f"serve {arch}", recurrent_serve, torch, arch,
+                       arch == "mamba2-780m") for arch in REC_SERVE}
+    timed("profile", profile_phase, torch,
+          mp["runs"]["table2_mkDelayWorker32B"]["stencil_launches"],
+          osp["params"], osp["fig8_probs"])
     print(f"serve path: {json.dumps(serve)}")
+    print(f"recurrent serve path: {json.dumps(rec)}")
+    print(f"phase times (s): {json.dumps(took)}")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/csrc/"
     rep_stencil = dict(k["rows"][0], library_ms=None)  # 92x92, B = 1
@@ -1208,6 +1528,10 @@ def main() -> int:
     rep_flash = next(r for r in att["rows"]["flash_attention"]
                      if (r["dtype"], r["S"], r["causal"])
                      == ("bfloat16", FLASH_S[-1], True))
+    # the recurrent serve path's working type: mamba2's 512-token prefill
+    rep_scan = next(r for r in scan["rows"]
+                    if (r["model"], r["dtype"], r["B"], r["S"])
+                    == ("mamba2", "bfloat16", 1, 512))
     print(json.dumps({"kernels": [
         _kernel_entry("thermal_stencil", src + "thermal_stencil.cu",
                       "src/repro/kernels/thermal_stencil.py:82",
@@ -1233,6 +1557,10 @@ def main() -> int:
                       serve["prefill_counts"]["flash_attention"],
                       att["max_abs_err"]["flash_attention"], rep_flash,
                       att["rows"]["flash_attention"]),
+        _kernel_entry("mamba_scan", src + "mamba_scan.cu",
+                      "src/repro/kernels/mamba_scan.py:70",
+                      rec["mamba2-780m"]["gate_counts"]["mamba_scan"],
+                      scan["max_abs_err"], rep_scan, scan["rows"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.abft_matmul import abft_matmul as _abft
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.mamba_scan import mamba_scan as _mamba
 from repro_torch.kernels.overscale_matmul import overscale_matmul as _omm
 from repro_torch.kernels.paged_attention import paged_attention as _paged
 from repro_torch.kernels.thermal_stencil import thermal_stencil as _stencil
@@ -22,6 +23,13 @@ def paged_attention_decode(q, k_pool, v_pool, ids_pool, block_table, pos, *,
     block_table (R, n_pages) physical page ids, pos (R,) query positions."""
     return _paged(q, k_pool, v_pool, ids_pool, block_table, pos,
                   window=window)
+
+
+def mamba_scan_b(xh, dt, A, B, C, *, chunk=256):
+    """Batched SSD scan: xh (b, S, H, P), dt (b, S, H), A (H,), B and C
+    (b, S, G, N) with G dividing H -> (y (b, S, H, P), final state
+    (b, H, P, N) float32). The reference's wrapper returns y alone."""
+    return _mamba(xh, dt, A, B, C, chunk=chunk)
 
 
 def thermal_sweep(T, P, diag, *, g_lat, g_v_tamb, iters=64, phase=None):

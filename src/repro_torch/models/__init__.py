@@ -1,3 +1,4 @@
-"""The model tier of the port, dense family (llama3.2-1b): parameters,
-layers, GQA attention on the flash- and paged-attention kernels, the
-transformer stack and the ``Model`` facade."""
+"""The model tier of the port: parameters, layers, GQA attention on the
+flash- and paged-attention kernels, the Mamba2 block on the SSD-scan kernel,
+the transformer stacks of the dense (llama3.2-1b), ssm (mamba2-780m) and
+hybrid (zamba2-1.2b) families and the ``Model`` facade."""

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import mamba_scan as MS
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models.layers import apply_rope, rms_norm
@@ -36,21 +37,24 @@ from repro_torch.models.params import ParamMeta
 
 NEG_INF = -1e30
 
-#: the attention kernels the model calls (the wrappers of ``kernels.ops``,
-#: which launch the kernel on a CUDA tensor and run the plain version on a
-#: CPU one); :func:`plain_kernels` swaps in the plain versions, so that a run
-#: on the card can be held against them
+#: the kernels the model calls: flash and paged attention here, the Mamba2
+#: scan in ``models/ssm.py`` (the wrappers of ``kernels.ops``, which launch
+#: the kernel on a CUDA tensor and run the plain version on a CPU one);
+#: :func:`plain_kernels` swaps in the plain versions, so that a run on the
+#: card can be held against them
 KERNELS = {"flash": ops.flash_attention_bh,
-           "paged": ops.paged_attention_decode}
+           "paged": ops.paged_attention_decode,
+           "mamba": ops.mamba_scan_b}
 
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Within the block, the model's attention runs the kernels' plain
-    versions on every device."""
+    """Within the block, the model runs the kernels' plain versions on
+    every device."""
     saved = dict(KERNELS)
     KERNELS.update(flash=FA.flash_attention_ref,
-                   paged=PA.paged_attention_ref)
+                   paged=PA.paged_attention_ref,
+                   mamba=MS.mamba_scan_ref)
     try:
         yield
     finally:

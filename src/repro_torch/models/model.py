@@ -1,5 +1,5 @@
 """The model facade (the counterpart of the reference's ``models/model.py``),
-dense family.
+for the dense, ssm and hybrid families.
 
     model = Model(cfg).init(seed)              # random weights, on the card
     model = Model(cfg, device="cpu").load_reference(ref_params)
@@ -8,12 +8,12 @@ dense family.
     logits, cache = model.decode(tokens, cache, pos, n_valid=...)
 
 ``Model`` is an ``nn.Module`` that holds the stacked parameters under the
-reference's tree paths (``blocks.stack.attn.wq``, ...), stored in
-``cfg.param_dtype``. The reference casts each weight to ``cfg.dtype`` at
-every use; the port keeps one cast copy, made when the weights are set,
-which gives the same values (at full width a fresh cast of 1.24 B
-parameters on every tick would move ~7.4 GB). It takes no sharding plan:
-one card has none.
+reference's tree paths (``blocks.stack.attn.wq``, ``blocks.groups.ssm.wB``,
+...), stored in ``cfg.param_dtype``. The reference casts each weight to
+``cfg.dtype`` at every use; the port keeps one cast copy, made when the
+weights are set, which gives the same values (at full width a fresh cast
+of llama3.2-1b's 1.24 B parameters on every tick would move ~7.4 GB). It
+takes no sharding plan: one card has none.
 """
 from __future__ import annotations
 
@@ -29,9 +29,11 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.layers import cdt
 
 # leaves the reference casts to the compute dtype at use; the rest (norm
-# scales and biases, qk-norm scales) it reads in float32
+# scales and biases, qk-norm scales, the mamba blocks' A_log and norm) it
+# reads in float32
 CAST_KEYS = frozenset({"wq", "wk", "wv", "wo", "wg", "wu", "wd", "embedding",
-                       "unembed", "gate"})
+                       "unembed", "gate", "wz", "wx", "wB", "wC", "wdt",
+                       "conv_w", "conv_b", "D", "dt_bias"})
 
 
 class _Tree(nn.Module):
@@ -66,7 +68,7 @@ def _tokens(x, device) -> torch.Tensor:
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        tf._dense_only(cfg)
+        tf.check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self._compute: Optional[Dict[str, Any]] = None
@@ -134,12 +136,15 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode(self, tokens, cache, pos, n_valid=None, block_table=None):
         """Ragged decode: ``pos`` scalar or (B,) per-slot; tokens (B,S),
-        S >= 1; ``n_valid`` (B,) marks real tokens per row. The cache (or,
-        with ``block_table``, the page pool) is updated in place."""
+        S >= 1 for attention stacks and S = 1 for the recurrent families;
+        ``n_valid`` (B,) marks real tokens per row. The cache (or, with
+        ``block_table``, the page pool) is updated in place."""
         return tf.lm_decode(self.params, _tokens(tokens, self.device), cache,
                             pos, self.cfg, n_valid=n_valid,
                             block_table=block_table)
 
-    def cache(self, batch_size: int, max_len: int):
+    def cache(self, batch_size: int, max_len: int, device=None):
+        """The zero decode cache, on the model's device unless ``device``
+        is given (``"meta"`` gives its layout without allocating)."""
         return tf.lm_cache(self.cfg, batch_size, max_len, cdt(self.cfg),
-                           self.device)
+                           device or self.device)

@@ -1,12 +1,17 @@
-"""Block assembly and the full LM forward, prefill and decode, dense family
-(the counterpart of the reference's ``models/transformer.py``).
+"""Block assembly and the full LM forward, prefill and decode for the dense,
+ssm and hybrid families (the counterpart of the reference's
+``models/transformer.py``).
 
 Layer parameters are stacked ``(L, ...)`` as in the reference, so its
 parameter tree carries over as it is; the reference's ``lax.scan`` over the
 stack is a Python loop over layers here (``cfg.scan_layers`` has no
-effect). ``params`` are the parameters in the compute dtype, as
-``Model`` hands them over (norm scales stay in float32). The moe, ssm and
-hybrid families wait for their slices of the port.
+effect). The hybrid stack (zamba2) is the reference's groups: ``(n_groups,
+k, ...)`` stacked mamba layers, each group followed by the one weight-shared
+attention block, then a ``tail`` of the ``num_layers % k`` leftover mamba
+layers (``{}`` when there are none). ``params`` are the parameters in the
+compute dtype, as ``Model`` hands them over (norm scales stay in float32).
+The moe family, MLA and the multimodal families wait for their slices of
+the port.
 """
 from __future__ import annotations
 
@@ -17,16 +22,18 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
-from repro_torch.models.params import stack_tree
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.params import stack_tree, tree_leaves
+
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
-def _dense_only(cfg: ModelConfig):
+def check_supported(cfg: ModelConfig):
+    """Raise for a family or attention the port does not run yet."""
     if cfg.attn_type == "mla":
         attn._not_ported("MLA attention", "deepseek-v2")
-    if cfg.family != "dense":
-        slice_name = {"moe": "mixtral (MoE)", "ssm": "mamba2 (SSM)",
-                      "hybrid": "zamba2 (hybrid)"}.get(
-                          cfg.family, "multimodal")
+    if cfg.family not in FAMILIES:
+        slice_name = {"moe": "mixtral (MoE)"}.get(cfg.family, "multimodal")
         attn._not_ported(f"the {cfg.family} family", slice_name)
 
 
@@ -40,6 +47,19 @@ def layer(stack, i: int):
     if isinstance(stack, dict):
         return {k: layer(v, i) for k, v in stack.items()}
     return stack[i]
+
+
+def depth(stack) -> int:
+    """The leading (stacked-layers) extent of a tree; 0 for ``{}``."""
+    leaves = tree_leaves(stack)
+    return leaves[0].shape[0] if leaves else 0
+
+
+def _stack(trees):
+    """A list of equal trees as one tree with a new leading axis."""
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees])
+            for k, v in trees[0].items()}
 
 
 # =============================================================================
@@ -73,50 +93,113 @@ def attn_block_decode(p, x, cache, pos, cfg, n_valid=None, block_table=None):
     return x + L.mlp_apply(p["mlp"], h, cfg), cache
 
 
+def ssm_block_params(cfg: ModelConfig):
+    return {"ln": L.norm_params(cfg), "ssm": ssm_lib.ssm_params(cfg)}
+
+
+def ssm_block_apply(p, x, cfg):
+    h = L.norm_apply(p["ln"], x, cfg)
+    o, state = ssm_lib.ssm_apply(p["ssm"], h, cfg)
+    return x + o, state
+
+
+def ssm_block_decode(p, x, state, cfg):
+    h = L.norm_apply(p["ln"], x, cfg)
+    o, state = ssm_lib.ssm_decode(p["ssm"], h, state, cfg)
+    return x + o, state
+
+
+def _ssm_stack_apply(stack, x, cfg, states=None):
+    """Run the stacked mamba layers; with a list ``states``, append each
+    layer's final state (the prefill's decode seed) to it."""
+    for i in range(depth(stack)):
+        x, st = ssm_block_apply(layer(stack, i), x, cfg)
+        if states is not None:
+            states.append(st)
+    return x
+
+
+def _ssm_stack_decode(stack, x, cache, cfg):
+    for i in range(depth(stack)):
+        x, _ = ssm_block_decode(layer(stack, i), x, layer(cache, i), cfg)
+    return x
+
+
 # =============================================================================
 # top-level model params
 # =============================================================================
 
-def _uniform_stack_params(cfg: ModelConfig):
-    _dense_only(cfg)
-    one = attn_block_params(cfg)
-    return {"stack": stack_tree(one, cfg.num_layers)}, cfg.num_layers
-
-
 def lm_params(cfg: ModelConfig):
-    blocks, _ = _uniform_stack_params(cfg)
-    return {"embed": L.embed_params(cfg), "final_ln": L.norm_params(cfg),
-            "blocks": blocks}
-
-
-def _n_layers(params) -> int:
-    return params["blocks"]["stack"]["ln1"]["scale"].shape[0]
+    check_supported(cfg)
+    p: Dict[str, Any] = {"embed": L.embed_params(cfg),
+                         "final_ln": L.norm_params(cfg)}
+    if cfg.family == "hybrid":
+        k = cfg.hybrid_attn_every
+        n_groups, rem = divmod(cfg.num_layers, k)
+        p["blocks"] = {
+            "groups": stack_tree(stack_tree(ssm_block_params(cfg), k),
+                                 n_groups),
+            "shared_attn": attn_block_params(cfg),
+            "tail": (stack_tree(ssm_block_params(cfg), rem) if rem
+                     else {}),
+        }
+    else:
+        one = (ssm_block_params(cfg) if cfg.family == "ssm"
+               else attn_block_params(cfg))
+        p["blocks"] = {"stack": stack_tree(one, cfg.num_layers)}
+    return p
 
 
 # =============================================================================
 # forward, prefill, decode
 # =============================================================================
 
+def _hybrid_apply(bp, x, cfg):
+    for g in range(depth(bp["groups"])):
+        x = _ssm_stack_apply(layer(bp["groups"], g), x, cfg)
+        x = attn_block_apply(bp["shared_attn"], x, cfg)
+    return _ssm_stack_apply(bp["tail"], x, cfg)
+
+
 def lm_apply(params, tokens, cfg: ModelConfig):
     """tokens (B,S) -> (logits (B,S,V), aux)."""
-    _dense_only(cfg)
+    check_supported(cfg)
     x = L.embed_apply(params["embed"], tokens, cfg)
-    st = params["blocks"]["stack"]
-    for i in range(_n_layers(params)):
-        x = attn_block_apply(layer(st, i), x, cfg)
+    bp = params["blocks"]
+    if cfg.family == "hybrid":
+        x = _hybrid_apply(bp, x, cfg)
+    elif cfg.family == "ssm":
+        x = _ssm_stack_apply(bp["stack"], x, cfg)
+    else:
+        for i in range(depth(bp["stack"])):
+            x = attn_block_apply(layer(bp["stack"], i), x, cfg)
     x = L.norm_apply(params["final_ln"], x, cfg)
     return L.unembed_apply(params["embed"], x, cfg), zero_aux(x.device)
 
 
 def lm_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
              device=None):
-    """Zero decode cache for the whole stack: every leaf gets a leading
-    layer axis, ``{"stack": {"k", "v": (L, B, T, Hkv, D), "pos_ids":
-    (L, B, T)}}``."""
-    _dense_only(cfg)
-    one = attn.gqa_cache_init(cfg, batch, max_len, dtype, device)
-    return {"stack": {k: v[None].repeat(cfg.num_layers, *([1] * v.dim()))
-                      for k, v in one.items()}}
+    """Zero decode cache for the whole stack, every leaf with its leading
+    layer axes: dense ``{"stack": {"k", "v": (L, B, T, Hkv, D), "pos_ids":
+    (L, B, T)}}``; ssm ``{"stack": {"ssm": (L, B, H, P, N), "conv": (L, B,
+    d_inner, K - 1)}}``; hybrid ``{"groups": (n_groups, k, B, ...) states,
+    "shared_attn": (n_groups, B, T, ...) K/V, "tail": (r, B, ...) states or
+    {}}``."""
+    check_supported(cfg)
+    if cfg.family == "dense":
+        kv = attn.gqa_cache_init(cfg, batch, max_len, dtype, device)
+        return {"stack": _stack([kv] * cfg.num_layers)}
+    state = ssm_lib.ssm_state_init(cfg, batch, dtype, device)
+    if cfg.family == "ssm":
+        return {"stack": _stack([state] * cfg.num_layers)}
+    k = cfg.hybrid_attn_every
+    n_groups, rem = divmod(cfg.num_layers, k)
+    kv = attn.gqa_cache_init(cfg, batch, max_len, dtype, device)
+    return {
+        "groups": _stack([_stack([state] * k)] * n_groups),
+        "shared_attn": _stack([kv] * n_groups),
+        "tail": _stack([state] * rem) if rem else {},
+    }
 
 
 def lm_prefill(params, tokens, cfg: ModelConfig,
@@ -125,16 +208,42 @@ def lm_prefill(params, tokens, cfg: ModelConfig,
 
     ``lengths`` (B,) marks per-row true prompt lengths when the batch is
     right-padded: cache positions past a row's length record
-    ``pos_id = -1``."""
-    _dense_only(cfg)
+    ``pos_id = -1`` (attention caches only: a recurrent state has no
+    position table, so a ragged prefill there runs per request at its exact
+    length). The recurrent states are those the scan ends with, stacked as
+    the reference stacks them."""
+    check_supported(cfg)
     B, S = tokens.shape
     max_len = max_len or S
+    dtype = L.cdt(cfg)
     x = L.embed_apply(params["embed"], tokens, cfg)
-    cache: Dict[str, Any] = lm_cache(cfg, B, max_len, L.cdt(cfg), x.device)
-    st = params["blocks"]["stack"]
-    for i in range(_n_layers(params)):
-        x, kv = attn_block_apply(layer(st, i), x, cfg, collect_kv=True)
-        attn.gqa_seed_cache(layer(cache["stack"], i), kv, S, lengths=lengths)
+    bp = params["blocks"]
+    if cfg.family == "ssm":
+        states = []
+        x = _ssm_stack_apply(bp["stack"], x, cfg, states)
+        cache: Dict[str, Any] = {"stack": _stack(states)}
+    elif cfg.family == "hybrid":
+        n_groups = depth(bp["groups"])
+        shared = _stack([attn.gqa_cache_init(cfg, B, max_len, dtype,
+                                             x.device)] * n_groups)
+        g_states, tail = [], []
+        for g in range(n_groups):
+            states = []
+            x = _ssm_stack_apply(layer(bp["groups"], g), x, cfg, states)
+            g_states.append(_stack(states))
+            x, kv = attn_block_apply(bp["shared_attn"], x, cfg,
+                                     collect_kv=True)
+            attn.gqa_seed_cache(layer(shared, g), kv, S, lengths=lengths)
+        x = _ssm_stack_apply(bp["tail"], x, cfg, tail)
+        cache = {"groups": _stack(g_states), "shared_attn": shared,
+                 "tail": _stack(tail) if tail else {}}
+    else:
+        cache = lm_cache(cfg, B, max_len, dtype, x.device)
+        st = bp["stack"]
+        for i in range(depth(st)):
+            x, kv = attn_block_apply(layer(st, i), x, cfg, collect_kv=True)
+            attn.gqa_seed_cache(layer(cache["stack"], i), kv, S,
+                                lengths=lengths)
     x = L.norm_apply(params["final_ln"], x, cfg)
     return L.unembed_apply(params["embed"], x, cfg), cache
 
@@ -142,16 +251,38 @@ def lm_prefill(params, tokens, cfg: ModelConfig,
 def lm_decode(params, tokens, cache, pos, cfg: ModelConfig, n_valid=None,
               block_table=None):
     """tokens (B,S) -> logits (B,S,V); the cache is updated in place (and
-    returned). ``pos`` is a scalar or a (B,) vector of per-slot positions,
-    S may exceed 1 (a chunked-prefill extend); ``n_valid`` (B,) marks real
-    tokens per row. With ``block_table`` (B, n_pages) int32 the cache is the
-    serving tier's page pool (``lm_cache(cfg, pages, page_size, ...)``)."""
-    _dense_only(cfg)
+    returned). ``pos`` is a scalar or a (B,) vector of per-slot positions.
+    Attention stacks take S > 1 (a chunked-prefill extend) with ``n_valid``
+    (B,) marking real tokens per row, and with ``block_table`` (B, n_pages)
+    int32 the serving tier's page pool (``lm_cache(cfg, pages, page_size,
+    ...)``) as the cache. A recurrent state advances one token per step, so
+    the ssm and hybrid families take S = 1 and the contiguous cache only;
+    ``pos`` and ``n_valid`` reach the hybrid's shared attention."""
+    check_supported(cfg)
     x = L.embed_apply(params["embed"], tokens, cfg)
-    st = params["blocks"]["stack"]
-    for i in range(_n_layers(params)):
-        x, _ = attn_block_decode(layer(st, i), x, layer(cache["stack"], i),
-                                 pos, cfg, n_valid=n_valid,
-                                 block_table=block_table)
+    bp = params["blocks"]
+    if cfg.family != "dense":
+        if block_table is not None or tokens.shape[1] != 1:
+            raise ValueError(
+                f"the {cfg.family} family decodes one token per step on the "
+                f"contiguous cache (got S = {tokens.shape[1]}"
+                f"{', a block table' if block_table is not None else ''})")
+    if cfg.family == "ssm":
+        x = _ssm_stack_decode(bp["stack"], x, cache["stack"], cfg)
+    elif cfg.family == "hybrid":
+        for g in range(depth(bp["groups"])):
+            x = _ssm_stack_decode(layer(bp["groups"], g), x,
+                                  layer(cache["groups"], g), cfg)
+            x, _ = attn_block_decode(bp["shared_attn"], x,
+                                     layer(cache["shared_attn"], g), pos, cfg,
+                                     n_valid=n_valid)
+        x = _ssm_stack_decode(bp["tail"], x, cache["tail"], cfg)
+    else:
+        st = bp["stack"]
+        for i in range(depth(st)):
+            x, _ = attn_block_decode(layer(st, i), x,
+                                     layer(cache["stack"], i), pos, cfg,
+                                     n_valid=n_valid,
+                                     block_table=block_table)
     x = L.norm_apply(params["final_ln"], x, cfg)
     return L.unembed_apply(params["embed"], x, cfg), cache

@@ -19,12 +19,17 @@ step) serve only ``read_rows``/``write_rows``/``restore`` here. Freed and
 trimmed pages get their ``pos_ids`` invalidated before they return to the
 pool.
 
-The reference finds each cache leaf's batch and sequence axes by building
-the abstract cache at two sizes; the port's attention caches have one known
-layout, ``{"stack": {"k", "v": (L, B, T, Hkv, D), "pos_ids": (L, B, T)}}``
-(pages on the batch axis and ``page_size`` entries on the sequence axis in
-the pool), so the axes are 1 and 2. The expandable managers wait for a
-later slice of the port.
+The cache's layout belongs to the model (``models/transformer.lm_cache``):
+``KVCacheManager`` finds each leaf's slot axis as the reference does, by
+building the cache at one and at two slots (on the ``meta`` device, so
+nothing is allocated) and taking the axis where they differ
+(:func:`slot_axes`): axis 1 of the ``(L, B, ...)`` stacks, axis 2 of the
+hybrid's ``(n_groups, k, B, ...)`` group states. Only ``pos_ids`` leaves are
+invalidated when a slot is freed; a recurrent state is overwritten whole
+when its slot is next filled. The paged pool serves attention-only stacks
+(pages on the batch axis and ``page_size`` entries on the sequence axis,
+axis 2); the engine refuses it for the recurrent families, as the reference
+does. The expandable managers wait for a later slice of the port.
 """
 from __future__ import annotations
 
@@ -34,20 +39,34 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-SEQ_AXIS = 2  # of every leaf: (L, batch or pages, sequence, ...)
+SEQ_AXIS = 2  # of every paged-pool leaf: (L, pages, sequence, ...)
 
 
-def tree_map(fn, *trees, _key=None):
-    """``fn(key, *leaves)`` over nested dicts of tensors (``key`` is the
-    leaf's own key, e.g. ``"pos_ids"``)."""
+def tree_map(fn, *trees, _path=()):
+    """``fn(path, *leaves)`` over nested dicts of tensors (``path`` is the
+    tuple of keys down to the leaf, e.g. ``("stack", "pos_ids")``)."""
     if isinstance(trees[0], dict):
-        return {k: tree_map(fn, *(t[k] for t in trees), _key=k)
+        return {k: tree_map(fn, *(t[k] for t in trees), _path=_path + (k,))
                 for k in trees[0]}
-    return fn(_key, *trees)
+    return fn(_path, *trees)
 
 
-def _fill(key) -> int:
-    return -1 if key == "pos_ids" else 0
+def slot_axes(model, max_len: int):
+    """The slot axis of every leaf of ``model.cache``: the one axis where
+    the cache at two slots differs from the cache at one."""
+    one, two = (model.cache(n, max_len, device="meta") for n in (1, 2))
+    return tree_map(lambda path, a, b: next(
+        i for i, (m, n) in enumerate(zip(a.shape, b.shape)) if m != n),
+        one, two)
+
+
+def _slots(axis: int, ids):
+    """Index of the slots ``ids`` along a leaf's slot axis."""
+    return (slice(None),) * axis + (ids,)
+
+
+def _fill(path) -> int:
+    return -1 if path[-1] == "pos_ids" else 0
 
 
 class KVCacheManager:
@@ -60,6 +79,7 @@ class KVCacheManager:
         self.max_len = max_len
         self.page_size = page_size
         self.cache = model.cache(slots, max_len)
+        self.axes = slot_axes(model, max_len)
         # host-side bookkeeping (no device sync needed to schedule)
         self.pos = np.zeros(slots, np.int32)        # next decode position
         self.lengths = np.zeros(slots, np.int32)    # prompt length
@@ -70,11 +90,15 @@ class KVCacheManager:
         self._pages_in_use = 0
 
     def _invalidate(self, cache, slot_ids):
-        """Mark the slots' rows invalid (``pos_ids = -1``), in place."""
-        ids = torch.as_tensor(slot_ids, dtype=torch.long,
-                              device=cache["stack"]["pos_ids"].device)
-        cache["stack"]["pos_ids"][:, ids] = -1
-        return cache
+        """Mark the slots' rows invalid (``pos_ids = -1``), in place; caches
+        without a position table (recurrent states) are left as they are."""
+        def inv(path, leaf, axis):
+            if path[-1] == "pos_ids":
+                leaf[_slots(axis, torch.as_tensor(
+                    slot_ids, dtype=torch.long, device=leaf.device))] = -1
+            return leaf
+
+        return tree_map(inv, cache, self.axes)
 
     # -- slot lifecycle -------------------------------------------------------
     @property
@@ -142,17 +166,20 @@ class KVCacheManager:
         """Scatter cache rows (batch == len(slot_ids)) into slots."""
         ids = list(slot_ids)
 
-        def put(key, leaf, row):
-            leaf[:, ids] = torch.as_tensor(row).to(leaf.device, leaf.dtype)
+        def put(path, leaf, axis, row):
+            leaf[_slots(axis, ids)] = torch.as_tensor(row).to(leaf.device,
+                                                              leaf.dtype)
             return leaf
 
-        tree_map(put, self.cache, rows)
+        tree_map(put, self.cache, self.axes, rows)
 
     def read_rows(self, slot_ids):
         """Gather cache rows (batch == len(slot_ids)) out of slots — the
         device->host read of preemption."""
         ids = list(slot_ids)
-        return tree_map(lambda key, leaf: leaf[:, ids].clone(), self.cache)
+        return tree_map(
+            lambda path, leaf, axis: leaf[_slots(axis, ids)].clone(),
+            self.cache, self.axes)
 
     def restore(self, slot: int, rows, pos: int):
         """Scatter one preempted row set back into a (re)allocated slot and
@@ -193,7 +220,7 @@ class HostPagePool:
 
     def put(self, rid, rows, pos: int, pages: int = 1, *,
             owner=None, page_ids=None, freed: bool = True) -> None:
-        host = tree_map(lambda key, t: t.detach().cpu(), rows)
+        host = tree_map(lambda path, t: t.detach().cpu(), rows)
         self._rows[rid] = (host, int(pos), int(pages))
         self._ledger[rid] = {
             "owner": owner,
@@ -346,7 +373,7 @@ class PagedKVCacheManager:
         bt = torch.as_tensor(bt, dtype=torch.long,
                              device=pool["stack"]["pos_ids"].device)
 
-        def take(key, leaf):
+        def take(path, leaf):
             g = leaf[:, bt]  # (L, n, pages, ps, ...)
             return g.reshape(leaf.shape[0], bt.shape[0],
                              bt.shape[1] * self.page_size, *leaf.shape[3:])
@@ -373,11 +400,11 @@ class PagedKVCacheManager:
                              device=pool["stack"]["pos_ids"].device)
         ps, null = self.page_size, self.null_page
 
-        def put(key, leaf, lg):
+        def put(path, leaf, lg):
             v = torch.as_tensor(lg).to(leaf.device, leaf.dtype)
             leaf[:, bt] = v.reshape(leaf.shape[0], bt.shape[0], bt.shape[1],
                                     ps, *leaf.shape[3:])
-            leaf[:, null] = _fill(key)
+            leaf[:, null] = _fill(path)
             return leaf
 
         return tree_map(put, pool, logical)
@@ -498,14 +525,14 @@ class PagedKVCacheManager:
         ``pos_ids``)."""
         width = self.block_table.shape[1] * self.page_size
 
-        def fit(key, row):
+        def fit(path, row):
             row = torch.as_tensor(row)
             pad = width - row.shape[SEQ_AXIS]
             if pad <= 0:
                 return row
             shape = list(row.shape)
             shape[SEQ_AXIS] = pad
-            return torch.cat([row, torch.full(shape, _fill(key),
+            return torch.cat([row, torch.full(shape, _fill(path),
                                               dtype=row.dtype,
                                               device=row.device)], SEQ_AXIS)
 

@@ -1,14 +1,24 @@
 """Serving engine: continuous batching with per-slot positions (the
-counterpart of the reference's ``serve/engine.py``, ragged path).
+counterpart of the reference's ``serve/engine.py``).
 
 Requests enter a queue; every ``step()`` the engine (1) admits queued
 requests into free cache slots (honouring ``admit_cap``), and (2) advances
-all active slots with ONE model step: chunked-prefill extends for slots
-still consuming their prompt, single-token decode for slots mid-generation,
-sampling on the device and one host sync per tick. Each slot runs at its
-own ``pos`` (the ragged ``pos``/``n_valid`` contract of ``Model.decode``),
-so a request admitted while others are mid-decode produces what it would
-alone.
+all active slots with ONE model step, sampling on the device and one host
+sync per tick. Two scheduling paths, picked by model family as in the
+reference:
+
+- **ragged** (attention-only stacks): the step carries chunked-prefill
+  extends for slots still consuming their prompt and single-token decode
+  for slots mid-generation, each slot at its own ``pos`` (the ragged
+  ``pos``/``n_valid`` contract of ``Model.decode``), so a request admitted
+  while others are mid-decode produces what it would alone;
+- **stateful** (the ssm and hybrid families): a recurrent state would
+  absorb padded prompt tokens, so admission runs an exact-length prefill of
+  the prompt at batch 1 (the SSD-scan kernel in every mamba layer), writes
+  the slot's rows and samples the first token from the last logit; the
+  step is then an S = 1 decode over all slots. The chunked scan takes a
+  prompt of at most ``ssm_chunk`` tokens or a multiple of it, as the
+  reference's does; any other length raises ``ValueError``.
 
 With ``paged=True`` the cache is :class:`~repro_torch.serve.cache.
 PagedKVCacheManager`'s page pool behind per-slot block tables, and the step
@@ -25,10 +35,9 @@ extend, one step scores every draft row, and the accepted prefix (plus the
 bonus token) is what sequential greedy would have produced; the rejected
 tail's pages roll back through the allocator (``trim``).
 
-Only the ragged path (attention-only stacks, no sliding window) is ported;
-the stateful path of the recurrent families and the expandable managers
-wait for later slices. Every ``step()`` emits a ``TickSample`` to the
-``on_tick`` subscribers.
+Paged mode and speculation take the ragged path only, as in the reference.
+Sliding-window stacks and the expandable managers wait for later slices.
+Every ``step()`` emits a ``TickSample`` to the ``on_tick`` subscribers.
 """
 from __future__ import annotations
 
@@ -280,10 +289,17 @@ class Engine:
         return out
 
     def _prefill_into(self, slot: int, req: Request):
-        raise NotImplementedError(
-            "the stateful path (exact-length prefill per request, for the "
-            "recurrent families) is not ported yet: it waits for the SSM "
-            "slice of the port")
+        """Stateful path: exact-length prefill at batch 1, the slot's rows
+        written, the first token sampled from the last logit."""
+        toks = torch.as_tensor(np.asarray(req.prompt, np.int32)[None],
+                               device=self.model.device)
+        logits, rows = self.model.prefill({"tokens": toks},
+                                          max_len=self.max_len)
+        self.mgr.write_rows([slot], rows)
+        self.mgr.advance([slot], [len(req.prompt)])
+        req.fed = len(req.prompt)
+        tok = sample(logits[:, -1], self.gen, self.temperature, self.top_k)
+        self._append(req, slot, int(tok[0]))
 
     # -- speculative drafting -------------------------------------------------
     def _draft(self, req: Request, k: int) -> np.ndarray:

@@ -4,10 +4,13 @@ Run on a machine with a CUDA card: ``pytest -m gpu tests/test_torch_gpu.py``.
 Without one every test here skips (the ``cuda`` fixture decides, at run
 time). The stencil kernel rounds every operation as the plain version does,
 the error-injecting int8 matmuls decide every output in integer arithmetic
-and the reference's float32 rounding, and the attention kernels' plain
-versions repeat the kernels' online softmax one operation at a time in the
-kernels' order, so each must agree with its plain version bit for bit.
+and the reference's float32 rounding, the attention kernels' plain versions
+repeat the kernels' online softmax one operation at a time in the kernels'
+order, and the Mamba2 scan's plain version repeats the kernel's order of
+sums, so each must agree with its plain version bit for bit.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -277,4 +280,88 @@ def test_model_and_engine_on_the_card(cuda):
         eng.run()
         outs[paged] = {r.rid: tuple(r.out) for r in eng.finished}
         assert (PA.paged_attention.launches > before) == paged
+    assert outs[True] == outs[False]
+
+
+def _scan_inputs(b, S, H, P, G, N, dtype, device, seed):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g, device=device)
+    xh = (0.5 * r(b, S, H, P)).to(dtype)
+    dt = torch.nn.functional.softplus(r(b, S, H)).to(dtype)
+    A = -torch.exp(0.3 * r(H))
+    return xh, dt, A, (0.3 * r(b, S, G, N)).to(dtype), \
+        (0.3 * r(b, S, G, N)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,S,H,P,G,N,chunk", [
+    (2, 128, 4, 16, 4, 32, 32), (2, 256, 8, 32, 8, 64, 64),
+    (2, 64, 2, 8, 2, 16, 64),  # the reference test shapes (G = H)
+    (1, 32, 2, 4, 2, 8, 8),  # the sequential-oracle shape
+    (1, 512, 4, 64, 1, 128, 256),  # mamba2's chunk and state, two chunks
+    (2, 256, 4, 64, 1, 64, 256),  # zamba2's
+    (1, 40, 3, 24, 1, 16, 64),  # Q = 40 rows, P = 24: ragged tiles
+    (1, 100, 48, 64, 1, 128, 256),  # mamba2's widths at a ragged prompt
+    (3, 96, 4, 20, 2, 48, 32),  # P-tile edge, groups of 2 heads
+])
+def test_mamba_scan_equals_plain(cuda, dtype, b, S, H, P, G, N, chunk):
+    from repro_torch.kernels import mamba_scan as MS
+    args = _scan_inputs(b, S, H, P, G, N, dtype, cuda, seed=S + P + N)
+    before = MS.mamba_scan.launches
+    y, state = MS.mamba_scan(*args, chunk=chunk)
+    y_p, s_p = MS.mamba_scan_ref(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert MS.mamba_scan.launches == before + 1
+    assert y.dtype == dtype and state.dtype == torch.float32
+    assert torch.equal(y, y_p) and torch.equal(state, s_p)
+
+
+def test_mamba_scan_refuses_bad_input(cuda):
+    from repro_torch.kernels import mamba_scan as MS
+    xh, dt, A, B, C = _scan_inputs(1, 64, 4, 16, 1, 32, torch.float32, cuda,
+                                   seed=1)
+    with pytest.raises(ValueError, match="ssm_chunk"):
+        MS.mamba_scan(xh[:, :40], dt[:, :40], A, B[:, :40], C[:, :40],
+                      chunk=32)
+    with pytest.raises(ValueError):
+        MS.mamba_scan(xh, dt.to(torch.bfloat16), A, B, C, chunk=32)
+    with pytest.raises(ValueError):
+        MS.mamba_scan(xh, dt, A.cpu(), B, C, chunk=32)
+    big = torch.zeros((1, 64, 1, 256), device=cuda)
+    with pytest.raises(ValueError, match="state"):
+        MS.mamba_scan(xh, dt, A, big, big, chunk=32)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_recurrent_model_and_engine_on_the_card(cuda, arch):
+    """The reduced recurrent models in float32 on the card: the forward
+    through the kernels equals the plain versions' bit for bit, and the
+    stateful engine's greedy tokens through the kernels equal those through
+    the plain versions, with one scan launch per mamba layer and prefill."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import mamba_scan as MS
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import Model
+    from repro_torch.serve import Engine, Request
+    cfg = registry.get(arch).reduced().replace(dtype="float32")
+    model = Model(cfg, device=cuda).init(0)
+    toks = torch.arange(128, device=cuda).reshape(2, 64) % cfg.vocab_size
+    got, _ = model.apply({"tokens": toks})
+    with attn.plain_kernels():
+        want, _ = model.apply({"tokens": toks})
+    assert torch.equal(got, want)
+    outs = {}
+    for plain in (False, True):
+        eng = Engine(model, batch_slots=2, max_len=96, eos_id=-1)
+        for rid, n in enumerate((5, 32, 64)):
+            eng.submit(Request(rid, (np.arange(n) * 3 + rid)
+                               .astype(np.int32) % cfg.vocab_size,
+                               max_new=12))
+        before = MS.mamba_scan.launches
+        with attn.plain_kernels() if plain else contextlib.nullcontext():
+            eng.run()
+        outs[plain] = {r.rid: tuple(r.out) for r in eng.finished}
+        assert MS.mamba_scan.launches - before == (
+            0 if plain else 3 * cfg.num_layers)
     assert outs[True] == outs[False]

@@ -1,6 +1,7 @@
 """The port's serving tier (``repro_torch.serve``) against the JAX package
 on ``llama3.2-1b.reduced()`` in float32, the reference's parameters carried
-across.
+across; and the stateful path on ``mamba2-780m.reduced()`` and
+``zamba2-1.2b.reduced()`` (``ssm_chunk`` 32).
 
 Discrete outputs are held equal: the page allocator's and the paged
 manager's bookkeeping on the same churn, and the greedy tokens of the
@@ -10,6 +11,15 @@ greedy run. The clamp scenario (a decode row near ``max_len`` riding a
 prefill tick: the reference's ``_row_update`` clamps the write start and
 the padded tail overwrites live history, ROADMAP queue 3) is reproduced
 token for token, fault included.
+
+On the stateful path the engine's greedy tokens (prompts of 5, 32 and 64
+tokens) equal the JAX engine's, with and without a preemption; the slot
+axes the port's cache manager reads off each leaf's place in the tree equal
+those the reference probes. Two prompt lengths that the reference's
+stateful engine cannot serve fail in the port too (ROADMAP queue 3): 40
+tokens (longer than ``ssm_chunk`` and not a multiple of it) raises
+``ValueError`` where the reference's scan fails to reshape, and 2 tokens
+(fewer than ``ssm_conv - 1``) leaves a conv state that the slot cannot take.
 """
 import jax
 import numpy as np
@@ -24,8 +34,10 @@ from repro.serve.engine import Engine as JEngine, Request as JRequest
 from repro_torch.configs import registry
 from repro_torch.control.telemetry import TickSample
 from repro_torch.models.model import Model
-from repro_torch.serve import (Engine, PageAllocator, PagedKVCacheManager,
-                               Request, make_prefill_step)
+from repro_torch.serve import (Engine, KVCacheManager, PageAllocator,
+                               PagedKVCacheManager, Request,
+                               make_prefill_step)
+from repro_torch.serve.cache import tree_map
 
 ARCH = "llama3.2-1b"
 
@@ -253,3 +265,94 @@ def test_unported_paths_raise(dense):
     swa = Model(cfg.replace(sliding_window=8), device="cpu")
     with pytest.raises(NotImplementedError, match="mixtral"):
         Engine(swa, max_len=64, warmup=False)
+
+
+# --- the stateful path (ssm and hybrid families) ------------------------------
+
+STATEFUL_PROMPTS = (5, 32, 64)
+STATEFUL_KW = dict(batch_slots=2, max_len=96, eos_id=-1, warmup=False)
+
+
+@pytest.fixture(scope="module", params=["mamba2-780m", "zamba2-1.2b"])
+def stateful(request):
+    """(cfg, JAX model, JAX params, the port's model, the JAX engine's
+    greedy tokens), float32."""
+    jcfg = jregistry.get(request.param).reduced().replace(dtype="float32")
+    jm = JModel(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    cfg = registry.get(request.param).reduced().replace(dtype="float32")
+    model = Model(cfg, device="cpu").load_reference(jax.device_get(jp))
+    eng = JEngine(jm, jp, **STATEFUL_KW)
+    for rid, n in enumerate(STATEFUL_PROMPTS):
+        eng.submit(JRequest(rid, _prompt(cfg, rid, n), max_new=10))
+    eng.run()
+    return cfg, jm, jp, model, {r.rid: tuple(r.out) for r in eng.finished}
+
+
+def _stateful_run(cfg, model, preempt_at=None):
+    eng = Engine(model, **STATEFUL_KW)
+    for rid, n in enumerate(STATEFUL_PROMPTS):
+        eng.submit(Request(rid, _prompt(cfg, rid, n), max_new=10))
+    ticks = 0
+    while eng.step():
+        ticks += 1
+        if ticks == preempt_at:
+            assert eng.preempt_to(1) == 1
+    return eng, {r.rid: tuple(r.out) for r in eng.finished}
+
+
+def test_stateful_engine_tokens_equal_reference(stateful):
+    cfg, _, _, model, want = stateful
+    eng, got = _stateful_run(cfg, model)
+    assert got == want
+    assert eng.mgr.pages_in_use == eng.mgr.recount_pages() == 0
+
+
+def test_stateful_preempt_and_resume_equal_reference(stateful):
+    """A slot's recurrent state (and the hybrid's K/V) parks in the host
+    pool and comes back into whichever slot is free: the same tokens."""
+    cfg, _, _, model, want = stateful
+    eng, got = _stateful_run(cfg, model, preempt_at=4)
+    assert got == want
+    assert eng.preempts == 1 and eng.pool.pages_held == 0
+
+
+def _assert_axis(path, leaf, ax, want):
+    assert ax == want and leaf.shape[ax] == 3, path
+
+
+def test_stateful_slot_axes_equal_the_reference_probe(stateful):
+    cfg, jm, _, model, _ = stateful
+    probed = jcache.KVCacheManager(jm, slots=3, max_len=16,
+                                   alloc=False).batch_axes
+    mgr = KVCacheManager(model, slots=3, max_len=16)
+    tree_map(_assert_axis, mgr.cache, mgr.axes,
+             jax.tree_util.tree_map(int, probed))
+    rows = mgr.read_rows([2])
+    mgr.write_rows([0], rows)
+    assert all(torch.equal(a, b) for a, b in zip(
+        jax.tree_util.tree_leaves(mgr.read_rows([0])),
+        jax.tree_util.tree_leaves(rows)))
+
+
+def test_stateful_prompt_length_faults_as_in_the_reference(stateful):
+    cfg, jm, jp, model, _ = stateful
+    for n, want_ref, want_port in ((40, TypeError, ValueError),
+                                   (2, ValueError, RuntimeError)):
+        ref = JEngine(jm, jp, **STATEFUL_KW)
+        ref.submit(JRequest(0, _prompt(cfg, 0, n), max_new=4))
+        with pytest.raises(want_ref):
+            ref.run()
+        eng = Engine(model, **STATEFUL_KW)
+        eng.submit(Request(0, _prompt(cfg, 0, n), max_new=4))
+        with pytest.raises(want_port, match="ssm_chunk" if n == 40
+                           else "shape"):
+            eng.run()
+
+
+def test_stateful_path_refuses_paged_and_speculate(stateful):
+    _, _, _, model, _ = stateful
+    with pytest.raises(ValueError, match="ragged"):
+        Engine(model, paged=True, **STATEFUL_KW)
+    with pytest.raises(ValueError, match="ragged"):
+        Engine(model, speculate=2, **STATEFUL_KW)
