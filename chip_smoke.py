@@ -9,7 +9,7 @@ Phases, each of which exits non-zero on failure:
    version, and TF32 switched off for float32 products (TF32 in the
    prolongation or the coarse inverse moves T by ~1e-3 relative, enough to
    flip a feasibility decision);
-2. build: ``nvcc`` compiles both kernel sources from the repository (one
+2. build: ``nvcc`` compiles every kernel source from the repository (one
    process each, started together) and ``-Xptxas -v`` reports registers,
    shared memory and spills;
 3. stencil vs plain: every grid the main path gives the thermal-stencil
@@ -37,12 +37,16 @@ Phases, each of which exits non-zero on failure:
    paths 5 and 6 and five bit profiles, plus a product whose accumulators
    and checksums wrap (tolerance 0: int32 equality), timed beside the bound
    and, where it accepts the shape, ``torch._int_mm`` (the product alone);
-8. attention kernels vs plain: the paged-attention kernel on decode rows
-   (8 rows over 128 permuted pages, one row at pos = -1, window 0 and 48)
-   and on a flattened 8 x 256 extend, and the flash-attention kernel at
+8. attention kernels vs plain: the paged-attention kernel on split-K
+   decode rows (8 rows over 128 permuted pages, one row at pos = -1,
+   window 0 and 48) and on three chunk forms of the serve path (the first
+   8 x 256 chunk at positions 0-255, the 8 x 256 extend at 256 i, a
+   speculative 4-row chunk per slot), and the flash-attention kernel at
    B = 4, H = 32 / 8 kv heads, S = T in {128, 1000, 2048}, causal and not,
-   held to their plain versions (1e-5 in float32, 5e-2 in bfloat16), timed
-   beside the bound, the plain version and one library call
+   held to their plain versions (1e-5 in float32, 5e-2 in bfloat16) and,
+   in bfloat16, both set beside a float64 softmax attention over the same
+   inputs, and the speculative chunk equal bit for bit to the decode of its
+   rows; timed beside the bound, the plain version and one library call
    (``F.scaled_dot_product_attention``, timed only, never used);
 9. scan kernel vs plain: the Mamba2 SSD-scan kernel at the reference
    test's shapes and at both recurrent models' prefill shapes (mamba2: 48
@@ -62,12 +66,14 @@ Phases, each of which exits non-zero on failure:
    the first differing token; ``speculate=3`` on the two repeating prompts
    gives the same streams. Then the same traffic in bfloat16 with its
    times, launches, peak memory and agreement with the contiguous engine
+   (reported), ``speculate=3`` in bfloat16 against its greedy streams
    (reported), one decode tick through the kernel and through the plain
    version from the same cache (|d logits| <= 0.06 and top-1 agreement >
    0.95), and the prefill step (B = 4, S = 2048, every position's logits)
    through the flash kernel against the plain version under the same gate;
    one warm all-decode tick and one prefill-chunk tick of the bf16 engine
-   profiled;
+   and one warm prefill step profiled (the paged and flash kernels' shares
+   of device time);
 11. recurrent serve path: the stateful ``Engine`` on mamba2-780m (8 slots,
    max_len 1024, prompts of 37 to 256 tokens and one of 512, one more
    after 4 ticks, 32 new tokens each) and zamba2-1.2b (4 slots, four
@@ -691,9 +697,10 @@ def int8_kernel_phase(torch, fig8_probs) -> dict:
     return {"max_abs_err": worst, "rows": rows}
 
 
-def _profile(torch, label: str, run) -> None:
+def _profile(torch, label: str, run) -> dict:
     """Device time by kernel (the torch profiler) and the card's idle share
-    of the wall time of one warm ``run()``."""
+    of the wall time of one warm ``run()``; returns the busy time and each
+    kernel's device time, in ms."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -712,6 +719,15 @@ def _profile(torch, label: str, run) -> None:
           f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / 1e6 / wall:.4f}")
     for e in sorted(events, key=dev, reverse=True)[:12]:
         print(f"  {dev(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    return {"wall_ms": wall * 1e3, "busy_ms": busy_us / 1e3,
+            "kernels_ms": {e.key: dev(e) / 1e3 for e in events}}
+
+
+def _share(prof: dict, name: str) -> float:
+    """The share of a profile's device time in kernels whose name holds
+    ``name``."""
+    ms = sum(v for k, v in prof["kernels_ms"].items() if name in k)
+    return ms / prof["busy_ms"] if prof["busy_ms"] else 0.0
 
 
 def profile_phase(torch, table2_launches: int, lenet_params, fig8_probs):
@@ -743,7 +759,8 @@ def profile_phase(torch, table2_launches: int, lenet_params, fig8_probs):
 ATT_H, ATT_HKV, ATT_D, ATT_PS = 32, 8, 64, 16  # llama3.2-1b's heads, pages
 PAGED_DECODE_POS = [-1, 37, 255, 700, 1000, 1500, 2000, 2047]
 PAGED_N_PAGES = 128  # 2048 positions of 16
-EXTEND_S = 256  # the gate's prefill chunk, 8 slots
+EXTEND_S = 256  # the serve path's prefill chunk, 8 slots
+SPEC_S = 4  # a speculative chunk: the last token and 3 drafts
 FLASH_B, FLASH_S = 4, [128, 1000, 2048]
 ATT_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 
@@ -777,61 +794,101 @@ def _paged_pool(torch, dtype, slot_ends, g):
 
 
 def paged_cases(torch, dtype, g):
-    """{name: (q, k, v, ids, bt, pos)}: the decode rows and the flattened
-    extend of the serving path."""
+    """{name: (q, k, v, ids, bt, pos)} at the serve path's shapes: the
+    decode rows (split-K; one row at pos = -1), and three chunk forms, one
+    table row per slot and S rows at their own positions: the first
+    256-row chunk of 8 prompts (positions 0-255), the 256-row extend of 8
+    slots at 256 i, and a speculative 4-row chunk at the decode
+    positions."""
     k, v, ids, bt = _paged_pool(torch, dtype,
                                 [p + 1 for p in PAGED_DECODE_POS], g)
     pos = torch.tensor(PAGED_DECODE_POS, dtype=torch.int32, device=DEV)
     q = torch.randn((len(PAGED_DECODE_POS), ATT_H, ATT_D), generator=g,
                     device=DEV).to(dtype)
     cases = {"decode": (q, k, v, ids, bt, pos)}
-    starts = [EXTEND_S * i for i in range(8)]  # the chunk just written
-    k, v, ids, bt = _paged_pool(torch, dtype,
-                                [s + EXTEND_S for s in starts], g)
-    pos = (torch.tensor(starts, dtype=torch.int32, device=DEV)[:, None]
-           + torch.arange(EXTEND_S, dtype=torch.int32, device=DEV)[None])
-    q = torch.randn((8 * EXTEND_S, ATT_H, ATT_D), generator=g,
-                    device=DEV).to(dtype)
-    cases["extend"] = (q, k, v, ids, bt.repeat_interleave(EXTEND_S, 0),
-                       pos.reshape(-1).contiguous())
+    top = PAGED_N_PAGES * ATT_PS
+    for name, starts, S in (
+            ("first_chunk", [0] * 8, EXTEND_S),
+            ("extend", [EXTEND_S * i for i in range(8)], EXTEND_S),
+            ("spec", [min(max(p, 0), top - SPEC_S) for p in PAGED_DECODE_POS],
+             SPEC_S)):
+        k, v, ids, bt = _paged_pool(torch, dtype, [s + S for s in starts], g)
+        pos = (torch.tensor(starts, dtype=torch.int32, device=DEV)[:, None]
+               + torch.arange(S, dtype=torch.int32, device=DEV)[None])
+        q = torch.randn((len(starts), S, ATT_H, ATT_D), generator=g,
+                        device=DEV).to(dtype)
+        cases[name] = (q, k, v, ids, bt, pos.contiguous())
     return cases
 
 
+def _visible_keys(torch, ids, bt, pos, window=0):
+    """(B, S, n * ps) bool: the logical cache entries each row may see."""
+    B = bt.shape[0]
+    seen = ids[bt.long()].reshape(B, 1, -1).long()
+    p = pos.reshape(B, -1, 1).long()
+    vis = (seen >= 0) & (seen <= p)
+    if window:
+        vis &= seen > p - window
+    return vis
+
+
 def paged_bound(torch, dtype, q, k, ids, bt, pos, window=0):
-    """(ms, "bytes" | "operations"): the distinct pages the rows' tables
-    name (K, V and ids), q and the output once, against 4 * H * D
-    operations per entry each row may see."""
+    """(ms, "bytes" | "operations"): the distinct pages the tables name
+    (K, V and ids), q and the output once, against 4 * H * D operations per
+    entry each row may see."""
     pages = torch.unique(bt.long())
     page_bytes = 2 * k[0].numel() * k.element_size() + ids.shape[1] * 4
     nbytes = (pages.numel() * page_bytes + 2 * q.numel() * q.element_size()
               + bt.numel() * 4 + pos.numel() * 4)
-    seen = ids[bt.long()].reshape(bt.shape[0], -1)
-    p = pos.long()[:, None]
-    vis = (seen >= 0) & (seen <= p)
-    if window:
-        vis &= seen > p - window
-    ops = 4.0 * q.shape[1] * q.shape[2] * float(vis.sum())
+    vis = _visible_keys(torch, ids, bt, pos, window)
+    ops = 4.0 * q.shape[-2] * q.shape[-1] * float(vis.sum())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / _peak(dtype)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def paged_library_call(torch, q, k, v, ids, bt, pos, rows_per_slot):
+def paged_library_call(torch, q, k, v, ids, bt, pos):
     """One ``F.scaled_dot_product_attention`` over the gathered logical
-    cache with a boolean mask: the slots' tables (one per ``rows_per_slot``
-    rows), their queries as (slots, H, S, D)."""
+    cache with a boolean mask, each slot's rows as (B, H, S, D)."""
     import torch.nn.functional as F
-    slots = bt.shape[0] // rows_per_slot
-    btu = bt[::rows_per_slot].long()
-    n, ps = btu.shape[1], k.shape[1]
-    kl = k[btu].reshape(slots, n * ps, ATT_HKV, ATT_D).transpose(1, 2)
-    vl = v[btu].reshape(slots, n * ps, ATT_HKV, ATT_D).transpose(1, 2)
-    idl = ids[btu].reshape(slots, 1, 1, n * ps)
-    p = pos.reshape(slots, 1, rows_per_slot, 1).long()
-    mask = (idl >= 0) & (idl <= p)
-    ql = q.reshape(slots, rows_per_slot, ATT_H, ATT_D).transpose(1, 2)
+    qc = q[:, None] if q.dim() == 3 else q
+    B, S = qc.shape[:2]
+    n, ps = bt.shape[1], k.shape[1]
+    btl = bt.long()
+    kl = k[btl].reshape(B, n * ps, ATT_HKV, ATT_D).transpose(1, 2)
+    vl = v[btl].reshape(B, n * ps, ATT_HKV, ATT_D).transpose(1, 2)
+    mask = _visible_keys(torch, ids, bt, pos)[:, None]
+    ql = qc.transpose(1, 2)
     return lambda: F.scaled_dot_product_attention(
         ql, kl, vl, attn_mask=mask, enable_gqa=True)
+
+
+def attention64(torch, q, k, v, mask):
+    """softmax(q k^T / sqrt(D)) v in float64 over the same inputs: q
+    (B, S, H, D), k and v (B, T, Hkv, D), mask (B, S, T) bool; a row that
+    sees nothing is 0."""
+    import math
+    H, Hkv = q.shape[2], k.shape[2]
+    heads = torch.arange(H, device=q.device) // (H // Hkv)
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for b in range(q.shape[0]):  # one slot at a time: (H, S, T) in float64
+        qb = q[b].double().transpose(0, 1)
+        kb = k[b][:, heads].double().transpose(0, 1)
+        vb = v[b][:, heads].double().transpose(0, 1)
+        s = (qb @ kb.transpose(1, 2)) / math.sqrt(q.shape[-1])
+        s = s.masked_fill(~mask[b][None], float("-inf"))
+        w = torch.nan_to_num(torch.softmax(s, -1), nan=0.0)
+        out[b] = (w @ vb).transpose(0, 1)
+    return out
+
+
+def paged64(torch, q, k, v, ids, bt, pos):
+    qc = q[:, None] if q.dim() == 3 else q
+    B, n, ps = bt.shape[0], bt.shape[1], k.shape[1]
+    kl = k[bt.long()].reshape(B, n * ps, ATT_HKV, ATT_D)
+    vl = v[bt.long()].reshape(B, n * ps, ATT_HKV, ATT_D)
+    out = attention64(torch, qc, kl, vl, _visible_keys(torch, ids, bt, pos))
+    return out[:, 0] if q.dim() == 3 else out
 
 
 def flash_bound(dtype, B, S, T, causal, elem):
@@ -844,8 +901,9 @@ def flash_bound(dtype, B, S, T, causal, elem):
 
 def attention_kernel_phase(torch) -> dict:
     """Both attention kernels against their plain versions at the serving
-    path's shapes, both dtypes; then times beside the bound, the plain
-    version and the library call."""
+    path's shapes, both dtypes, and in bf16 both against a float64
+    softmax attention over the same inputs; then times beside the bound,
+    the plain version and the library call."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as PA
@@ -858,9 +916,19 @@ def attention_kernel_phase(torch) -> dict:
     def err(a, b):
         return float((a.float() - b.float()).abs().max())
 
+    def vs64(dt, got, want, exact):
+        if dt != "bfloat16":
+            return {}
+        e = {"kernel": err(got, exact), "plain": err(want, exact)}
+        print(f"    vs float64 softmax attention: kernel {e['kernel']:.3e},"
+              f" plain {e['plain']:.3e}")
+        return {"err64_kernel": e["kernel"], "err64_plain": e["plain"]}
+
     for dt in ("float32", "bfloat16"):
         cases = paged_cases(torch, tdt[dt], g)
         for name, args in cases.items():
+            q, k, v, ids, bt, pos = args
+            e64 = {}
             for window in ((0, 48) if name == "decode" else (0,)):
                 got = PA.paged_attention(*args, window=window)
                 want = PA.paged_attention_ref(*args, window=window)
@@ -871,22 +939,32 @@ def attention_kernel_phase(torch) -> dict:
                 if name == "decode":
                     check(bool((got[0] == 0).all()),
                           "paged: the pos = -1 row is exactly zero")
-                print(f"paged {name} {dt} R={args[0].shape[0]} window="
+                print(f"paged {name} {dt} q={tuple(q.shape)} window="
                       f"{window}: max|kernel-plain|={e:.3e}")
-            q, k, v, ids, bt, pos = args
-            per_slot = 1 if name == "decode" else EXTEND_S
+                if window == 0:
+                    e64 = vs64(dt, got, want,
+                               paged64(torch, q, k, v, ids, bt, pos))
+                if name == "spec":  # what greedy decoding of its rows gives
+                    B, S, H, D = q.shape
+                    dec = PA.paged_attention(
+                        q.reshape(B * S, H, D), k, v, ids,
+                        bt.repeat_interleave(S, dim=0), pos.reshape(-1))
+                    check(torch.equal(got.reshape(dec.shape), dec),
+                          f"paged spec {dt}: the chunk equals the decode of "
+                          f"its rows bit for bit")
             k_ms = _time_ms(torch, lambda: PA.paged_attention(*args))
             p_ms = _time_once_ms(torch,
                                  lambda: PA.paged_attention_ref(*args))
-            l_ms = _time_ms(torch, paged_library_call(torch, *args, per_slot))
+            l_ms = _time_ms(torch, paged_library_call(torch, *args))
             bound, by = paged_bound(torch, dt, q, k, ids, bt, pos)
-            rows["paged_attention"].append({
-                "case": name, "dtype": dt, "R": q.shape[0],
-                "n_pages": bt.shape[1], "ms": k_ms, "plain_ms": p_ms,
-                "bound_ms": bound, "bound_by": by, "library_ms": l_ms})
-            print(f"time paged {name} {dt}: kernel {k_ms:.5f} ms, plain "
-                  f"{p_ms:.5f} ms, bound {bound:.7f} ms ({by}), sdpa over "
-                  f"the gathered cache {l_ms:.5f} ms")
+            rows["paged_attention"].append(dict(
+                case=name, dtype=dt, shape=list(q.shape),
+                n_pages=bt.shape[1], ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                bound_by=by, library_ms=l_ms, **e64))
+            print(f"time paged {name} {dt}: kernel {k_ms:.5f} ms "
+                  f"({k_ms / bound:.1f}x the bound), plain {p_ms:.5f} ms, "
+                  f"bound {bound:.7f} ms ({by}), sdpa over the gathered "
+                  f"cache {l_ms:.5f} ms")
         for S in FLASH_S:
             q = torch.randn((FLASH_B, S, ATT_H, ATT_D), generator=g,
                             device=DEV).to(tdt[dt])
@@ -903,8 +981,11 @@ def attention_kernel_phase(torch) -> dict:
                     worst["flash_attention"].get(dt, 0.0), e)
                 print(f"flash {dt} S=T={S} causal={causal}: "
                       f"max|kernel-plain|={e:.3e}")
-                if not (causal or S == FLASH_S[-1]):
-                    continue
+                idx = torch.arange(S, device=DEV)
+                mask = ((idx[None, :] <= idx[:, None]) if causal else
+                        torch.ones((S, S), dtype=torch.bool, device=DEV))
+                e64 = vs64(dt, got, want, attention64(
+                    torch, q, k, v, mask[None].expand(FLASH_B, S, S)))
                 k_ms = _time_ms(torch, lambda: FA.flash_attention(
                     q, k, v, causal=causal))
                 p_ms = _time_once_ms(torch, lambda: FA.flash_attention_ref(
@@ -914,10 +995,10 @@ def attention_kernel_phase(torch) -> dict:
                     qt, kt, vt, is_causal=causal, enable_gqa=True))
                 bound, by = flash_bound(dt, FLASH_B, S, S, causal,
                                         q.element_size())
-                rows["flash_attention"].append({
-                    "dtype": dt, "B": FLASH_B, "S": S, "T": S,
-                    "causal": causal, "ms": k_ms, "plain_ms": p_ms,
-                    "bound_ms": bound, "bound_by": by, "library_ms": l_ms})
+                rows["flash_attention"].append(dict(
+                    dtype=dt, B=FLASH_B, S=S, T=S, causal=causal, ms=k_ms,
+                    plain_ms=p_ms, bound_ms=bound, bound_by=by,
+                    library_ms=l_ms, **e64))
                 print(f"time flash {dt} S=T={S} causal={causal}: kernel "
                       f"{k_ms:.5f} ms, plain {p_ms:.5f} ms, bound "
                       f"{bound:.7f} ms ({by}), sdpa {l_ms:.5f} ms")
@@ -1057,6 +1138,50 @@ def _tick_times(ticks, stateful=False):
             "tokens": sum(n for _, _, n, _ in ticks)}
 
 
+def serve_bf16_run(torch, engine, prompts):
+    """One run of the bf16 traffic (``prompts``, the last one late) through
+    a fresh paged engine (built, and so warmed up, by the caller):
+    ({rid: tokens}, the tick counts and mean tick times with the wall time
+    and tokens/s)."""
+    got, ticks, wall = drive(engine, prompts)
+    tt = _tick_times(ticks)
+    return got, dict(tt, wall_s=wall, tokens_per_s=tt["tokens"] / wall)
+
+
+def prefill_tokens(torch, vocab: int):
+    """The prefill step's seeded tokens, (PREFILL_B, PREFILL_S)."""
+    return torch.as_tensor(np.random.default_rng(SERVE_SEED + 1).integers(
+        0, vocab, (PREFILL_B, PREFILL_S)), device=DEV)
+
+
+def prefill_step(torch, model, toks):
+    """The prefill step on ``toks``: a function of no arguments that runs
+    it."""
+    from repro_torch.serve import make_prefill_step
+    step = make_prefill_step(model, PREFILL_S)
+    return lambda: step({"tokens": toks})
+
+
+def serve_timing(torch) -> dict:
+    """The bf16 serve path's times on their own, for comparing two
+    versions of the package on one card (``tools/serve_ab.py``): llama's
+    bf16 model from the seed, the traffic served once to warm up and once
+    timed (:func:`serve_bf16_run`), and the prefill step over 3 calls after
+    warm-up; with the card's name and power limit."""
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+    from repro_torch.serve import Engine
+    cfg = registry.get(SERVE_ARCH)
+    prompts = serve_prompts(cfg.vocab_size)
+    m16 = Model(cfg).init(SERVE_SEED)
+    for _ in range(2):  # the first run warms up
+        _, tt = serve_bf16_run(
+            torch, Engine(m16, paged=True, **SERVE_KW), prompts)
+    step = prefill_step(torch, m16, prefill_tokens(torch, cfg.vocab_size))
+    return dict(tt, prefill_step_ms=_time_ms(torch, step, 3),
+                card=smi_line())
+
+
 def bf16_gate(torch, label, got, want) -> dict:
     """The reference's bf16 bound between the kernel path and the plain
     path: |d logits| <= 0.06 and top-1 agreement > 0.95 over the rows of
@@ -1079,7 +1204,7 @@ def serve_path(torch) -> dict:
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import attention as attn
     from repro_torch.models.model import Model
-    from repro_torch.serve import Engine, Request, make_prefill_step
+    from repro_torch.serve import Engine, Request
 
     cfg = registry.get(SERVE_ARCH)
     n_layers = cfg.num_layers
@@ -1131,12 +1256,11 @@ def serve_path(torch) -> dict:
     eng = Engine(m16, paged=True, **SERVE_KW)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    got16, ticks, wall = drive(eng, prompts)
+    got16, tt = serve_bf16_run(torch, eng, prompts)
     counts = read_counts()
-    tt = _tick_times(ticks)
     peak = torch.cuda.max_memory_allocated()
-    print(f"serve bf16 paged: wall {wall:.3f} s, {tt['tokens']} tokens, "
-          f"{tt['tokens'] / wall:.1f} tokens/s, decode tick "
+    print(f"serve bf16 paged: wall {tt['wall_s']:.3f} s, {tt['tokens']} "
+          f"tokens, {tt['tokens_per_s']:.1f} tokens/s, decode tick "
           f"{tt['decode_tick_s']:.5f} s ({tt['decode_ticks']}), prefill tick "
           f"{tt['prefill_tick_s']:.5f} s ({tt['prefill_ticks']}), launches "
           f"{counts}, peak memory {peak / 2 ** 20:.1f} MiB")
@@ -1150,20 +1274,47 @@ def serve_path(torch) -> dict:
     print(f"serve bf16 paged vs contiguous (reported): {same} of "
           f"{len(cont16)} streams equal, {agree} of {total} tokens agree "
           f"position by position")
-    out["bf16"] = dict(tt, wall_s=wall, tokens_per_s=tt["tokens"] / wall,
-                       counts=counts, peak_memory_bytes=peak,
+    out["bf16"] = dict(tt, counts=counts, peak_memory_bytes=peak,
                        streams_equal_contiguous=same,
                        tokens_agree_contiguous=agree, tokens_total=total)
+
+    # speculative in bf16 against the greedy streams (reported): a verify
+    # chunk of 4 rows takes its rows' decode arithmetic in the paged kernel
+    eng = Engine(m16, paged=True, speculate=3, **SERVE_KW)
+    spec16, _, wall_s = drive(eng, prompts[:2], late=False)
+    diffs = {rid: _first_diff(spec16[rid], got16[rid]) for rid in spec16}
+    for rid, i in diffs.items():
+        if i is not None:
+            m = plain_margin(torch, m16, prompts[rid], got16[rid], i)
+            print(f"speculative vs greedy bf16: request {rid} first differs "
+                  f"at generated token {i}; the plain run's top-2 margin "
+                  f"there is {m:.3e}")
+    same16 = sum(i is None for i in diffs.values())
+    print(f"serve speculate=3 bf16: wall {wall_s:.3f} s, accepted "
+          f"{eng.spec_accepted} of {eng.spec_proposed} drafts; {same16} of "
+          f"{len(diffs)} streams equal the greedy run's (reported)")
+    out["spec_bf16"] = {"accepted": eng.spec_accepted,
+                        "proposed": eng.spec_proposed, "wall_s": wall_s,
+                        "streams_equal_greedy": same16,
+                        "first_diff": {str(r): i for r, i in diffs.items()}}
+    del eng
 
     # the decode-tick gate and the profile's engine: 8 slots of 256-token
     # prompts, one prefill tick, then decode ticks
     eng = Engine(m16, paged=True, **SERVE_KW)
     for rid in range(SERVE_KW["batch_slots"]):
         eng.submit(Request(rid, prompts[3], max_new=64))
-    _profile(torch, "serve bf16 prefill-chunk tick (8 x 256)", eng.step)
+    prof = _profile(torch, "serve bf16 prefill-chunk tick (8 x 256)",
+                    eng.step)
+    out["prefill_chunk_profile"] = dict(
+        busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
+        paged_ms=prof["busy_ms"] * _share(prof, "paged_"))
     for _ in range(3):
         eng.step()
-    _profile(torch, "serve bf16 all-decode tick (8 x 1)", eng.step)
+    prof = _profile(torch, "serve bf16 all-decode tick (8 x 1)", eng.step)
+    out["decode_tick_profile"] = dict(
+        busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
+        paged_ms=prof["busy_ms"] * _share(prof, "paged_"))
     plan, spec_tick = eng._compose()
     check(plan is not None and not spec_tick and plan.width == 1
           and eng._reserve_pages(plan), "a decode tick to compare")
@@ -1183,13 +1334,12 @@ def serve_path(torch) -> dict:
     del saved
 
     # 4. the prefill step, bf16, through the flash kernel
-    toks = torch.as_tensor(np.random.default_rng(SERVE_SEED + 1).integers(
-        0, cfg.vocab_size, (PREFILL_B, PREFILL_S)), device=DEV)
-    step = make_prefill_step(m16, PREFILL_S)
+    toks = prefill_tokens(torch, cfg.vocab_size)
+    step = prefill_step(torch, m16, toks)
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    last_k, _ = step({"tokens": toks})
+    last_k, _ = step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -1199,11 +1349,18 @@ def serve_path(torch) -> dict:
           "the prefill step launched the flash kernel once per layer")
     out["prefill_counts"] = counts
     del last_k
-    p_ms = _time_ms(torch, lambda: step({"tokens": toks}), 3)
+    p_ms = _time_ms(torch, step, 3)
     with attn.plain_kernels():
-        pp_ms = _time_once_ms(torch, lambda: step({"tokens": toks}))
+        pp_ms = _time_once_ms(torch, step)
     print(f"prefill step bf16: {p_ms:.3f} ms through the kernel, {pp_ms:.3f}"
           f" ms through the plain version")
+    prof = _profile(torch, f"bf16 prefill step B={PREFILL_B} S={PREFILL_S}",
+                    step)
+    share = _share(prof, "flash_attention")
+    print(f"prefill step bf16: the flash kernel takes {share:.4f} of its "
+          f"device time ({prof['busy_ms'] * share:.3f} ms)")
+    out["prefill_profile"] = dict(busy_ms=prof["busy_ms"],
+                                  wall_ms=prof["wall_ms"], flash_share=share)
 
     def full(plain):
         """The logits of every position (the step returns the last)."""

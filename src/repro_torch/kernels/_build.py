@@ -46,7 +46,10 @@ def nvcc() -> str:
 
 def _paths(name: str):
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    # the shared headers too: a source that includes one is rebuilt when it
+    # changes
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     stem = BUILD_DIR / f"{name}-{digest}"
     return src, stem.with_suffix(".so"), stem.with_suffix(".log")

@@ -19,8 +19,10 @@ def flash_attention_bh(q, k, v, *, causal=True):
 
 def paged_attention_decode(q, k_pool, v_pool, ids_pool, block_table, pos, *,
                            window=0):
-    """Paged attention: q (R, H, D), pools (P, ps, Hkv, D) / (P, ps),
-    block_table (R, n_pages) physical page ids, pos (R,) query positions."""
+    """Paged attention: q (R, H, D) rows with block_table (R, n_pages) and
+    pos (R,), or q (B, S, H, D) chunks with block_table (B, n_pages) and
+    pos (B, S) (S rows per slot on the slot's table); pools (P, ps, Hkv, D)
+    / (P, ps)."""
     return _paged(q, k_pool, v_pool, ids_pool, block_table, pos,
                   window=window)
 

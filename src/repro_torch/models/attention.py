@@ -234,8 +234,8 @@ def gqa_decode(p, x, cache, pos, cfg: ModelConfig, n_valid=None,
     (P, page_size): the chunk's logical index ``t`` (the start clamped as
     the contiguous write clamps it) lands at ``(bt[b, t // ps], t % ps)``,
     tails that map to unallocated entries on the inert null page, and the
-    paged-attention kernel reads the pool directly, the (B, S) queries
-    flattened to B * S rows with their slot's table and their own positions:
+    paged-attention kernel reads the pool directly, the (B, S) queries as
+    one chunk per slot with the slot's table and each row's own position:
     the reference's mask over the freshly written cache, without gathering
     a logical cache or scattering it back."""
     if cfg.sliding_window:
@@ -264,12 +264,9 @@ def gqa_decode(p, x, cache, pos, cfg: ModelConfig, n_valid=None,
         cache["k"][page, off] = k_new.to(cache["k"].dtype)
         cache["v"][page, off] = v_new.to(cache["v"].dtype)
         cache["pos_ids"][page, off] = ids
-        H, D = q.shape[2], q.shape[3]
-        o = KERNELS["paged"](
-            q.reshape(B * S, H, D).contiguous(), cache["k"], cache["v"],
-            cache["pos_ids"], block_table.repeat_interleave(S, dim=0),
-            positions.reshape(-1).contiguous())
-        o = o.reshape(B, S, H, D)
+        o = KERNELS["paged"](q.contiguous(), cache["k"], cache["v"],
+                             cache["pos_ids"], block_table,
+                             positions.contiguous())
     return _out(o, p["wo"]), cache
 
 

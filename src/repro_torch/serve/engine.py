@@ -33,7 +33,10 @@ Admission and extension run at page granularity off the actual free list.
 n-gram prompt-lookup drafts ride the ragged contract as an ``S = k+1``
 extend, one step scores every draft row, and the accepted prefix (plus the
 bonus token) is what sequential greedy would have produced; the rejected
-tail's pages roll back through the allocator (``trim``).
+tail's pages roll back through the allocator (``trim``). In paged mode the
+kernel scores a verify chunk of up to 16 rows (k <= 15) with each row's
+decode arithmetic, in float32 and bf16 alike; the other layers' products
+over k+1 rows instead of one may round otherwise, which can move a near-tie.
 
 Paged mode and speculation take the ragged path only, as in the reference.
 Sliding-window stacks and the expandable managers wait for later slices.

@@ -7,7 +7,10 @@ the error-injecting int8 matmuls decide every output in integer arithmetic
 and the reference's float32 rounding, the attention kernels' plain versions
 repeat the kernels' online softmax one operation at a time in the kernels'
 order, and the Mamba2 scan's plain version repeats the kernel's order of
-sums, so each must agree with its plain version bit for bit.
+sums, so each must agree with its plain version bit for bit; the bf16
+tensor-core tiles of flash attention and of the paged extend too, since
+their plain versions sum each m16n8k16 step as the card's tensor cores do
+(``flash_attention.tensor_core_mma``).
 """
 import contextlib
 
@@ -221,6 +224,116 @@ def test_paged_attention_equals_plain(cuda, dtype, window, shape):
     assert torch.equal(got, want)
 
 
+def _chunk_inputs(device, dtype, S, B=3, H=32, Hkv=8, D=64, ps=16, n=8,
+                  seed=5):
+    """Chunks of S rows per slot over a permuted pool: slot b's cache holds
+    positions [0, start_b + valid_b) (its chunk just written, valid_b real
+    rows, the padded tail's entries -1); its rows sit at start_b + s, two of
+    slot 0's swapped (positions need not be consecutive); slot 2's last row
+    is disabled (pos = -1)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + S)
+    P = B * n
+    q = torch.randn((B, S, H, D), generator=g, device=device).to(dtype)
+    k = torch.randn((P + 1, ps, Hkv, D), generator=g, device=device).to(dtype)
+    v = torch.randn((P + 1, ps, Hkv, D), generator=g, device=device).to(dtype)
+    bt = torch.randperm(P, generator=g, device=device).to(torch.int32)
+    bt = bt.reshape(B, n).contiguous()
+    top = n * ps - S
+    start = torch.tensor([top, top // 3, 0], dtype=torch.int32,
+                         device=device)[:B]
+    valid = torch.tensor([S, max(1, S // 2), S], dtype=torch.int32,
+                         device=device)[:B]
+    pos = start[:, None] + torch.arange(S, dtype=torch.int32,
+                                        device=device)[None]
+    if S > 2:
+        pos[0, [0, S - 1]] = pos[0, [S - 1, 0]]
+    pos[-1, -1] = -1
+    span = torch.arange(n * ps, dtype=torch.int32, device=device)[None]
+    ids_log = torch.where(span < (start + valid)[:, None], span, -1)
+    ids = torch.full((P + 1, ps), -1, dtype=torch.int32, device=device)
+    ids[bt.long()] = ids_log.reshape(B, n, ps).to(torch.int32)
+    bt[-1, n // 2:] = P  # a short slot: the rest of its table is null
+    return q, k, v, ids, bt, pos.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("S", [1, 4, 16, 37])
+@pytest.mark.parametrize("shape", [dict(), dict(H=8, Hkv=8, D=128, ps=8),
+                                   dict(H=4, Hkv=2, D=16, ps=40, n=3)])
+def test_paged_attention_chunks_equal_plain(cuda, dtype, window, S, shape):
+    """The chunk form (S rows per slot on the slot's table), decode (S = 1)
+    and extend, bit for bit in both dtypes; and a float32 chunk, or one of
+    at most 16 rows in either dtype (a speculative verify), equals the
+    decode of its rows."""
+    from repro_torch.kernels import paged_attention as PA
+    q, k, v, ids, bt, pos = _chunk_inputs(cuda, dtype, S, **shape)
+    before = PA.paged_attention.launches
+    got = PA.paged_attention(q, k, v, ids, bt, pos, window=window)
+    want = PA.paged_attention_ref(q, k, v, ids, bt, pos, window=window)
+    torch.cuda.synchronize()
+    assert PA.paged_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert (got[-1, -1] == 0).all()  # pos = -1: exact zeros
+    assert torch.equal(got, want)
+    if dtype == torch.float32 or S <= PA.CHUNK_ROWS:
+        B, _, H, D = q.shape
+        rows = PA.paged_attention(
+            q.reshape(B * S, H, D), k, v, ids,
+            bt.repeat_interleave(S, dim=0), pos.reshape(-1), window=window)
+        assert torch.equal(got.reshape(B * S, H, D), rows)
+
+
+def _long_table_inputs(device, dtype, S, H=32, Hkv=8, D=64, ps=16,
+                       n=2600, seed=9):
+    """Two slots over a table of 2600 pages of 16 (41,600 positions), most
+    of it the null page: slot 0 owns pages 0, 1, 1300 and the last three
+    and its S rows end 3 positions before the table's end; slot 1 owns
+    pages 0 and 1300, its rows end at 1300 * 16 + 7, its last row is
+    disabled (pos = -1)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + S)
+    owned = ([0, 1, 1300, n - 3, n - 2, n - 1], [0, 1300])
+    ends = (n * ps - 3, 1300 * ps + 7)
+    P = sum(len(o) for o in owned)
+    q = torch.randn((2, S, H, D), generator=g, device=device).to(dtype)
+    k = torch.randn((P + 1, ps, Hkv, D), generator=g, device=device).to(dtype)
+    v = torch.randn((P + 1, ps, Hkv, D), generator=g, device=device).to(dtype)
+    bt = torch.full((2, n), P, dtype=torch.int32, device=device)
+    ids = torch.full((P + 1, ps), -1, dtype=torch.int32, device=device)
+    page = 0
+    for b, (js, end) in enumerate(zip(owned, ends)):
+        for j in js:
+            bt[b, j] = page
+            span = torch.arange(j * ps, (j + 1) * ps, dtype=torch.int32,
+                                device=device)
+            ids[page] = torch.where(span <= end, span, -1)
+            page += 1
+    pos = (torch.tensor(ends, dtype=torch.int32, device=device)[:, None]
+           - S + 1 + torch.arange(S, dtype=torch.int32, device=device)[None])
+    pos[1, -1] = -1
+    return q, k, v, ids, bt, pos.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("S", [1, 4, 37])
+@pytest.mark.parametrize("D", [64, 128])
+def test_paged_attention_long_table_equals_plain(cuda, dtype, window, S, D):
+    """Tables past 40k positions: a block's shared memory does not grow
+    with the table (it reads the table a window at a time), and every path
+    stays bit for bit equal to its plain version."""
+    from repro_torch.kernels import paged_attention as PA
+    q, k, v, ids, bt, pos = _long_table_inputs(cuda, dtype, S, D=D)
+    got = PA.paged_attention(q, k, v, ids, bt, pos, window=window)
+    want = PA.paged_attention_ref(q, k, v, ids, bt, pos, window=window)
+    torch.cuda.synchronize()
+    assert (got[1, -1] == 0).all()  # pos = -1: exact zeros
+    assert bool(got[0].float().abs().sum() > 0)
+    assert torch.equal(got, want)
+
+
 def test_paged_attention_refuses_bad_input(cuda):
     from repro_torch.kernels import paged_attention as PA
     q, k, v, ids, bt, pos = _paged_inputs(cuda, torch.float32)
@@ -230,6 +343,92 @@ def test_paged_attention_refuses_bad_input(cuda):
         PA.paged_attention(q, k, v, ids, bt.long(), pos)
     with pytest.raises(ValueError):
         PA.paged_attention(q, k, v, ids, bt, pos.cpu())
+
+
+_MMA_PROBE = r"""
+#include <stdint.h>
+extern "C" __global__ void probe(const uint32_t* a, const uint32_t* b,
+                                 float* c, int n) {
+  const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= 32LL * n) return;
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[4 * o]), "+f"(c[4 * o + 1]), "+f"(c[4 * o + 2]),
+        "+f"(c[4 * o + 3])
+      : "r"(a[4 * o]), "r"(a[4 * o + 1]), "r"(a[4 * o + 2]),
+        "r"(a[4 * o + 3]), "r"(b[2 * o]), "r"(b[2 * o + 1]));
+}
+extern "C" int run(const void* a, const void* b, void* c, int n) {
+  probe<<<(32 * n + 127) / 128, 128>>>((const uint32_t*)a,
+                                       (const uint32_t*)b, (float*)c, n);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def test_tensor_core_model_equals_mma_sync(cuda, tmp_path):
+    """The plain versions' model of one m16n8k16 step
+    (``flash_attention.tensor_core_mma``) against the card's mma.sync on
+    8192 random steps (1,048,576 outputs): bf16 inputs with exponents
+    spread over +-12 and an accumulator over +-20, narrow spreads with a
+    large accumulator, and products that cancel; bit for bit."""
+    import ctypes
+    import subprocess
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as FA
+    src = tmp_path / "mma_probe.cu"
+    src.write_text(_MMA_PROBE)
+    lib_path = tmp_path / "mma_probe.so"
+    subprocess.run([_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-o",
+                    str(lib_path), str(src)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.run.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    N, q = 8192, 2048
+
+    def spread(shape, lo, hi):
+        e = torch.randint(lo, hi + 1, shape, generator=g, device=cuda)
+        return torch.randn(shape, generator=g, device=cuda) * torch.exp2(
+            e.float())
+
+    A, B, C = spread((N, 16, 16), 0, 0), spread((N, 16, 8), 0, 0), \
+        4 * spread((N, 16, 8), 0, 0)
+    A[q:2 * q], B[q:2 * q] = spread((q, 16, 16), -12, 12), \
+        spread((q, 16, 8), -12, 12)
+    C[q:2 * q] = spread((q, 16, 8), -20, 20)
+    A[2 * q:3 * q], B[2 * q:3 * q] = spread((q, 16, 16), -2, 2), \
+        spread((q, 16, 8), -2, 2)
+    C[2 * q:3 * q] = spread((q, 16, 8), -4, 12)
+    C[3 * q:] = 0.0
+    B[3 * q:, 8:] = -B[3 * q:, :8]
+    A[3 * q:, :, 8:] = A[3 * q:, :, :8]
+    A[3 * q:, :, 12:] *= 1.5
+    A, B = A.bfloat16(), B.bfloat16()
+    # the fragments of lane l (g = l / 4, t = l % 4): A rows g, g + 8 and
+    # columns 2t, 2t + 1 (+ 8); B rows 2t, 2t + 1 (+ 8) of column g; C rows
+    # g, g + 8 and columns 2t, 2t + 1
+    lane = torch.arange(32, device=cuda)
+    gq, t = lane // 4, lane % 4
+    pair = lambda x0, x1: torch.stack([x0, x1], -1).contiguous().view(
+        torch.int32)[..., 0]
+    a = torch.stack([pair(A[:, r, c], A[:, r, c + 1]) for r, c in (
+        (gq, 2 * t), (gq + 8, 2 * t), (gq, 2 * t + 8), (gq + 8, 2 * t + 8))],
+        -1)
+    b = torch.stack([pair(B[:, 2 * t, gq], B[:, 2 * t + 1, gq]),
+                     pair(B[:, 2 * t + 8, gq], B[:, 2 * t + 9, gq])], -1)
+    cells = ((gq, 2 * t), (gq, 2 * t + 1), (gq + 8, 2 * t),
+             (gq + 8, 2 * t + 1))
+    c = torch.stack([C[:, r, col] for r, col in cells], -1).contiguous()
+    assert lib.run(a.contiguous().data_ptr(), b.contiguous().data_ptr(),
+                   c.data_ptr(), N) == 0
+    D = torch.empty_like(C)
+    for i, (r, col) in enumerate(cells):
+        D[:, r, col] = c[..., i]
+    want = FA.tensor_core_mma(A.float(), B.float(), C)
+    assert torch.equal(D.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -172,6 +172,27 @@ def test_engine_tokens_equal_reference(dense, ref_outs, paged):
     assert eng.mgr.pages_in_use == eng.mgr.recount_pages() == 0
 
 
+def test_paged_engine_sends_chunks(dense, ref_outs, monkeypatch):
+    """The paged engine's tokens equal the JAX engine's with every call of
+    the paged kernel in the chunk form: q (B, S, H, D), one table row per
+    slot, pos (B, S); prefill ticks (S > 1) and decode ticks (S = 1)."""
+    from repro_torch.models import attention as attn
+    cfg, _, _, model = dense
+    seen = []
+    paged = attn.KERNELS["paged"]
+
+    def spy(q, k, v, ids, bt, pos, **kw):
+        assert q.dim() == 4 and bt.shape[0] == q.shape[0]
+        assert tuple(pos.shape) == tuple(q.shape[:2])
+        seen.append(q.shape[1])
+        return paged(q, k, v, ids, bt, pos, **kw)
+
+    monkeypatch.setitem(attn.KERNELS, "paged", spy)
+    _, outs = _outs(cfg, model, paged=True)
+    assert outs == ref_outs
+    assert 1 in seen and max(seen) > 1
+
+
 @pytest.mark.parametrize("paged", [False, True])
 def test_speculate_accepts_the_greedy_prefix(dense, ref_outs, paged):
     cfg, _, _, model = dense
