@@ -11,7 +11,9 @@ Phases, each of which exits non-zero on failure:
    flip a feasibility decision);
 2. build: ``nvcc`` compiles every kernel source from the repository (one
    process each, started together) and ``-Xptxas -v`` reports registers,
-   shared memory and spills;
+   shared memory and spills; ``cuobjdump -sass`` counts each kernel's
+   tensor-core (IMMA, HMMA) and dp4a instructions, and the int8 kernels
+   must run on IMMA with no dp4a left;
 3. stencil vs plain: every grid the main path gives the thermal-stencil
    kernel and both launch shapes (resident and global), both sweep kinds and
    batch sizes 1 and 86, compared with the plain PyTorch version on the same
@@ -34,9 +36,12 @@ Phases, each of which exits non-zero on failure:
    the kernel equal to those through the plain version, and the guard-band
    rails injecting nothing;
 7. int8 kernels vs plain: both error-injecting kernels on every shape of
-   paths 5 and 6 and five bit profiles, plus a product whose accumulators
-   and checksums wrap (tolerance 0: int32 equality), timed beside the bound
-   and, where it accepts the shape, ``torch._int_mm`` (the product alone);
+   paths 5 and 6, three edges (1x1x1, 65x33x127, and 16x8192x64, K split
+   128 ways) and five bit profiles, plus two products whose accumulators
+   wrap, one of them past 2^31 and back (tolerance 0: int32 equality),
+   timed per call and on the card alone (the profiler) beside the bound
+   and, where it accepts the shape, ``torch._int_mm`` (the product alone),
+   each with the tile and split the host's plan picked;
 8. attention kernels vs plain: the paged-attention kernel on split-K
    decode rows (8 rows over 128 permuted pages, one row at pos = -1,
    window 0 and 48) and on three chunk forms of the serve path (the first
@@ -66,8 +71,14 @@ Phases, each of which exits non-zero on failure:
    the first differing token; ``speculate=3`` on the two repeating prompts
    gives the same streams. Then the same traffic in bfloat16 with its
    times, launches, peak memory and agreement with the contiguous engine
-   (reported), ``speculate=3`` in bfloat16 against its greedy streams
-   (reported), one decode tick through the kernel and through the plain
+   (reported), ``speculate=3`` in bfloat16 against a greedy run of the
+   same two prompts (every stream equal) and against the full traffic's
+   streams (reported), the row probe (one verify tick whose drafts are
+   greedy's next 3 tokens against the 4 decode ticks it stands for, layer
+   by layer: with the chunk's products taken whole, the reading, and a
+   column at a time as shipped, logits bit for bit), each product and norm
+   reduction of a layer whole against a column at a time (reported), one
+   decode tick through the kernel and through the plain
    version from the same cache (|d logits| <= 0.06 and top-1 agreement >
    0.95), and the prefill step (B = 4, S = 2048, every position's logits)
    through the flash kernel against the plain version under the same gate;
@@ -189,15 +200,51 @@ KERNEL_SOURCES = ("thermal_stencil", "int8_error_matmul", "paged_attention",
                   "flash_attention", "mamba_scan")
 
 
-def build_phase() -> None:
+SASS_OPS = ("IMMA", "IDP.4A", "HMMA")  # tensor-core int8, dp4a, bf16
+
+
+def sass_counts(lib) -> dict:
+    """{kernel: {op: count}} of the tensor-core and dot-product
+    instructions in a built library (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            for op in SASS_OPS:
+                counts[fn][op] += f" {op}" in line
+    return counts
+
+
+def build_phase() -> dict:
     from repro_torch.kernels import _build
     t0 = time.time()
-    _build.build_all(KERNEL_SOURCES)
+    libs = _build.build_all(KERNEL_SOURCES)
     print(f"build: {', '.join(KERNEL_SOURCES)} in {time.time() - t0:.1f} s")
     for name in KERNEL_SOURCES:
         for line in _build.build_log(name).splitlines():
             if "ptxas info" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    return libs
+
+
+def sass_phase(libs) -> dict:
+    """The tensor-core instructions of every built kernel; the int8 kernels
+    must run on IMMA with no dp4a left."""
+    sass = {name: sass_counts(libs[name]) for name in KERNEL_SOURCES}
+    for name, fns in sass.items():
+        for fn, ops in fns.items():
+            if any(ops.values()):
+                print(f"  sass {name}: {fn[:70]} {ops}")
+    mm = sass["int8_error_matmul"].values()
+    check(sum(c["IMMA"] for c in mm) > 0 and not any(c["IDP.4A"] for c in mm),
+          "the int8 kernels run on IMMA, with no IDP.4A left")
+    return sass
 
 
 def _wrappers():
@@ -258,6 +305,26 @@ def _time_ms(torch, fn, reps: int = 0) -> float:
         one = max(_events_ms(torch, fn, 1), 1e-3)
         reps = int(min(max(100.0 / one, 3), 200))
     return _events_ms(torch, fn, reps)
+
+
+def _graph_ms(torch, fn, calls: int = 20) -> float:
+    """Time per call on the card alone: ``calls`` calls captured in one CUDA
+    graph (after warm-up), the graph replayed 3 times, CUDA events; the
+    host's launch overhead is left out."""
+    side = torch.cuda.Stream()  # warm-up off the default stream, as
+    side.wait_stream(torch.cuda.current_stream())  # capture asks
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return _events_ms(torch, graph.replay, 3) / calls
 
 
 def _time_once_ms(torch, fn) -> float:
@@ -608,10 +675,24 @@ def _mm_bound(M, K, N, sums: bool):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+# edges held bit for bit beside the paths' shapes: ragged tiles, odd K and
+# N (byte loads), and K split 128 ways across CTAs
+MM_EDGES = [(1, 1, 1), (65, 33, 127), (16, 8192, 64)]
+# (name, (M, K, N), B's value over the second half of K (None: -128)):
+# "wrap" adds 2^17 products of 16384 = 2^31, which wraps to -2^31 (and so
+# does every checksum); "wrap-and-return" adds 2^17 of them, passing 2^31,
+# then 2^17 of (-128)(127) = -16256, coming back to 2^17 x 128 = 2^24 (an
+# accumulator that saturates ends at 2^24 - 1)
+WRAP_CASES = [("wrap", (8, 1 << 17, 8), None),
+              ("wrap-and-return", (16, 1 << 18, 16), 127)]
+WRAP_WANT = {"wrap": -2 ** 31, "wrap-and-return": 1 << 24}
+
+
 def int8_kernel_phase(torch, fig8_probs) -> dict:
     """Both error-injecting kernels against their plain versions on every
-    (M, K, N) of the two paths and five bit profiles (tolerance 0), a
-    product whose accumulators and checksums wrap, then times."""
+    (M, K, N) of the two paths and the edges, five bit profiles (tolerance
+    0), and two products whose accumulators wrap, then times beside the
+    bound and ``torch._int_mm``."""
     from repro_torch.core import tpu_fleet as TF
     from repro_torch.kernels import abft_matmul as AB
     from repro_torch.kernels import overscale_matmul as OM
@@ -632,7 +713,7 @@ def int8_kernel_phase(torch, fig8_probs) -> dict:
         return int((x.long() - y.long()).abs().max()) if x.numel() else 0
 
     inputs = {}
-    for (M, K, N) in LENET_MM + LLAMA_MM:
+    for (M, K, N) in LENET_MM + LLAMA_MM + MM_EDGES:
         a = torch.randint(-128, 128, (M, K), dtype=torch.int8, generator=g,
                           device=DEV)
         b = torch.randint(-128, 128, (K, N), dtype=torch.int8, generator=g,
@@ -653,44 +734,64 @@ def int8_kernel_phase(torch, fig8_probs) -> dict:
             worst["overscale_matmul"] = max(worst["overscale_matmul"], e_o)
             worst["abft_matmul"] = max(worst["abft_matmul"], e_a)
             wraps = bool((c.long().sum(1) != abft[1].long()).any())
-            print(f"int8 {M}x{K}x{N} {name}: flipped "
+            print(f"int8 {M}x{K}x{N} {name} ({OM.plan(M, K, N).tile}): flipped "
                   f"{int((c != clean).sum())}, checksums wrap {wraps}, "
                   f"max|kernel-plain| overscale {e_o} abft {e_a}")
-    # K = 2^17 products of (-128)(-128): each accumulator is 2^31 and wraps
-    # to -2^31, and so does every checksum
-    M, K, N = 8, 1 << 17, 8
-    a = torch.full((M, K), -128, dtype=torch.int8, device=DEV)
-    b = torch.full((K, N), -128, dtype=torch.int8, device=DEV)
-    ug, ub = OM.random_planes(g, (M, N), DEV)
     cdf = OM.bit_probs_to_cdf(profiles["fault_0.70V_65C"], DEV)
-    abft = AB.abft_matmul(a, b, ug, ub, cdf)
-    abft_r = AB.abft_matmul_ref(a, b, ug, ub, cdf)
-    e = max(diff(x, y) for x, y in zip(abft, abft_r))
-    worst["abft_matmul"] = max(worst["abft_matmul"], e)
-    print(f"int8 wrap case {M}x{K}x{N}: c[0,0] {int(abft_r[0][0, 0])}, "
-          f"rowsum[0] {int(abft_r[1][0])}, max|kernel-plain| {e}")
-    check(bool((abft_r[0] == -2 ** 31).any()), "the wrap case wraps")
+    for name, (M, K, N), b_half in WRAP_CASES:
+        a = torch.full((M, K), -128, dtype=torch.int8, device=DEV)
+        b = torch.full((K, N), -128, dtype=torch.int8, device=DEV)
+        if b_half:
+            b[K // 2:] = b_half
+        ug, ub = OM.random_planes(g, (M, N), DEV)
+        abft = AB.abft_matmul(a, b, ug, ub, cdf, return_clean=True)
+        abft_r = AB.abft_matmul_ref(a, b, ug, ub, cdf, return_clean=True)
+        c_o = OM.overscale_matmul(a, b, ug, ub, cdf)
+        e = max(diff(x, y) for x, y in zip(abft, abft_r))
+        e_o = diff(c_o, abft_r[0])
+        worst["abft_matmul"] = max(worst["abft_matmul"], e)
+        worst["overscale_matmul"] = max(worst["overscale_matmul"], e_o)
+        clean = int(abft_r[3][0, 0])
+        print(f"int8 {name} {M}x{K}x{N} ({OM.plan(M, K, N)}): clean[0,0] "
+              f"{clean}, rowsum[0] {int(abft_r[1][0])}, max|kernel-plain| "
+              f"abft {e} overscale {e_o}")
+        check(clean == WRAP_WANT[name], f"the {name} case gives "
+                                        f"{WRAP_WANT[name]}")
     check(worst == {"overscale_matmul": 0, "abft_matmul": 0},
           f"int8 kernels equal their plain versions bit for bit ({worst})")
 
     rows = {"overscale_matmul": [], "abft_matmul": []}
     cdf = OM.bit_probs_to_cdf(tail24, DEV)
     for (M, K, N), (a, b, ug, ub) in inputs.items():
+        if (M, K, N) not in LENET_MM + LLAMA_MM:
+            continue  # an edge, held above and not timed
         lib_ok = M > 16 and K % 8 == 0 and N % 8 == 0
         lib_ms = (_time_ms(torch, lambda: torch._int_mm(a, b)) if lib_ok
                   else None)
+        lib_dev = (_graph_ms(torch, lambda: torch._int_mm(a, b)) if lib_ok
+                   else None)
         for name, kern, plain, sums in (
                 ("overscale_matmul", OM.overscale_matmul,
                  OM.overscale_matmul_ref, False),
                 ("abft_matmul", AB.abft_matmul, AB.abft_matmul_ref, True)):
             k_ms = _time_ms(torch, lambda: kern(a, b, ug, ub, cdf))
+            k_dev = _graph_ms(torch, lambda: kern(a, b, ug, ub, cdf))
             p_ms = _time_ms(torch, lambda: plain(a, b, ug, ub, cdf))
             bound, by = _mm_bound(M, K, N, sums)
             rows[name].append({"M": M, "K": K, "N": N, "ms": k_ms,
                                "plain_ms": p_ms, "bound_ms": bound,
-                               "bound_by": by, "library_ms": lib_ms})
-            print(f"time {name} {M}x{K}x{N}: kernel {k_ms:.5f} ms, plain "
-                  f"{p_ms:.5f} ms, bound {bound:.7f} ms ({by}), "
+                               "bound_by": by, "library_ms": lib_ms,
+                               "device_ms": k_dev,
+                               "library_device_ms": lib_dev,
+                               "plan": vars(OM.plan(M, K, N))})
+            print(f"time {name} {M}x{K}x{N}: on the card alone (CUDA graph) "
+                  f"{k_dev:.5f} ms a call ({k_dev / bound:.2f}x bound"
+                  + (f", {k_dev / lib_dev:.3f}x _int_mm's {lib_dev:.5f} ms"
+                     if lib_ok else "") + ")")
+            print(f"time {name} {M}x{K}x{N}: kernel {k_ms:.5f} ms "
+                  f"({k_ms / bound:.2f}x bound"
+                  + (f", {k_ms / lib_ms:.3f}x _int_mm" if lib_ok else "")
+                  + f"), plain {p_ms:.5f} ms, bound {bound:.7f} ms ({by}), "
                   f"torch._int_mm (product only) "
                   + (f"{lib_ms:.5f} ms" if lib_ok else
                      "refuses the shape (needs M > 16, K and N % 8 == 0)"))
@@ -1162,12 +1263,26 @@ def prefill_step(torch, model, toks):
     return lambda: step({"tokens": toks})
 
 
+def spec_bf16_run(torch, model, prompts) -> dict:
+    """One timed run of the two repeating prompts through a fresh bf16
+    paged engine with ``speculate=3``: tokens/s and the drafts accepted."""
+    from repro_torch.serve import Engine
+    eng = Engine(model, paged=True, speculate=3, **SERVE_KW)
+    _, ticks, wall = drive(eng, prompts[:2], late=False)
+    tokens = sum(n for _, _, n, _ in ticks)
+    return {"spec_tokens_per_s": tokens / wall, "spec_wall_s": wall,
+            "spec_ticks": len(ticks), "spec_accepted": eng.spec_accepted,
+            "spec_proposed": eng.spec_proposed}
+
+
 def serve_timing(torch) -> dict:
     """The bf16 serve path's times on their own, for comparing two
     versions of the package on one card (``tools/serve_ab.py``): llama's
     bf16 model from the seed, the traffic served once to warm up and once
-    timed (:func:`serve_bf16_run`), and the prefill step over 3 calls after
-    warm-up; with the card's name and power limit."""
+    timed (:func:`serve_bf16_run`), the speculative run of its two
+    repeating prompts the same way (:func:`spec_bf16_run`), and the prefill
+    step over 3 calls after warm-up; with the card's name and power
+    limit."""
     from repro_torch.configs import registry
     from repro_torch.models.model import Model
     from repro_torch.serve import Engine
@@ -1177,8 +1292,9 @@ def serve_timing(torch) -> dict:
     for _ in range(2):  # the first run warms up
         _, tt = serve_bf16_run(
             torch, Engine(m16, paged=True, **SERVE_KW), prompts)
+        spec = spec_bf16_run(torch, m16, prompts)
     step = prefill_step(torch, m16, prefill_tokens(torch, cfg.vocab_size))
-    return dict(tt, prefill_step_ms=_time_ms(torch, step, 3),
+    return dict(tt, **spec, prefill_step_ms=_time_ms(torch, step, 3),
                 card=smi_line())
 
 
@@ -1197,9 +1313,113 @@ def bf16_gate(torch, label, got, want) -> dict:
     return {"max_abs_diff": d, "top1_agreement": agree, "rows": a.numel()}
 
 
+def row_probe(torch, model, prompts, whole, k=3) -> dict:
+    """One verify tick (width k + 1, the drafts set to greedy's next k
+    tokens) against the k + 1 greedy decode ticks it stands for, from one
+    paged slot state past prefill (the pool restored between the runs),
+    compared layer by layer on the model's tape (``L.TAPE``): the first
+    intermediate where a verify row differs from its decode row and the
+    largest |difference| there. ``whole``: the verify chunk takes every op
+    whole (``L.by_column`` off for the run); else as shipped."""
+    from repro_torch.models import layers as L
+    from repro_torch.serve import Engine, Request
+    eng = Engine(model, paged=True, **SERVE_KW)
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid, p, max_new=SERVE_NEW))
+    while True:
+        eng.step()
+        plan, _ = eng._compose()
+        if plan.width == 1:
+            break
+    live = [w.slot for w in plan.work]
+    for slot in live:  # the pages of all k + 1 rows, for both runs
+        eng.mgr.extend(slot, int(eng.mgr.pos[slot]) + k + 1)
+    pool = eng.mgr.pool["stack"]
+    saved = {name: v.clone() for name, v in pool.items()}
+    step = (plan.n_valid > 0).astype(np.int32)
+    by_column = L.by_column
+    if whole:
+        L.by_column = lambda S: False
+    try:
+        decode, toks = [], plan.tokens.copy()
+        greedy = np.zeros((plan.tokens.shape[0], k + 1), np.int32)
+        for j in range(k + 1):
+            L.TAPE = []
+            logits = eng.step_logits(toks, plan.pos + j * step, plan.n_valid)
+            decode.append(L.TAPE)
+            greedy[:, j] = toks[:, 0]
+            toks = logits.argmax(-1).to(torch.int32).cpu().numpy()
+        for name, v in saved.items():
+            pool[name].copy_(v)
+        L.TAPE = []
+        eng.step_logits(greedy, plan.pos, step * (k + 1))
+        verify = L.TAPE
+    finally:
+        L.TAPE = None
+        L.by_column = by_column
+    first, layer, logits_equal = None, -1, True
+    for i, (name, v) in enumerate(verify):
+        layer += name == "ln1"
+        for j in range(k + 1):
+            d_name, d = decode[j][i]
+            check(d_name == name, f"the probe's tapes line up ({d_name} vs "
+                                  f"{name})")
+            got, want = v[live, j].float(), d[live, 0].float()
+            if not torch.equal(got, want):
+                logits_equal &= name != "logits"
+                if first is None:
+                    first = {"layer": layer, "name": name, "row": j,
+                             "max_abs_diff": float((got - want).abs().max())}
+    how = "every op whole" if whole else "as shipped"
+    print(f"row probe bf16 ({how}, {len(live)} slots, {k + 1} rows, "
+          f"{len(verify)} intermediates): "
+          + ("every verify row equals its decode row" if first is None else
+             f"first differs at layer {first['layer']} {first['name']} (row "
+             f"{first['row']}), max|d| {first['max_abs_diff']:.4e}")
+          + f"; logits equal {logits_equal}")
+    return {"first_diff": first, "logits_equal": logits_equal}
+
+
+def isolated_ops(torch, model, B=8, S=4) -> dict:
+    """Each product and norm reduction of a llama layer on one seeded bf16
+    input (B, S, width), whole against a column at a time: which of them
+    round a row otherwise in a chunk of S rows than alone."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tf
+    p = model.params
+    lay = tf.layer(p["blocks"]["stack"], 0)
+    d = model.cfg.d_model
+    emb = p["embed"]["embedding"]
+    ops = {
+        "norm (mean of squares)": (d, lambda t: t.float().square().mean(
+            -1, keepdim=True)),
+        "q": (d, lambda t: attn._proj(t, lay["attn"]["wq"])),
+        "k": (d, lambda t: attn._proj(t, lay["attn"]["wk"])),
+        "v": (d, lambda t: attn._proj(t, lay["attn"]["wv"])),
+        "o": (d, lambda t: t @ lay["attn"]["wo"].reshape(-1, d)),
+        "gate": (d, lambda t: t @ lay["mlp"]["wg"]),
+        "up": (d, lambda t: t @ lay["mlp"]["wu"]),
+        "down": (model.cfg.d_ff, lambda t: t @ lay["mlp"]["wd"]),
+        "unembed": (d, lambda t: t @ emb.T),
+    }
+    g = torch.Generator(device=DEV)
+    g.manual_seed(SERVE_SEED + 5)
+    out = {}
+    for name, (width, fn) in ops.items():
+        x = torch.randn((B, S, width), generator=g, device=DEV).to(emb.dtype)
+        whole = fn(x)
+        cols = L.join([fn(t) for t in L.columns(x, True)])
+        out[name] = float((whole.float() - cols.float()).abs().max())
+        print(f"isolated {name} ({B} x {S} rows): max|whole - by column| "
+              f"{out[name]:.4e}")
+    return out
+
+
 def serve_path(torch) -> dict:
     """The serving tier at full width: the float32 gate and speculative
-    run, the bf16 run, the bf16 decode-tick gate, the bf16 prefill gate."""
+    run, the bf16 run, the bf16 speculative gate and row probe, the bf16
+    decode-tick gate, the bf16 prefill gate."""
     from repro_torch.configs import registry
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import attention as attn
@@ -1278,26 +1498,42 @@ def serve_path(torch) -> dict:
                        streams_equal_contiguous=same,
                        tokens_agree_contiguous=agree, tokens_total=total)
 
-    # speculative in bf16 against the greedy streams (reported): a verify
-    # chunk of 4 rows takes its rows' decode arithmetic in the paged kernel
+    # speculative in bf16 against greedy on the same traffic (the gate: a
+    # verify row takes its decode row's arithmetic in every layer), and
+    # against the full traffic's streams (reported: bf16 streams depend on
+    # what else shares the batch)
+    greedy16, _, _ = drive(Engine(m16, paged=True, **SERVE_KW), prompts[:2],
+                           late=False)
     eng = Engine(m16, paged=True, speculate=3, **SERVE_KW)
     spec16, _, wall_s = drive(eng, prompts[:2], late=False)
+    same16 = sum(spec16[rid] == greedy16[rid] for rid in greedy16)
+    print(f"serve speculate=3 bf16: wall {wall_s:.3f} s, accepted "
+          f"{eng.spec_accepted} of {eng.spec_proposed} drafts; {same16} of "
+          f"{len(greedy16)} streams equal a greedy run of the same traffic")
     diffs = {rid: _first_diff(spec16[rid], got16[rid]) for rid in spec16}
     for rid, i in diffs.items():
         if i is not None:
             m = plain_margin(torch, m16, prompts[rid], got16[rid], i)
-            print(f"speculative vs greedy bf16: request {rid} first differs "
-                  f"at generated token {i}; the plain run's top-2 margin "
-                  f"there is {m:.3e}")
-    same16 = sum(i is None for i in diffs.values())
-    print(f"serve speculate=3 bf16: wall {wall_s:.3f} s, accepted "
-          f"{eng.spec_accepted} of {eng.spec_proposed} drafts; {same16} of "
-          f"{len(diffs)} streams equal the greedy run's (reported)")
-    out["spec_bf16"] = {"accepted": eng.spec_accepted,
-                        "proposed": eng.spec_proposed, "wall_s": wall_s,
-                        "streams_equal_greedy": same16,
-                        "first_diff": {str(r): i for r, i in diffs.items()}}
+            print(f"speculative (2 prompts) vs greedy (9 prompts) bf16, "
+                  f"reported: request {rid} first differs at generated token "
+                  f"{i}; the plain run's top-2 margin there is {m:.3e}")
+    print(f"speculative (2 prompts) vs greedy (9 prompts) bf16, reported: "
+          f"{sum(i is None for i in diffs.values())} of {len(diffs)} streams "
+          f"equal")
+    out["spec_bf16"] = {
+        "accepted": eng.spec_accepted, "proposed": eng.spec_proposed,
+        "wall_s": wall_s, "streams_equal_greedy_same_traffic": same16,
+        "streams_equal_full_traffic": sum(i is None for i in diffs.values()),
+        "first_diff_full_traffic": {str(r): i for r, i in diffs.items()}}
+    check(same16 == len(greedy16), "bf16 speculate=3 equals greedy on the "
+                                   "same traffic in every stream")
     del eng
+    out["row_probe"] = {
+        label: row_probe(torch, m16, prompts[:2], whole)
+        for label, whole in (("one product", True), ("by column", False))}
+    check(out["row_probe"]["by column"]["logits_equal"],
+          "bf16 verify rows equal their decode rows bit for bit (logits)")
+    out["isolated_ops"] = isolated_ops(torch, m16)
 
     # the decode-tick gate and the profile's engine: 8 slots of 256-token
     # prompts, one prefill tick, then decode ticks
@@ -1651,7 +1887,7 @@ def main() -> int:
         return out
 
     card = timed("device", device_phase, torch)
-    timed("build", build_phase)
+    timed("build", lambda: sass_phase(build_phase()))
     k = timed("stencil vs plain", kernel_phase, torch)
     mp = timed("main path", main_path_phase, torch)
     osp = timed("over-scaling path", overscaling_path, torch)

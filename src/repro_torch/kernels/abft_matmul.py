@@ -54,8 +54,8 @@ def abft_matmul(a, b, u_gate, u_bit, cdf, *, return_clean: bool = False):
     M, K, N = check_inputs(a, b, u_gate, u_bit, cdf)
     c = torch.empty((M, N), dtype=torch.int32, device=a.device)
     clean = torch.empty_like(c) if return_clean else None
-    rowsum = torch.zeros(M, dtype=torch.int32, device=a.device)
-    colsum = torch.zeros(N, dtype=torch.int32, device=a.device)
+    sums = torch.zeros(M + N, dtype=torch.int32, device=a.device)
+    rowsum, colsum = sums[:M], sums[M:]  # zeroed by one launch
     if M and N:
         launch("abft_matmul_launch", a, b, u_gate, u_bit, cdf,
                (c, clean, rowsum, colsum))

@@ -19,8 +19,10 @@ version ``overscale_matmul_ref``, a CUDA tensor to the hand-written kernel
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -84,13 +86,90 @@ def overscale_matmul_ref(a, b, u_gate, u_bit, cdf, *,
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
     lib = _build.load(_KERNEL)
-    lib.overscale_matmul_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    tail = [ctypes.c_int] * 8 + [ctypes.c_void_p]  # M K N tile per aw bw vec
+    lib.overscale_matmul_launch.argtypes = [ctypes.c_void_p] * 9 + tail
     lib.overscale_matmul_launch.restype = ctypes.c_int
-    lib.abft_matmul_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.abft_matmul_launch.argtypes = [ctypes.c_void_p] * 11 + tail
     lib.abft_matmul_launch.restype = ctypes.c_int
     return lib
+
+
+# --- the kernel's plan (tiles, split-K, load widths) ---------------------------
+
+#: the kernel's output tiles (BM, BN), in the order of its ``tile`` argument:
+#: llama's products, M <= 64 (48 tokens), and LeNet's narrow N
+TILES = {"wide": (128, 128), "short": (64, 128), "n16": (256, 16),
+         "n8": (256, 8)}
+_TILE_IDS = {name: i for i, name in enumerate(TILES)}
+BK = 64  # values of K per tile
+SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one call runs: the tile, K split ``splits`` ways of ``per``
+    64-deep tiles each, A loaded ``a_width`` bytes at a time (16, 8 or 1)
+    and B ``b_width`` (16, 8, 4 or 1)."""
+    tile: str
+    splits: int
+    per: int
+    a_width: int
+    b_width: int
+
+
+def _align(ptr: int, cap: int = 16) -> int:
+    """The largest power of two up to ``cap`` that divides ``ptr``."""
+    return cap if ptr % cap == 0 else ptr & -ptr
+
+
+@functools.lru_cache(maxsize=256)
+def plan(M: int, K: int, N: int, sms: int = SMS, a_align: int = 16,
+         b_align: int = 16) -> Plan:
+    """The tile for the output's shape, and K split across CTAs where the
+    output tiles are fewer than ``sms``; loads as wide as the row pitch
+    (K for A, N for B) and the operands' alignment allow."""
+    if N <= 8:
+        tile = "n8"
+    elif N <= 16:
+        tile = "n16"
+    elif M <= 64:
+        tile = "short"
+    else:
+        tile = "wide"
+    BM, BN = TILES[tile]
+    tiles = -(-M // BM) * -(-N // BN)
+    kt = max(1, -(-K // BK))
+    want = 1 if tiles >= sms else min(kt, sms // tiles)
+    per = -(-kt // want)
+    a_width = next(w for w in (16, 8, 1) if K % w == 0 and a_align % w == 0)
+    b_width = next(w for w in (16, 8, 4, 1)
+                   if w <= BN and N % w == 0 and b_align % w == 0)
+    return Plan(tile, -(-kt // per), per, a_width, b_width)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(device, stream: int, tickets: int, partials: int):
+    """The split-K scratch of one (device, stream): a zeroed int32 buffer of
+    at least ``tickets`` tickets and an int32 buffer of at least
+    ``partials`` partial sums, each grown as needed and kept (one entry per
+    stream that ever ran a split-K call): the kernel leaves every ticket it
+    takes at zero, the partials live only within one launch, and calls on
+    one stream run in order."""
+    key = (device, stream)
+    t, p = _SCRATCH.get(key, (None, None))
+    if t is None or t.numel() < tickets:
+        t = torch.zeros(tickets, dtype=torch.int32, device=device)
+    if p is None or p.numel() < partials:
+        p = torch.empty(partials, dtype=torch.int32, device=device)
+    _SCRATCH[key] = t, p
+    return t, p
 
 
 def check_inputs(a, b, u_gate, u_bit, cdf) -> Tuple[int, int, int]:
@@ -101,6 +180,17 @@ def check_inputs(a, b, u_gate, u_bit, cdf) -> Tuple[int, int, int]:
                          f"form a matrix product")
     M, K = a.shape
     N = b.shape[1]
+    dev = a.device
+    if (b.dtype is torch.int8 and a.dtype is torch.int8
+            and u_gate.dtype is torch.int32 and u_bit.dtype is torch.int32
+            and cdf.dtype is torch.float32 and u_gate.shape == (M, N)
+            and u_bit.shape == (M, N) and cdf.shape == (33,)
+            and b.device == dev and u_gate.device == dev
+            and u_bit.device == dev and cdf.device == dev
+            and a.is_contiguous() and b.is_contiguous()
+            and u_gate.is_contiguous() and u_bit.is_contiguous()
+            and cdf.is_contiguous() and max(M, K, N) < 2 ** 31):
+        return M, K, N  # the common case, checked in one pass
     for x, name, dtype, shape in ((a, "a", torch.int8, (M, K)),
                                   (b, "b", torch.int8, (K, N)),
                                   (u_gate, "u_gate", torch.int32, (M, N)),
@@ -108,7 +198,7 @@ def check_inputs(a, b, u_gate, u_bit, cdf) -> Tuple[int, int, int]:
                                   (cdf, "cdf", torch.float32, (33,))):
         if x.device != a.device:
             raise ValueError(f"{name} is on {x.device}, a on {a.device}")
-        if x.dtype != dtype or tuple(x.shape) != shape:
+        if x.dtype != dtype or x.shape != shape:
             raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
                              f"{x.dtype} {tuple(x.shape)}")
         if not x.is_contiguous():
@@ -119,16 +209,30 @@ def check_inputs(a, b, u_gate, u_bit, cdf) -> Tuple[int, int, int]:
 
 
 def launch(entry: str, a, b, u_gate, u_bit, cdf, outputs) -> None:
-    """Launch one entry point of the kernel on the current stream; raise if
-    the launch is refused."""
+    """Launch one entry point of the kernel on the current stream with the
+    shape's plan; raise if the launch is refused."""
     M, K = a.shape
     N = b.shape[1]
-    ptr = lambda x: None if x is None else x.data_ptr()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    dev = a.device.index
+    pa, pb = a.data_ptr(), b.data_ptr()
+    p = plan(M, K, N, _sms(dev), _align(pa), _align(pb))
+    ptrs = [None if x is None else x.data_ptr() for x in outputs]
+    planes = [u_gate.data_ptr(), u_bit.data_ptr(), *ptrs[:2]]
+    vec = int(N % 4 == 0 and all(x % 16 == 0 for x in planes if x))
+    with (contextlib.nullcontext() if dev == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        stream = torch._C._cuda_getCurrentRawStream(dev)
+        partial = tickets = None
+        if p.splits > 1:
+            BM, BN = TILES[p.tile]
+            tickets, partial = _scratch(a.device, stream,
+                                        -(-M // BM) * -(-N // BN),
+                                        p.splits * M * N)
         err = getattr(_lib(), entry)(
-            a.data_ptr(), b.data_ptr(), u_gate.data_ptr(), u_bit.data_ptr(),
-            cdf.data_ptr(), *(ptr(x) for x in outputs), M, K, N, stream)
+            pa, pb, planes[0], planes[1], cdf.data_ptr(), *ptrs,
+            None if partial is None else partial.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), M, K, N,
+            _TILE_IDS[p.tile], p.per, p.a_width, p.b_width, vec, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {err}")
 

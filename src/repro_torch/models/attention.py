@@ -32,6 +32,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import mamba_scan as MS
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.models import layers as L
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.params import ParamMeta
 
@@ -136,19 +137,22 @@ def _proj(x, w):
         *x.shape[:-1], w.shape[1], w.shape[2])
 
 
-def _qkv(p, x, kv_x, cfg: ModelConfig):
+def _qkv(p, x, kv_x, cfg: ModelConfig, cols: bool = False):
+    """The projections; ``cols``: the qk-norms' means a column at a time
+    (``L.by_column``)."""
     q = _proj(x, p["wq"])
     k = _proj(kv_x, p["wk"])
     v = _proj(kv_x, p["wv"])
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return q, k, v
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps, cols)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps, cols)
+    return L.tap("q", q), L.tap("k", k), L.tap("v", v)
 
 
 def _out(o, wo):
     """o (B, S, H, D) @ wo (H, D, d) -> (B, S, d)."""
-    return o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+    return L.tap("o",
+                 o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1]))
 
 
 def _sdpa(q, k, v, mask):
@@ -223,7 +227,7 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 def gqa_decode(p, x, cache, pos, cfg: ModelConfig, n_valid=None,
-               block_table=None):
+               block_table=None, cols: bool = False):
     """Ragged decode/extend. x (B,S,D); pos: scalar or (B,) per-slot
     position. Appends S new tokens per row at that row's own offset, in
     place; ``n_valid`` (B,) marks how many of the S tokens are real per row
@@ -237,11 +241,15 @@ def gqa_decode(p, x, cache, pos, cfg: ModelConfig, n_valid=None,
     paged-attention kernel reads the pool directly, the (B, S) queries as
     one chunk per slot with the slot's table and each row's own position:
     the reference's mask over the freshly written cache, without gathering
-    a logical cache or scattering it back."""
+    a logical cache or scattering it back.
+
+    ``cols``: the qk-norms' means run a column at a time
+    (``L.by_column``), so each row of a short chunk takes its decode row's
+    arithmetic; the paged kernel scores such a chunk so by itself."""
     if cfg.sliding_window:
         _not_ported("the sliding-window ring cache", "mixtral")
     B, S, _ = x.shape
-    q, k_new, v_new = _qkv(p, x, x, cfg)
+    q, k_new, v_new = _qkv(p, x, x, cfg, cols)
     positions = decode_positions(pos, B, S, x.device)  # (B,S)
     q = apply_rope(q, positions, cfg)
     k_new = apply_rope(k_new, positions, cfg)
@@ -267,7 +275,7 @@ def gqa_decode(p, x, cache, pos, cfg: ModelConfig, n_valid=None,
         o = KERNELS["paged"](q.contiguous(), cache["k"], cache["v"],
                              cache["pos_ids"], block_table,
                              positions.contiguous())
-    return _out(o, p["wo"]), cache
+    return _out(L.tap("attn", o), p["wo"]), cache
 
 
 def gqa_seed_cache(cache, kv, prefill_len: int, lengths=None):

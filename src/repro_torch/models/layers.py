@@ -18,7 +18,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, pad_to_multiple
+from repro_torch.kernels import paged_attention as PA
 from repro_torch.models.params import ParamMeta, dense, torch_dtype
+
+#: a list that a model step records its named intermediates into, as
+#: ``(name, tensor)`` pairs (``chip_smoke.py``'s row-invariance probe);
+#: None records nothing
+TAPE = None
 
 
 def cdt(cfg: ModelConfig) -> torch.dtype:
@@ -29,6 +35,62 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return pad_to_multiple(cfg.vocab_size, 128)
 
 
+def tap(name: str, x):
+    """Record ``x`` under ``name`` on the tape, if one is set; return x."""
+    if TAPE is not None:
+        TAPE.append((name, x.detach().clone()))
+    return x
+
+
+def by_column(S: int) -> bool:
+    """Whether a decode chunk of width S (a speculative verify: the last
+    token and its drafts) runs the ops whose rounding depends on the row
+    count once per column, on a contiguous ``(B, 1, ...)`` slab: the call a
+    decode tick makes, with the same shape, strides and alignment, so that
+    cuBLAS and PyTorch's reductions pick the same algorithm and every row of
+    the chunk takes its decode row's arithmetic. Those ops are the MLP's
+    down product and the norms' float32 means (on an H100 the other
+    products of llama3.2-1b round a row alike at 8 and 32 rows). The width
+    is the paged kernel's, which scores a chunk of at most
+    ``PA.CHUNK_ROWS`` rows so by itself; wider chunks (prefill) take every
+    op whole."""
+    return 1 < S <= PA.CHUNK_ROWS
+
+
+def columns(x, cols: bool):
+    """x (B, S, ...) as the tensors an op of :func:`by_column` takes: ``[x]``, or with ``cols`` its S columns, each a contiguous
+    (B, 1, ...) slab of one (S, B, ...) tensor (a view of x when x is laid
+    out so already, else one copy)."""
+    if not cols:
+        return [x]
+    return [s.unsqueeze(1) for s in x.transpose(0, 1).contiguous()]
+
+
+def column_map(fn, x, cols: bool, tail):
+    """``fn(x, None)``, or with ``cols`` ``fn(column, out=slab)`` for each of
+    x's columns (:func:`columns`), each writing its (B, 1, *tail) result
+    into one (S, B, 1, *tail) tensor, returned as its (B, S, *tail) view: so
+    the next op's columns are views of it, with no copy."""
+    if not cols:
+        return fn(x, None)
+    B, S = x.shape[:2]
+    out = torch.empty((S, B, 1, *tail), dtype=x.dtype, device=x.device)
+    for j, t in enumerate(columns(x, True)):
+        fn(t, out[j])
+    return out.squeeze(2).transpose(0, 1)
+
+
+def join(parts):
+    """The results of :func:`columns`' tensors, joined along S."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def mean_last(x, cols: bool = False):
+    """``x.mean(-1, keepdim=True)``, a column at a time with ``cols``."""
+    return column_map(lambda t, out: torch.mean(t, -1, keepdim=True, out=out),
+                      x, cols, (*x.shape[2:-1], 1))
+
+
 # --- dense-matmul routing hook ------------------------------------------------
 
 #: optional override for the dense matmuls of the MLP blocks: a callable
@@ -36,12 +98,15 @@ def padded_vocab(cfg: ModelConfig) -> int:
 MATMUL = None
 
 
-def matmul(x, w):
-    """x: (..., K) @ w: (K, N), through the routing hook when installed."""
+def matmul(x, w, cols: bool = False):
+    """x: (B, S, K) @ w: (K, N), through the routing hook when installed;
+    ``cols``: a column at a time (:func:`column_map`)."""
     if MATMUL is None:
-        return x @ w
-    y = MATMUL(x.reshape(-1, x.shape[-1]).float(), w.float())
-    return y.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
+        return column_map(lambda t, out: torch.matmul(t, w, out=out), x,
+                          cols, (w.shape[-1],))
+    return join([MATMUL(t.reshape(-1, t.shape[-1]).float(), w.float())
+                 .reshape(*t.shape[:-1], w.shape[-1]).to(x.dtype)
+                 for t in columns(x, cols)])
 
 
 # --- norms -------------------------------------------------------------------
@@ -54,12 +119,12 @@ def norm_params(cfg: ModelConfig, dim: Optional[int] = None, logical="embed"):
     return p
 
 
-def norm_apply(p, x, cfg: ModelConfig):
+def norm_apply(p, x, cfg: ModelConfig, cols: bool = False):
     dt = x.dtype
     x = x.float()
     if cfg.norm_type == "layernorm":
-        x = x - x.mean(-1, keepdim=True)
-    var = x.square().mean(-1, keepdim=True)
+        x = x - mean_last(x, cols)
+    var = mean_last(x.square(), cols)
     x = x * torch.rsqrt(var + cfg.norm_eps)
     x = x * p["scale"].float()
     if cfg.norm_type == "layernorm":
@@ -67,10 +132,10 @@ def norm_apply(p, x, cfg: ModelConfig):
     return x.to(dt)
 
 
-def rms_norm(x, scale, eps=1e-5):
+def rms_norm(x, scale, eps=1e-5, cols: bool = False):
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
+    x = x * torch.rsqrt(mean_last(x.square(), cols) + eps)
     return (x * scale.float()).to(dt)
 
 
@@ -89,15 +154,17 @@ def mlp_params(cfg: ModelConfig, d_ff: Optional[int] = None,
     return p
 
 
-def mlp_apply(p, x, cfg: ModelConfig):
-    """``p`` holds the weights in x's dtype."""
+def mlp_apply(p, x, cfg: ModelConfig, cols: bool = False):
+    """``p`` holds the weights in x's dtype; ``cols``: the down product one
+    column at a time (:func:`by_column`)."""
+    mm = lambda t, w, name: tap(name, matmul(t, w))
     if cfg.mlp_type == "swiglu":
-        h = F.silu(matmul(x, p["wg"])) * matmul(x, p["wu"])
+        h = F.silu(mm(x, p["wg"], "gate")) * mm(x, p["wu"], "up")
     elif cfg.mlp_type == "relu2":
-        h = torch.square(F.relu(matmul(x, p["wu"])))
+        h = torch.square(F.relu(mm(x, p["wu"], "up")))
     else:  # jax.nn.gelu's default is the tanh approximation
-        h = F.gelu(matmul(x, p["wu"]), approximate="tanh")
-    return matmul(h, p["wd"])
+        h = F.gelu(mm(x, p["wu"], "up"), approximate="tanh")
+    return tap("down", matmul(h, p["wd"], cols))
 
 
 # --- embeddings ----------------------------------------------------------------

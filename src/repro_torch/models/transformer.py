@@ -84,13 +84,17 @@ def attn_block_apply(p, x, cfg, positions=None, collect_kv=False):
     return (x, kv) if collect_kv else x
 
 
-def attn_block_decode(p, x, cache, pos, cfg, n_valid=None, block_table=None):
-    h = L.norm_apply(p["ln1"], x, cfg)
+def attn_block_decode(p, x, cache, pos, cfg, n_valid=None, block_table=None,
+                      cols=False):
+    """``cols``: the ops whose rounding depends on the row count a column
+    at a time (``L.by_column``)."""
+    h = L.tap("ln1", L.norm_apply(p["ln1"], x, cfg, cols))
     a, cache = attn.gqa_decode(p["attn"], h, cache, pos, cfg,
-                               n_valid=n_valid, block_table=block_table)
+                               n_valid=n_valid, block_table=block_table,
+                               cols=cols)
     x = x + a
-    h = L.norm_apply(p["ln2"], x, cfg)
-    return x + L.mlp_apply(p["mlp"], h, cfg), cache
+    h = L.tap("ln2", L.norm_apply(p["ln2"], x, cfg, cols))
+    return x + L.mlp_apply(p["mlp"], h, cfg, cols), cache
 
 
 def ssm_block_params(cfg: ModelConfig):
@@ -257,9 +261,13 @@ def lm_decode(params, tokens, cache, pos, cfg: ModelConfig, n_valid=None,
     int32 the serving tier's page pool (``lm_cache(cfg, pages, page_size,
     ...)``) as the cache. A recurrent state advances one token per step, so
     the ssm and hybrid families take S = 1 and the contiguous cache only;
-    ``pos`` and ``n_valid`` reach the hybrid's shared attention."""
+    ``pos`` and ``n_valid`` reach the hybrid's shared attention. A chunk of
+    2..16 tokens (a speculative verify, ``L.by_column``) runs the ops whose
+    rounding depends on the row count a column at a time, so that each row
+    takes the arithmetic of a one-token step."""
     check_supported(cfg)
-    x = L.embed_apply(params["embed"], tokens, cfg)
+    cols = L.by_column(tokens.shape[1])
+    x = L.tap("embed", L.embed_apply(params["embed"], tokens, cfg))
     bp = params["blocks"]
     if cfg.family != "dense":
         if block_table is not None or tokens.shape[1] != 1:
@@ -283,6 +291,6 @@ def lm_decode(params, tokens, cache, pos, cfg: ModelConfig, n_valid=None,
             x, _ = attn_block_decode(layer(st, i), x,
                                      layer(cache["stack"], i), pos, cfg,
                                      n_valid=n_valid,
-                                     block_table=block_table)
-    x = L.norm_apply(params["final_ln"], x, cfg)
-    return L.unembed_apply(params["embed"], x, cfg), cache
+                                     block_table=block_table, cols=cols)
+    x = L.tap("final_ln", L.norm_apply(params["final_ln"], x, cfg, cols))
+    return L.tap("logits", L.unembed_apply(params["embed"], x, cfg)), cache

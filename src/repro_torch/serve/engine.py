@@ -33,10 +33,15 @@ Admission and extension run at page granularity off the actual free list.
 n-gram prompt-lookup drafts ride the ragged contract as an ``S = k+1``
 extend, one step scores every draft row, and the accepted prefix (plus the
 bonus token) is what sequential greedy would have produced; the rejected
-tail's pages roll back through the allocator (``trim``). In paged mode the
-kernel scores a verify chunk of up to 16 rows (k <= 15) with each row's
-decode arithmetic, in float32 and bf16 alike; the other layers' products
-over k+1 rows instead of one may round otherwise, which can move a near-tie.
+tail's pages roll back through the allocator (``trim``). A verify chunk of
+up to 16 rows (k <= 15; ``paged_attention.CHUNK_ROWS``) gives every row its
+decode row's arithmetic, in float32 and bf16 alike: the paged kernel scores
+it so, and the model runs the ops whose rounding depends on the row count a
+column at a time (``models.layers.by_column``), so the accepted prefix is
+bit for bit what greedy decoding of the same traffic produces. With k > 15
+that guarantee lapses: the chunk takes every op whole. A bf16 stream can
+also depend on what else shares its tick: a decode row that rides a
+prefill chunk wider than 16 goes through that chunk's products.
 
 Paged mode and speculation take the ragged path only, as in the reference.
 Sliding-window stacks and the expandable managers wait for later slices.

@@ -110,10 +110,11 @@ def _mm_inputs(M, K, N, device, seed=5, probs=None):
     return a, b, u_gate, u_bit, OM.bit_probs_to_cdf(probs, device)
 
 
-# LeNet's products at 1024 images, llama3.2-1b's MLP widths at 48 tokens,
-# and ragged edges
+# LeNet's products at 1024 images, llama3.2-1b's MLP widths at 48 and 4096
+# tokens, K split 128 ways, and ragged edges
 MM_SHAPES = [(262144, 9, 8), (65536, 72, 16), (1024, 256, 10),
-             (48, 2048, 8192), (48, 8192, 2048), (1, 1, 1), (65, 33, 127)]
+             (48, 2048, 8192), (48, 8192, 2048), (4096, 2048, 8192),
+             (4096, 8192, 2048), (16, 8192, 64), (1, 1, 1), (65, 33, 127)]
 
 
 @pytest.mark.parametrize("M,K,N", MM_SHAPES)
@@ -147,6 +148,30 @@ def test_int8_error_kernels_wrap(cuda):
     got = AB.abft_matmul(a, b, never, never, cdf)
     ref = AB.abft_matmul_ref(a, b, never, never, cdf)
     assert int(got[0][0, 0]) == -2 ** 31
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+
+
+def test_int8_error_kernels_wrap_and_return(cuda):
+    """K = 2^18: 2^17 products of (-128)(-128) pass 2^31, then 2^17 of
+    (-128)(127) come back, to 2^17 x 128 = 2^24 exactly (a saturating
+    accumulator would end at 2^24 - 1); K is split across CTAs."""
+    from repro_torch.kernels import abft_matmul as AB
+    from repro_torch.kernels import overscale_matmul as OM
+    M, K, N = 16, 1 << 18, 16
+    assert OM.plan(M, K, N).splits > 1
+    a = torch.full((M, K), -128, dtype=torch.int8, device=cuda)
+    b = torch.full((K, N), -128, dtype=torch.int8, device=cuda)
+    b[K // 2:] = 127
+    g = torch.Generator(device=cuda)
+    g.manual_seed(2)
+    ug, ub = OM.random_planes(g, (M, N), cuda)
+    cdf = OM.bit_probs_to_cdf(np.full(32, 0.01), cuda)
+    c, clean = OM.overscale_matmul(a, b, ug, ub, cdf, return_clean=True)
+    got = AB.abft_matmul(a, b, ug, ub, cdf)
+    ref = AB.abft_matmul_ref(a, b, ug, ub, cdf, return_clean=True)
+    assert bool((clean == 1 << 24).all())
+    assert torch.equal(clean, ref[3]) and torch.equal(c, ref[0])
     for x, y in zip(got, ref):
         assert torch.equal(x, y)
 
@@ -480,6 +505,44 @@ def test_model_and_engine_on_the_card(cuda):
         outs[paged] = {r.rid: tuple(r.out) for r in eng.finished}
         assert (PA.paged_attention.launches > before) == paged
     assert outs[True] == outs[False]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_verify_rows_equal_decode_rows_bf16(cuda, paged):
+    """The reduced llama in bf16 on the card: a speculative verify tick (4
+    rows, the drafts set to greedy's next 3 tokens) gives each row the
+    logits of the decode tick it stands for, bit for bit."""
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+    from repro_torch.serve import Engine, Request
+    cfg = registry.get("llama3.2-1b").reduced()
+    model = Model(cfg, device=cuda).init(0)
+    eng = Engine(model, batch_slots=8, max_len=64, eos_id=-1, paged=paged,
+                 prefill_chunk=32)
+    for rid, n in enumerate((5, 20, 9)):
+        eng.submit(Request(rid, (np.arange(n) * 3 + rid).astype(np.int32)
+                           % cfg.vocab_size, max_new=16))
+    eng.step()
+    plan, _ = eng._compose()
+    assert plan.width == 1
+    live = [w.slot for w in plan.work]
+    if paged:
+        for slot in live:
+            eng.mgr.extend(slot, int(eng.mgr.pos[slot]) + 4)
+    cache = (eng.mgr.pool if paged else eng.mgr.cache)["stack"]
+    saved = {name: v.clone() for name, v in cache.items()}
+    step = (plan.n_valid > 0).astype(np.int32)
+    rows, toks = [], plan.tokens.copy()
+    greedy = np.zeros((plan.tokens.shape[0], 4), np.int32)
+    for j in range(4):
+        logits = eng.step_logits(toks, plan.pos + j * step, plan.n_valid)
+        rows.append(logits)
+        greedy[:, j] = toks[:, 0]
+        toks = logits.argmax(-1).to(torch.int32).cpu().numpy()
+    for name, v in saved.items():
+        cache[name].copy_(v)
+    verify = eng.step_logits(greedy, plan.pos, step * 4)
+    assert torch.equal(verify[live], torch.cat(rows, dim=1)[live])
 
 
 def _scan_inputs(b, S, H, P, G, N, dtype, device, seed):

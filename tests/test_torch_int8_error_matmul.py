@@ -309,3 +309,43 @@ def test_other_devices_and_bad_inputs_are_refused():
     for i, x in bad.items():
         with pytest.raises(ValueError):
             OM.check_inputs(*(x if j == i else y for j, y in enumerate(args)))
+
+
+# the kernel's plan: (M, K, N) -> (tile, splits, A's and B's load widths)
+PLANS = {
+    # llama3.2-1b's MLP products at 4096 and 48 tokens (the §V path)
+    (4096, 2048, 8192): ("wide", 1, 16, 16),
+    (4096, 8192, 2048): ("wide", 1, 16, 16),
+    (48, 2048, 8192): ("short", 2, 16, 16),
+    (48, 8192, 2048): ("short", 8, 16, 16),
+    (16, 8192, 64): ("short", 128, 16, 16),
+    # LeNet at 1024 images (the over-scaling path)
+    (262144, 9, 8): ("n8", 1, 1, 8),
+    (65536, 72, 16): ("n16", 1, 8, 16),
+    (1024, 256, 10): ("n16", 4, 16, 1),
+    # edges and the wrap cases
+    (1, 1, 1): ("n8", 1, 1, 1),
+    (65, 33, 127): ("wide", 1, 1, 1),
+    (8, 1 << 17, 8): ("n8", 128, 16, 8),
+    (16, 1 << 18, 16): ("n16", 128, 16, 16),
+}
+
+
+@pytest.mark.parametrize("shape", list(PLANS))
+def test_kernel_plan_names_the_tile_split_and_load_widths(shape):
+    M, K, N = shape
+    p = OM.plan(M, K, N)
+    assert (p.tile, p.splits, p.a_width, p.b_width) == PLANS[shape]
+    BM, BN = OM.TILES[p.tile]
+    kt = max(1, -(-K // OM.BK))
+    # every split has work, the splits cover K, and a split-K launch does
+    # not outnumber the SMs
+    assert (p.splits - 1) * p.per < kt <= p.splits * p.per
+    tiles = -(-M // BM) * -(-N // BN)
+    assert p.splits == 1 or tiles * p.splits <= OM.SMS
+    # an operand that is not aligned to the width loads narrower
+    if p.a_width > 1:
+        assert OM.plan(M, K, N, a_align=p.a_width // 2).a_width < p.a_width
+    if p.b_width > 1:
+        assert OM.plan(M, K, N, b_align=2).b_width == 1
+        assert p.b_width <= BN and N % p.b_width == 0

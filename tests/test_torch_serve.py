@@ -204,6 +204,84 @@ def test_speculate_accepts_the_greedy_prefix(dense, ref_outs, paged):
                speculate=2, warmup=False)
 
 
+@pytest.fixture(scope="module")
+def dense_bf16():
+    """(cfg, the port's model on the CPU) in bfloat16, the reference's
+    default dtype, the reference's parameters carried across."""
+    jp = JModel(jregistry.get(ARCH).reduced()).init(jax.random.PRNGKey(0))
+    cfg = registry.get(ARCH).reduced()
+    return cfg, Model(cfg, device="cpu").load_reference(jax.device_get(jp))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_speculate_accepts_the_greedy_prefix_bf16(dense_bf16, paged):
+    """The reference's contract in its own dtype (test_serve_paged.py):
+    speculate=3 serves the greedy streams of the same traffic."""
+    cfg, model = dense_bf16
+    _, greedy = _outs(cfg, model, paged=paged)
+    eng, spec = _outs(cfg, model, paged=paged, speculate=3)
+    assert spec == greedy, "speculative accepted prefix != greedy (bf16)"
+    assert eng.spec_accepted > 0
+
+
+def verify_against_decode(engine, k=3):
+    """From an engine whose next tick is all-decode: the logits (B, k + 1,
+    V) of one verify tick whose drafts are greedy's next k tokens, and of
+    the k + 1 decode ticks it stands for, stacked the same way (the cache
+    restored between the two), and the live slots."""
+    plan, _ = engine._compose()
+    assert plan.width == 1
+    live = [w.slot for w in plan.work]
+    if engine._paged:
+        for slot in live:
+            engine.mgr.extend(slot, int(engine.mgr.pos[slot]) + k + 1)
+        cache = engine.mgr.pool["stack"]
+    else:
+        cache = engine.mgr.cache["stack"]
+    saved = {name: v.clone() for name, v in cache.items()}
+    step = (plan.n_valid > 0).astype(np.int32)
+    rows, toks = [], plan.tokens.copy()
+    greedy = np.zeros((plan.tokens.shape[0], k + 1), np.int32)
+    for j in range(k + 1):
+        logits = engine.step_logits(toks, plan.pos + j * step, plan.n_valid)
+        rows.append(logits)
+        greedy[:, j] = toks[:, 0]
+        toks = logits.argmax(-1).to(torch.int32).cpu().numpy()
+    for name, v in saved.items():
+        cache[name].copy_(v)
+    verify = engine.step_logits(greedy, plan.pos, step * (k + 1))
+    return verify, torch.cat(rows, dim=1), live
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_verify_rows_take_their_decode_rows_arithmetic(dense_bf16, paged):
+    cfg, model = dense_bf16
+    eng = Engine(model, batch_slots=3, max_len=64, eos_id=-1, warmup=False,
+                 paged=paged, prefill_chunk=32)
+    for rid, n in enumerate((5, 20)):
+        eng.submit(Request(rid, _prompt(cfg, rid, n), max_new=16))
+    eng.step()
+    verify, rows, live = verify_against_decode(eng)
+    assert torch.equal(verify[live], rows[live])
+
+
+def test_short_chunks_run_by_column(dense, monkeypatch):
+    """A decode chunk of 2..16 rows takes its down products and norm means
+    a column at a time; one token and a wider chunk take them whole."""
+    from repro_torch.models import layers as L
+    cfg, _, _, model = dense
+    seen = []
+    columns = L.columns
+    monkeypatch.setattr(L, "columns", lambda x, cols: seen.append(
+        (x.shape[1], cols)) or columns(x, cols))
+    for S in (1, 2, 16, 17):
+        cache = model.cache(2, 64)
+        model.decode(torch.zeros((2, S), dtype=torch.long), cache, 0)
+    split = [w for w, c in seen if c]
+    # per layer: ln1's and ln2's means and the down product; the final norm
+    assert split == [S for S in (2, 16) for _ in range(3 * cfg.num_layers + 1)]
+
+
 @pytest.mark.parametrize("paged", [False, True])
 def test_preempt_and_resume_equal_no_preemption(dense, paged):
     cfg, _, _, model = dense
