@@ -20,14 +20,31 @@ Phases, each of which exits non-zero on failure:
    inputs on the card (tolerance 0: bit for bit), and timed with CUDA events
    at the main path's shapes beside the bound (bytes over the memory rate or
    float operations over the float32 rate, whichever is larger);
+3b. fused solve vs plain: the one-launch multigrid solve
+   (``thermal_mg.thermal_mg_solve``) on every grid of the paths (92x92 and
+   56x56 and 69x69 at theta_JA 12, 152x152 at 2) at B = 1 and 86, cold and
+   warm, a mixed batch and a stop at ``max_cycles``, held to its plain
+   version (tolerance 0: T and the cycle counts), and timed per solve
+   (CUDA events) and on the card alone (a CUDA graph of 20 calls) beside
+   the bound (bytes of b, diag, T0 and T over the memory rate, or the float
+   operations of the cycles actually run over the float32 rate, whichever
+   is larger), the parent's form (the per-step composition with the
+   stencil kernel, one stop-test read per cycle) and the plain version;
 4. main path (Algorithm 1) at full size through the entry points a user
    calls: Table II on mkDelayWorker32B and mcml (152x152), the 86-ambient
-   dynamic LUT as one batched solve, and Algorithm 2 on mkPktMerge; each is
-   held against the port on the CPU and against the reference values, and
-   the stencil kernel must have been launched;
+   dynamic LUT as one batched solve, Algorithm 2 on mkPktMerge, and one
+   256x256 solve (too large for one CTA: the per-step form with the
+   stencil kernel as smoother); each is held against the port on the CPU
+   and the reference values (the 256x256 solve against the plain version
+   on the card, bit for bit); per run it prints the solves, fused launches
+   per solve, stencil launches, thermal host syncs per solve, the fixed
+   point's host syncs and the wall, and every multigrid solve at a path
+   grid must be one fused launch with no thermal host sync;
 5. over-scaling path (§III-D, Fig 8): ``overscaling.sweep`` of the LeNet and
    HD netlists over six budgets (one batched solve each) on the card, held
-   against the CPU port and the reference decisions, GOLDEN_OS; LeNet
+   against the CPU port and the reference decisions, GOLDEN_OS (the same
+   counts as path 4, one fused launch and no thermal host sync per sweep
+   solve); LeNet
    trained on the card (500 steps), then its int8 inference at n = 1024
    through the error-injecting kernel for every budget, its logits equal bit
    for bit to the plain path's; HD's accuracies beside them;
@@ -97,9 +114,10 @@ Phases, each of which exits non-zero on failure:
    memory, and a ``preempt_to`` mid-run whose resumed streams equal the
    uninterrupted bf16 run's; one bf16 mamba2 decode tick and one 512-token
    prefill profiled;
-12. profile: one warm Table II run and one warm LeNet inference at gamma =
-   1.35 under ``torch.profiler``: device time by kernel and the card's idle
-   share of the wall time (the serve profiles run in phases 10 and 11).
+12. profile: one warm Table II run, one warm 86-ambient LUT and one warm
+   LeNet inference at gamma = 1.35 under ``torch.profiler``: device time
+   by kernel, the card's busy time and idle share of the wall time (the
+   serve profiles run in phases 10 and 11).
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The last lines are the kernel table as one JSON object, the
@@ -167,6 +185,10 @@ DEV = "cuda"
 LENET_MM = [(262144, 9, 8), (65536, 72, 16), (1024, 256, 10)]
 LLAMA_MM = [(M, k, n) for M in TOKENS
             for k, n in ((D_MODEL, D_FF), (D_FF, D_MODEL))]
+# the fused multigrid solve: (m, n, theta_JA) of the paths' grids
+MG_GRIDS = [(92, 92, 12.0), (152, 152, 2.0), (56, 56, 12.0), (69, 69, 12.0)]
+MG_BATCHES = (1, 86)  # Table II and mcml; the 86-ambient LUT
+LARGE_GRID = 256  # a die whose hierarchy does not fit one CTA
 # shapes held bit for bit against the plain version at B = 1 and 86: every
 # grid of the main path, plus the edges (1x1, odd, the global shape)
 STENCIL_SHAPES = [(1, 1), (23, 17), (256, 256)] + sorted(
@@ -253,8 +275,10 @@ def _wrappers():
     from repro_torch.kernels import mamba_scan as MS
     from repro_torch.kernels import overscale_matmul as OM
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import thermal_mg as MG
     from repro_torch.kernels import thermal_stencil as TS
     return {"thermal_stencil": TS.thermal_stencil,
+            "thermal_mg_solve": MG.thermal_mg_solve,
             "overscale_matmul": OM.overscale_matmul,
             "abft_matmul": AB.abft_matmul,
             "paged_attention": PA.paged_attention,
@@ -392,6 +416,175 @@ def kernel_phase(torch) -> dict:
     return {"max_abs_err": worst, "rows": rows}
 
 
+def thermal_timing(torch, reps: int = 5) -> dict:
+    """Warm walls of the main path's multigrid runs (Table II, mcml, the
+    86-ambient LUT) through whichever ``repro_torch`` is first on the path:
+    one warm-up, then the median of ``reps`` runs (host clock around work
+    that ends in a synchronise), each run's thermal solves, stencil and
+    fused launches and thermal host syncs, and one warm Table II run under
+    the profiler (wall, busy, idle share). ``tools/thermal_ab.py`` runs it
+    on several checkouts in turns."""
+    import importlib.util
+    from repro_torch.core import thermal
+    from repro_torch.core import voltage_scaling as VS
+    from repro_torch.core import vtr_benchmarks as vb
+    from repro_torch.kernels import thermal_stencil as TS
+    fused = (importlib.import_module("repro_torch.kernels.thermal_mg")
+             .thermal_mg_solve
+             if importlib.util.find_spec("repro_torch.kernels.thermal_mg")
+             else None)
+    mkdelay, mcml = vb.load("mkDelayWorker32B"), vb.load("mcml")
+    tc12, tc2 = (thermal.ThermalConfig(theta_ja=t) for t in (12.0, 2.0))
+    runs = {
+        "table2": lambda: VS.run(mkdelay, 60.0, 1.0, tc12, device="cuda"),
+        "mcml": lambda: VS.run(mcml, 60.0, 1.0, tc2, device="cuda"),
+        "lut86": lambda: VS.dynamic_lut(mkdelay, [float(t) for t in
+                                                  range(86)], 1.0, tc12,
+                                        device="cuda"),
+    }
+    counters = lambda: (thermal.solve.calls, thermal.solve.host_syncs,
+                        TS.thermal_stencil.launches,
+                        fused.launches if fused else 0)
+    out = {}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        c0, walls = counters(), []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        d = [(b - a) / reps for a, b in zip(c0, counters())]
+        out[name] = {"wall_ms": float(np.median(walls)), "walls_ms": walls,
+                     "solves": d[0], "thermal_host_syncs": d[1],
+                     "stencil_launches": d[2], "fused_launches": d[3]}
+    prof = _profile(torch, "table2", runs["table2"])
+    out["table2_profile"] = {"wall_ms": prof["wall_ms"],
+                             "busy_ms": prof["busy_ms"],
+                             "idle": 1 - prof["busy_ms"] / prof["wall_ms"]}
+    return out
+
+
+def _mg_problem(torch, m, n, theta, B, seed=4):
+    """(b, plan, kwargs) as ``thermal.solve`` builds them, from random power
+    maps (the middle one zero) and ambients."""
+    from repro_torch.core import thermal
+    tc = thermal.ThermalConfig(theta_ja=theta)
+    g_v, g_lat = thermal.conductances(m, n, tc)
+    plan = thermal._plan_on(m, n, g_v, g_lat, tc.coarse_cells,
+                            torch.device("cuda"))
+    rng = np.random.default_rng(seed)
+    P = rng.uniform(0.0, 5.0, (B, m, n))
+    P[B // 2] = 0.0
+    t_amb = rng.uniform(0.0, 85.0, (B, 1, 1))
+    b = torch.tensor(P * 1e-3 + g_v * t_amb, dtype=torch.float32,
+                     device="cuda")
+    kw = dict(tol=tc.tol, max_cycles=tc.max_cycles, n_smooth=tc.n_smooth)
+    return b, plan, kw
+
+
+def mg_flops(dims, n_smooth: int, cycles, cold: bool) -> int:
+    """Float operations of one fused solve: per element, the cold start (if
+    any), the V-cycles it ran and one scaled residual per cycle plus the
+    first. Per cell: a sweep 7 (STENCIL_FLOPS_PER_CELL), a residual 7, a
+    prolongation 9 (+1 when added), a scaled residual 8; per coarse cell a
+    restriction 3; the direct tier 2 N^2."""
+    cells = [m * n for m, n in dims]
+    top = len(dims) - 1
+    coarse = 2 * cells[top] ** 2
+
+    def vcycle(lvl):
+        return coarse + sum(2 * n_smooth * STENCIL_FLOPS_PER_CELL * cells[l]
+                            + 7 * cells[l] + 3 * cells[l + 1]
+                            + 10 * cells[l] for l in range(lvl, top))
+
+    fmg = (sum(3 * c for c in cells[1:]) + coarse
+           + sum(9 * cells[l] + vcycle(l) for l in range(top)))
+    return sum((fmg if cold else 0) + c * vcycle(0) + (c + 1) * 8 * cells[0]
+               for c in cycles)
+
+
+def mg_bound(b, T0, plan, cycles, n_smooth: int):
+    """(ms, "bytes" | "operations"): read b, the diagonal and T0 once and
+    write T once; the operations of the cycles these inputs ran."""
+    m, n = plan.dims[0]
+    nbytes = 4 * (2 * b.numel() + m * n + (0 if T0 is None else T0.numel()))
+    flops = mg_flops(plan.dims, n_smooth, cycles, T0 is None)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def mg_kernel_phase(torch) -> dict:
+    """The fused multigrid solve against its plain version (tolerance 0, T
+    and cycle counts) on every path grid at B = 1 and 86, cold and warm, a
+    mixed batch and a stop at max_cycles; timed beside its bound, the
+    parent's per-step form and the plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import thermal_mg as MG
+    worst, cyc_ok, rows = 0.0, True, []
+
+    def held(label, b, T0, plan, kw):
+        nonlocal worst, cyc_ok
+        T, cycles = MG.thermal_mg_solve(b, T0, plan, **kw)
+        ref, ref_cycles = MG.thermal_mg_solve_ref(b, T0, plan, **kw)
+        torch.cuda.synchronize()
+        err = float((T - ref).abs().max())
+        same = torch.equal(cycles, ref_cycles)
+        worst, cyc_ok = max(worst, err), cyc_ok and same
+        c = cycles.tolist()
+        print(f"fused solve {label}: max|kernel-plain|={err:.3e}, cycles "
+              f"equal {same} (min {min(c)}, max {max(c)}, sum {sum(c)})")
+        return c
+
+    for m, n, theta in MG_GRIDS:
+        for B in MG_BATCHES:
+            for warm in (False, True):
+                b, plan, kw = _mg_problem(torch, m, n, theta, B)
+                T0 = (torch.full_like(b, 40.0) + b * 1e3) if warm else None
+                label = (f"{m}x{n} theta={theta} B={B} "
+                         f"{'warm' if warm else 'cold'}")
+                cycles = held(label, b, T0, plan, kw)
+                fused = lambda: MG.thermal_mg_solve(b, T0, plan, **kw)
+                smooth = lambda T, b_l, diag: ops.thermal_sweep(
+                    T, b_l, diag, g_lat=plan.g_lat, g_v_tamb=0.0,
+                    iters=kw["n_smooth"], phase=0)
+                k_ms = _time_ms(torch, fused)
+                alone = _graph_ms(torch, fused)
+                parent = _time_ms(torch, lambda: MG.thermal_mg_solve_ref(
+                    b, T0, plan, smooth=smooth, **kw))
+                plain = _time_once_ms(torch, lambda: MG.thermal_mg_solve_ref(
+                    b, T0, plan, **kw))
+                bound, by = mg_bound(b, T0, plan, cycles, kw["n_smooth"])
+                rows.append({"m": m, "n": n, "B": B, "warm": warm,
+                             "theta_ja": theta, "cycles_max": max(cycles),
+                             "cycles_sum": sum(cycles), "ms": k_ms,
+                             "alone_ms": alone, "parent_ms": parent,
+                             "plain_ms": plain, "bound_ms": bound,
+                             "bound_by": by, "library_ms": None})
+                print(f"time fused solve {label}: {k_ms:.5f} ms per solve, "
+                      f"alone {alone:.5f} ms; parent's per-step form "
+                      f"{parent:.5f} ms; plain {plain:.5f} ms; bound "
+                      f"{bound:.7f} ms ({by})")
+    # a converged field (0 cycles), a start far from the solution and a
+    # zero map; then tol 0 with a budget of 2 cycles
+    b, plan, kw = _mg_problem(torch, 56, 56, 12.0, 3)
+    done, _ = MG.thermal_mg_solve_ref(b[:1], None, plan, **kw)
+    T0 = torch.cat([done, torch.full((2, 56, 56), 60.0, device="cuda")])
+    mixed = held("56x56 mixed batch", b, T0, plan, kw)
+    budget = held("56x56 max_cycles=2 tol=0", b, T0, plan,
+                  dict(kw, max_cycles=2, tol=0.0))
+    check(mixed[0] == 0 and budget[1:] == [2, 2],
+          f"the converged field runs 0 cycles ({mixed}) and the budget "
+          f"stops the far starts at 2 ({budget})")
+    check(worst == 0.0 and cyc_ok, f"fused solve equals plain bit for bit "
+                                   f"(max {worst}, cycles equal {cyc_ok})")
+    print("library: no single PyTorch call computes a multigrid solve; "
+          "library_ms is null")
+    return {"max_abs_err": worst, "rows": rows}
+
+
 def _trace(r):
     return [(t.v_core, t.v_bram, t.power_mw) for t in r.trace]
 
@@ -409,19 +602,46 @@ def _final_ok(r, ref) -> bool:
             and abs(r.power_mw / ref["power_mw"] - 1.0) <= 1e-3)
 
 
+def _thermal_counts(pol, thermal) -> dict:
+    """The counters a path's run is read by: thermal solves, kernel
+    launches, stop-test reads of the thermal solve and of the fixed
+    point, and solves that took the per-step form."""
+    from repro_torch.kernels import thermal_mg as MG
+    from repro_torch.kernels import thermal_stencil as TS
+    return {"solves": thermal.solve.calls,
+            "fused": MG.thermal_mg_solve.launches,
+            "stencil": TS.thermal_stencil.launches,
+            "thermal_syncs": thermal.solve.host_syncs,
+            "composed": thermal.solve.composed,
+            "fixed_point_syncs": sum(s.host_syncs for s in
+                                     pol.solver._SOLVER_CACHE.values())}
+
+
+def _run_stats(before: dict, after: dict, wall: float) -> dict:
+    d = {k: after[k] - before[k] for k in after}
+    solves = max(d["solves"], 1)
+    return {"wall_s": wall, "thermal_solves": d["solves"],
+            "fused_launches": d["fused"],
+            "fused_launches_per_solve": d["fused"] / solves,
+            "stencil_launches": d["stencil"],
+            "thermal_host_syncs_per_solve": d["thermal_syncs"] / solves,
+            "composed_solves": d["composed"],
+            "fixed_point_host_syncs": d["fixed_point_syncs"]}
+
+
 def main_path_phase(torch) -> dict:
     from repro_torch import policy as pol
     from repro_torch.core import energy_opt as EO
     from repro_torch.core import thermal
     from repro_torch.core import voltage_scaling as VS
     from repro_torch.core import vtr_benchmarks as vb
-    from repro_torch.kernels import thermal_stencil as TS
 
     TC12 = thermal.ThermalConfig(theta_ja=12.0)
     TC2 = thermal.ThermalConfig(theta_ja=2.0)
     mkdelay, mcml, mkpkt = (vb.load(n) for n in
                             ("mkDelayWorker32B", "mcml", "mkPktMerge"))
     t_ambs = [float(t) for t in range(86)]
+    big = np.random.default_rng(5).uniform(0.0, 1.0, (LARGE_GRID ** 2,))
     runs = {
         "table2_mkDelayWorker32B": lambda dev: VS.run(
             mkdelay, 60.0, 1.0, TC12, device=dev),
@@ -430,44 +650,60 @@ def main_path_phase(torch) -> dict:
             mkdelay, t_ambs, 1.0, TC12, device=dev),
         "energy_opt_mkPktMerge": lambda dev: EO.run(
             mkpkt, 65.0, 1.0, TC2, device=dev),
+        f"solve_{LARGE_GRID}x{LARGE_GRID}": lambda dev: thermal.solve(
+            big, LARGE_GRID, LARGE_GRID, 25.0, TC2, device=dev),
     }
-
-    def solver_syncs():
-        return sum(s.host_syncs for s in pol.solver._SOLVER_CACHE.values())
 
     # the counts are set to 0 just before the main path and read just after
     reset_counts()
     thermal.solve.calls = thermal.solve.host_syncs = 0
+    thermal.solve.composed = 0
     stats, gpu = {}, {}
     for name, fn in runs.items():
-        l0, c0 = TS.thermal_stencil.launches, thermal.solve.calls
-        h0, f0 = thermal.solve.host_syncs, solver_syncs()
+        before = _thermal_counts(pol, thermal)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         gpu[name] = fn("cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        calls = thermal.solve.calls - c0
-        stats[name] = {
-            "wall_s": wall, "thermal_solves": calls,
-            "stencil_launches": TS.thermal_stencil.launches - l0,
-            "launches_per_solve": (TS.thermal_stencil.launches - l0)
-            / max(calls, 1),
-            "thermal_host_syncs_per_solve": (thermal.solve.host_syncs - h0)
-            / max(calls, 1),
-            "fixed_point_host_syncs": solver_syncs() - f0,
-            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-        }
+        stats[name] = dict(_run_stats(before, _thermal_counts(pol, thermal),
+                                      wall),
+                           max_memory_allocated_bytes=(
+                               torch.cuda.max_memory_allocated()))
         print(f"main path {name}: {json.dumps(stats[name])}")
     counts = read_counts()
-    launches = counts["thermal_stencil"]
     print(f"main path: launches {counts}")
-    check(launches > 0, "the main path launched the stencil kernel")
+    check(counts["thermal_mg_solve"] > 0,
+          "the main path launched the fused solve kernel")
+    for name in ("table2_mkDelayWorker32B", "mcml_152x152",
+                 "dynamic_lut_86"):
+        st = stats[name]
+        check(st["fused_launches"] == st["thermal_solves"] > 0
+              and st["stencil_launches"] == 0
+              and st["thermal_host_syncs_per_solve"] == 0,
+              f"{name}: one fused launch and no thermal host sync per "
+              f"solve ({st})")
+    st = stats["energy_opt_mkPktMerge"]
+    check(st["fused_launches"] == st["stencil_launches"] == 0
+          and st["thermal_host_syncs_per_solve"] == 0,
+          f"Algorithm 2 on 8x8 is the direct tier ({st})")
+    st = stats[f"solve_{LARGE_GRID}x{LARGE_GRID}"]
+    check(st["composed_solves"] == 1 and st["fused_launches"] == 0
+          and st["stencil_launches"] > 0,
+          f"{LARGE_GRID}x{LARGE_GRID} takes the per-step form with the "
+          f"stencil kernel ({st})")
 
-    # the same runs on the CPU port (plain stencil) as the yardstick
+    # the same runs on the CPU port (plain stencil) as the yardstick; the
+    # large grid against the plain version on the card
+    large = gpu.pop(f"solve_{LARGE_GRID}x{LARGE_GRID}")
+    plain = thermal.solve(big, LARGE_GRID, LARGE_GRID, 25.0,
+                          thermal.ThermalConfig(theta_ja=2.0, backend="torch"),
+                          device="cuda")
+    check(torch.equal(large, plain), f"{LARGE_GRID}x{LARGE_GRID}: stencil "
+                                     "kernel form == plain, bit for bit")
     t0 = time.perf_counter()
-    cpu = {name: fn("cpu") for name, fn in runs.items()}
+    cpu = {name: runs[name]("cpu") for name in gpu}
     print(f"cpu port: all four runs in {time.perf_counter() - t0:.1f} s")
 
     for name in ("table2_mkDelayWorker32B", "mcml_152x152"):
@@ -493,7 +729,7 @@ def main_path_phase(torch) -> dict:
     print(f"energy_opt mkPktMerge: ({eo.v_core}, {eo.v_bram}) d_opt "
           f"{eo.d_opt_ns:.6f} ns energy {eo.energy:.6f} saving "
           f"{eo.saving:.6f}")
-    return {"launches": launches, "runs": stats}
+    return {"counts": counts, "runs": stats}
 
 
 def _same_decision(got, want_vc, want_vb, want_mw, want_frac) -> bool:
@@ -509,6 +745,7 @@ def overscaling_path(torch) -> dict:
     on the card and run through the error-injecting int8 kernel for every
     budget, HD beside it. Counts are read just after; the checks against
     the plain path, the CPU port and the reference values follow."""
+    from repro_torch import policy as pol
     from repro_torch.core import apps
     from repro_torch.core import netlist as NL
     from repro_torch.core import overscaling as OS
@@ -519,13 +756,33 @@ def overscaling_path(torch) -> dict:
     nets = {"lenet": NL.generate(apps.LENET_STATS),
             "hd": NL.generate(apps.HD_STATS)}
     reset_counts()
+    thermal.solve.calls = thermal.solve.host_syncs = 0
+    thermal.solve.composed = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sweeps = {k: OS.sweep(nl, GAMMAS, t_amb=40.0, tc=tc, device=DEV)
-              for k, nl in nets.items()}
+    sweeps, stats = {}, {}
+    for k, nl in nets.items():
+        before = _thermal_counts(pol, thermal)
+        t1 = time.perf_counter()
+        sweeps[k] = OS.sweep(nl, GAMMAS, t_amb=40.0, tc=tc, device=DEV)
+        torch.cuda.synchronize()
+        stats[k] = _run_stats(before, _thermal_counts(pol, thermal),
+                              time.perf_counter() - t1)
+        print(f"over-scaling sweep {k}: {json.dumps(stats[k])}")
+        check(stats[k]["fused_launches"] == stats[k]["thermal_solves"] > 0
+              and stats[k]["stencil_launches"] == 0
+              and stats[k]["thermal_host_syncs_per_solve"] == 0,
+              f"{k} sweep: one fused launch and no thermal host sync per "
+              f"solve ({stats[k]})")
+    before = _thermal_counts(pol, thermal)
+    t1 = time.perf_counter()
     golden = OS.run(vb.load("raygentop"), 1.2, t_amb=40.0, tc=tc,
                     device=DEV)
     torch.cuda.synchronize()
+    stats["golden_os_raygentop"] = _run_stats(
+        before, _thermal_counts(pol, thermal), time.perf_counter() - t1)
+    print(f"over-scaling GOLDEN_OS (raygentop 21x21, the direct tier): "
+          f"{json.dumps(stats['golden_os_raygentop'])}")
     t_sweep = time.perf_counter() - t0
     p, info = apps.lenet_train(APP_SEED, steps=LENET_STEPS, device=DEV)
     hd = apps.hd_train(APP_SEED, device=DEV)
@@ -558,8 +815,9 @@ def overscaling_path(torch) -> dict:
           f"{t_sweep:.3f} s, LeNet {LENET_STEPS} steps + HD training "
           f"{t_train:.3f} s); launches {counts}; LeNet final loss "
           f"{info['final_loss']:.4f}")
-    check(counts["thermal_stencil"] > 0 and counts["overscale_matmul"] > 0,
-          "the over-scaling path launched the stencil and the int8 kernel")
+    check(counts["thermal_mg_solve"] > 0 and counts["overscale_matmul"] > 0,
+          "the over-scaling path launched the fused solve and the int8 "
+          "kernel")
 
     # the plain path on the same seeds gives the same logits, bit for bit
     for r_l in sweeps["lenet"]:
@@ -602,7 +860,7 @@ def overscaling_path(torch) -> dict:
     fig8 = apps.scale_bit_probs(
         next(r for r in sweeps["lenet"] if r.gamma == 1.35).bit_probs)
     return {"counts": counts, "wall_s": wall, "fig8_probs": fig8,
-            "params": p, "rows": rows}
+            "params": p, "rows": rows, "runs": stats}
 
 
 def sec5_path(torch) -> dict:
@@ -832,24 +1090,36 @@ def _share(prof: dict, name: str) -> float:
 
 
 def profile_phase(torch, table2_launches: int, lenet_params, fig8_probs):
-    """Where the time goes in one warm Table II run and one warm LeNet
-    inference at gamma = 1.35 (n = 1024). Runs after the paths' counts were
+    """Where the time goes in one warm Table II run, one warm 86-ambient LUT
+    and one warm LeNet inference at gamma = 1.35 (n = 1024). Runs after the
+    paths' counts were
     read; the Table II warm-up repeats the main path's run, and its launch
     count is printed beside that one's."""
     from repro_torch.core import apps
     from repro_torch.core import thermal
     from repro_torch.core import voltage_scaling as VS
     from repro_torch.core import vtr_benchmarks as vb
-    from repro_torch.kernels import thermal_stencil as TS
+    from repro_torch.kernels import thermal_mg as MG
     table2 = lambda: VS.run(vb.load("mkDelayWorker32B"), 60.0, 1.0,
                             thermal.ThermalConfig(theta_ja=12.0),
                             device="cuda")
-    l0 = TS.thermal_stencil.launches
+    l0 = MG.thermal_mg_solve.launches
     table2()  # warm: the substrate and its STA are cached
     torch.cuda.synchronize()
-    print(f"repeat table2: stencil launches {TS.thermal_stencil.launches - l0}"
-          f" (main path's run: {table2_launches})")
-    _profile(torch, "table2", table2)
+    print(f"repeat table2: fused solve launches "
+          f"{MG.thermal_mg_solve.launches - l0} (main path's run: "
+          f"{table2_launches})")
+    prof = _profile(torch, "table2", table2)
+    print(f"profile table2: fused solve {_share(prof, 'mg_solve'):.4f} of "
+          f"the busy time")
+    lut = lambda: VS.dynamic_lut(vb.load("mkDelayWorker32B"),
+                                 [float(t) for t in range(86)], 1.0,
+                                 thermal.ThermalConfig(theta_ja=12.0),
+                                 device="cuda")
+    lut()
+    prof = _profile(torch, "dynamic_lut_86", lut)
+    print(f"profile dynamic_lut_86: fused solve "
+          f"{_share(prof, 'mg_solve'):.4f} of the busy time")
     lenet = lambda: apps.lenet_accuracy(lenet_params, APP_SEED, n=LENET_N,
                                         bit_probs=fig8_probs, device="cuda")
     lenet()
@@ -1889,6 +2159,7 @@ def main() -> int:
     card = timed("device", device_phase, torch)
     timed("build", lambda: sass_phase(build_phase()))
     k = timed("stencil vs plain", kernel_phase, torch)
+    mg = timed("fused solve vs plain", mg_kernel_phase, torch)
     mp = timed("main path", main_path_phase, torch)
     osp = timed("over-scaling path", overscaling_path, torch)
     sec5 = timed("§V path", sec5_path, torch)
@@ -1901,7 +2172,7 @@ def main() -> int:
     rec = {arch: timed(f"serve {arch}", recurrent_serve, torch, arch,
                        arch == "mamba2-780m") for arch in REC_SERVE}
     timed("profile", profile_phase, torch,
-          mp["runs"]["table2_mkDelayWorker32B"]["stencil_launches"],
+          mp["runs"]["table2_mkDelayWorker32B"]["fused_launches"],
           osp["params"], osp["fig8_probs"])
     print(f"serve path: {json.dumps(serve)}")
     print(f"recurrent serve path: {json.dumps(rec)}")
@@ -1909,6 +2180,9 @@ def main() -> int:
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/csrc/"
     rep_stencil = dict(k["rows"][0], library_ms=None)  # 92x92, B = 1
+    # Table II's solves: warm starts of the fixed point at 92x92, B = 1
+    rep_mg = next(r for r in mg["rows"]
+                  if (r["m"], r["B"], r["warm"]) == (92, 1, True))
     # the representative rows: LeNet's conv2 product (65536x72x16, which
     # torch._int_mm accepts) and llama's up product at 4096 tokens
     rep_os = mm["rows"]["overscale_matmul"][1]
@@ -1926,10 +2200,18 @@ def main() -> int:
                     if (r["model"], r["dtype"], r["B"], r["S"])
                     == ("mamba2", "bfloat16", 1, 512))
     print(json.dumps({"kernels": [
+        # the smoother of the per-step form: launched on the main path by
+        # the large-grid solve
         _kernel_entry("thermal_stencil", src + "thermal_stencil.cu",
                       "src/repro/kernels/thermal_stencil.py:82",
-                      mp["launches"], k["max_abs_err"], rep_stencil,
-                      k["rows"]),
+                      mp["counts"]["thermal_stencil"], k["max_abs_err"],
+                      rep_stencil, k["rows"]),
+        # the whole multigrid solve in one launch: the stencil kernel as
+        # smoother of repro/core/thermal.py:168-181 inside :201-266
+        _kernel_entry("thermal_mg_solve", src + "thermal_stencil.cu",
+                      "src/repro/kernels/thermal_stencil.py:82",
+                      mp["counts"]["thermal_mg_solve"], mg["max_abs_err"],
+                      rep_mg, mg["rows"]),
         _kernel_entry("overscale_matmul", src + "int8_error_matmul.cu",
                       "src/repro/kernels/overscale_matmul.py:78",
                       osp["counts"]["overscale_matmul"],

@@ -17,17 +17,28 @@ so a batched solve equals the per-element solves.
 
 Tiers (``ThermalConfig.solver``): ``"multigrid"`` (red-black Gauss-Seidel
 smoothed V-cycles, block-sum restriction, bilinear prolongation, a dense
-coarse inverse, full-multigrid cold start) and ``"jacobi"`` (chunked Jacobi,
-the parity oracle). Each V-cycle (or Jacobi chunk) ends with one stop test,
-which is one host synchronisation on the card: ``solve.host_syncs`` counts
-them, and ``solve.calls`` the solves.
+coarse inverse, full-multigrid cold start; ``kernels/thermal_mg``) and
+``"jacobi"`` (chunked Jacobi, the parity oracle). ``solve.calls`` counts
+the solves and ``solve.host_syncs`` the stop tests read on the host.
 
-The smoother runs the Hopper stencil kernel through
-``kernels.ops.thermal_sweep`` (``backend="auto"`` on CUDA, or
-``"kernel"``, which refuses a solve on the CPU), or its plain PyTorch
-version (``"auto"`` on the CPU, or ``"torch"``). The coarse inverse and the
-prolongations are plain dense products (``torch.bmm``, and a
-product-and-sum for the coarse inverse).
+Where the multigrid solve runs:
+
+- on the card, when the hierarchy fits one CTA's shared memory (every grid
+  of the FPGA paths, up to 152x152): the fused kernel
+  ``thermal_mg.thermal_mg_solve``, one launch per solve with the V-cycles
+  and the stop test on the device, no host read;
+- on the card, when it does not (256x256): the plain composition
+  ``thermal_mg_solve_ref`` with the stencil kernel as smoother and one
+  stop-test read per V-cycle; ``solve.composed`` counts these solves (the
+  choice is made by shape, before any launch);
+- on the CPU, or with ``backend="torch"``: the plain composition with the
+  stencil's plain version;
+- grids of at most ``coarse_cells`` cells: one direct product, no cycles.
+
+The Jacobi tier's sweeps run the stencil kernel through
+``kernels.ops.thermal_sweep`` on the card (``backend="auto"`` or
+``"kernel"``, which refuses a solve on the CPU), with one stop-test read
+per chunk.
 """
 from __future__ import annotations
 
@@ -37,11 +48,11 @@ from typing import Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.thermal_stencil import nbr_sum, thermal_stencil_ref
+from repro_torch.kernels import thermal_mg as MG
+from repro_torch.kernels.thermal_stencil import thermal_stencil_ref
 
 
 @dataclass(frozen=True)
@@ -51,7 +62,7 @@ class ThermalConfig:
     tol: float = 5e-5  # convergence |dT|_inf per sweep/cycle [degC]
     max_iters: int = 50_000  # sweep budget (jacobi tier)
     solver: str = "multigrid"  # "multigrid" | "jacobi"
-    # smoother: "auto" (the kernel on CUDA, the plain version on the CPU) |
+    # "auto" (the kernels on CUDA, their plain versions on the CPU) |
     # "kernel" (CUDA only: a solve on the CPU raises) | "torch" (plain)
     backend: str = "auto"
     n_smooth: int = 1  # RB-GS pre- and post-smoothing sweeps per V-cycle
@@ -104,12 +115,26 @@ def _interp_weights_np(mm: int, mc: int) -> np.ndarray:
     return W
 
 
+def _table_np(W: np.ndarray):
+    """(index, weight) form of a 1-D interpolation matrix (mm x mc): each
+    row's at most two non-zero weights and their columns, (mm, 2) each; a
+    row with one weight repeats its column with weight 0."""
+    idx = np.zeros((W.shape[0], 2), np.int64)
+    w = np.zeros((W.shape[0], 2), np.float32)
+    for i, row in enumerate(W):
+        cols = np.flatnonzero(row)
+        idx[i] = cols[0], cols[-1]
+        w[i, :len(cols)] = row[cols]
+    return idx, w
+
+
 @lru_cache(maxsize=64)
 def _plan_levels(m: int, n: int, g_v: float, g_lat: float,
                  coarse_cells: int):
-    """Static multigrid hierarchy (numpy): per-level dims + stencil diagonal
-    + prolongation matrices, and the dense inverse of the coarsest-level
-    operator (inverted in float64).
+    """Static multigrid hierarchy (numpy): per level (m, n, stencil
+    diagonal, row table, column table), the tables the (index, weight) form
+    of the prolongation from the next level (None on the last level), and
+    the dense inverse of the coarsest-level operator (inverted in float64).
 
     Rediscretization: a coarse cell aggregates its fine cells' vertical
     conductances (block sum), while the lateral conductance between coarse
@@ -125,8 +150,8 @@ def _plan_levels(m: int, n: int, g_v: float, g_lat: float,
         if mm * nn <= coarse_cells or (mm == 1 and nn == 1):
             break
         mc, nc = (mm + 1) // 2, (nn + 1) // 2
-        levels[-1][3] = _interp_weights_np(mm, mc).astype(np.float32)
-        levels[-1][4] = _interp_weights_np(nn, nc).astype(np.float32)
+        levels[-1][3] = _table_np(_interp_weights_np(mm, mc).astype(np.float32))
+        levels[-1][4] = _table_np(_interp_weights_np(nn, nc).astype(np.float32))
         pad = np.zeros((2 * mc, 2 * nc))
         pad[:mm, :nn] = gv
         gv = pad.reshape(mc, 2, nc, 2).sum(axis=(1, 3))
@@ -145,16 +170,13 @@ def _plan_levels(m: int, n: int, g_v: float, g_lat: float,
 
 @lru_cache(maxsize=64)
 def _plan_on(m: int, n: int, g_v: float, g_lat: float, coarse_cells: int,
-             device: torch.device):
-    """``_plan_levels`` as tensors on ``device``: (dims, diags, prolongation
-    pairs (Wr, Wc^T), A_inv)."""
+             device: torch.device) -> MG.Plan:
+    """``_plan_levels`` as a ``thermal_mg.Plan`` on ``device`` (the plain
+    version's tensors and the kernel's flat copies and shared-memory
+    layout)."""
     levels, A_inv = _plan_levels(m, n, g_v, g_lat, coarse_cells)
-    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-    dims = [tuple(lv[:2]) for lv in levels]
-    diags = [t(lv[2]) for lv in levels]
-    Ws = [(t(lv[3]), t(lv[4]).T.contiguous()) for lv in levels
-          if lv[3] is not None]
-    return dims, diags, Ws, t(A_inv)
+    return MG.make_plan([lv[:2] for lv in levels], [lv[2] for lv in levels],
+                        [lv[3:] for lv in levels[:-1]], A_inv, g_lat, device)
 
 
 def _sweeps(T, b, diag, g_lat: float, sweeps: int, phase, tc: ThermalConfig):
@@ -167,24 +189,6 @@ def _sweeps(T, b, diag, g_lat: float, sweeps: int, phase, tc: ThermalConfig):
                              iters=sweeps, phase=phase)
 
 
-def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched product with a 2-D operand broadcast over the batch: every
-    batch element is one product of the same shape, so its rounding does not
-    depend on the batch size (batched == per-element)."""
-    B = max(a.shape[0] if a.dim() == 3 else 1, b.shape[0] if b.dim() == 3 else 1)
-    a = a.expand(B, *a.shape[-2:]) if a.dim() == 2 else a
-    b = b.expand(B, *b.shape[-2:]) if b.dim() == 2 else b
-    return torch.bmm(a, b)
-
-
-def _restrict(r, mc: int, nc: int):
-    """Full-weighting of the extensive residual: 2x2 block sums (zero-padded
-    on odd trailing edges, where the coarse cell covers fewer fine cells)."""
-    B, m, n = r.shape
-    r = F.pad(r, (0, 2 * nc - n, 0, 2 * mc - m))
-    return r.reshape(B, mc, 2, nc, 2).sum(dim=(2, 4))
-
-
 def _sync_any(mask: torch.Tensor) -> bool:
     """Host read of a stop test (one synchronisation on the card)."""
     solve.host_syncs += 1
@@ -193,68 +197,22 @@ def _sync_any(mask: torch.Tensor) -> bool:
 
 def _solve_multigrid(b, T0, g_v: float, g_lat: float, tc: ThermalConfig):
     B, m, n = b.shape
-    dims, diags, Ws, A_inv = _plan_on(m, n, g_v, g_lat,
-                                      int(tc.coarse_cells), b.device)
-
-    def coarse_solve(bc):
-        mm, nn = bc.shape[-2:]
+    plan = _plan_on(m, n, g_v, g_lat, int(tc.coarse_cells), b.device)
+    if len(plan.dims) == 1:  # the whole grid fits the direct tier: exact solve
         # A_inv x as products summed along rows: unlike a matrix-vector
         # product, whose kernel changes with the batch size, each element
         # rounds the same whatever the batch (batched == per-element)
-        return (A_inv * bc.reshape(B, 1, -1)).sum(-1).reshape(B, mm, nn)
-
-    def prolong(lvl, e):
-        Wr, WcT = Ws[lvl]
-        return _bmm(_bmm(Wr, e), WcT)  # cell-centered bilinear prolongation
-
-    def scaled_residual(T):
-        """max |r| / diag per element — the |dT|_inf one Jacobi sweep would
-        apply at T (the seed solver's stopping metric)."""
-        r = b - (diags[0] * T - g_lat * nbr_sum(T))
-        return (r.abs() / diags[0]).amax(dim=(1, 2))
-
-    def vcycle(lvl, T, b_l):
-        if lvl == len(dims) - 1:
-            return coarse_solve(b_l)
-        diag = diags[lvl]
-        T = _sweeps(T, b_l, diag, g_lat, tc.n_smooth, 0, tc)
-        r = b_l - (diag * T - g_lat * nbr_sum(T))
-        mc, nc = dims[lvl + 1]
-        e = vcycle(lvl + 1, torch.zeros((B, mc, nc), dtype=torch.float32,
-                                        device=b.device),
-                   _restrict(r, mc, nc))
-        T = T + prolong(lvl, e)
-        return _sweeps(T, b_l, diag, g_lat, tc.n_smooth, 0, tc)
-
-    if len(dims) == 1:  # the whole grid fits the direct tier: exact solve
-        return coarse_solve(b)
-
-    if T0 is None:
-        # full-multigrid cold start: solve the restricted problem on the
-        # coarsest level exactly, prolongate up with one V-cycle per level
-        bs = [b]
-        for lvl in range(len(dims) - 1):
-            bs.append(_restrict(bs[-1], *dims[lvl + 1]))
-        T0 = coarse_solve(bs[-1])
-        for lvl in range(len(dims) - 2, -1, -1):
-            T0 = vcycle(lvl, prolong(lvl, T0), bs[lvl])
-
-    T = T0
-    s_prev = torch.full((B,), float("inf"), device=b.device)
-    s = scaled_residual(T)  # 0 cycles for an already-converged warm start
-    i = torch.zeros((B,), dtype=torch.int32, device=b.device)
-    while True:
-        # stop when converged under tol OR stalled at the f32 residual
-        # floor; each element stops on its own test and stays frozen
-        active = (s > tc.tol) & (s < 0.9 * s_prev) & (i < tc.max_cycles)
-        if not _sync_any(active):
-            return T
-        T_new = vcycle(0, T, b)
-        s_new = scaled_residual(T_new)
-        T = torch.where(active[:, None, None], T_new, T)
-        s_prev = torch.where(active, s, s_prev)
-        s = torch.where(active, s_new, s)
-        i = i + active.to(torch.int32)
+        return (plan.a_inv * b.reshape(B, 1, -1)).sum(-1).reshape(B, m, n)
+    kw = dict(tol=float(tc.tol), max_cycles=int(tc.max_cycles),
+              n_smooth=int(tc.n_smooth))
+    if b.device.type == "cuda" and tc.backend != "torch":
+        if MG.fits(plan, b.device):  # one launch, no host read
+            return MG.thermal_mg_solve(b, T0, plan, **kw)[0]
+        solve.composed += 1  # too large for one CTA: the per-step form
+    return MG.thermal_mg_solve_ref(
+        b, T0, plan, any_active=_sync_any,
+        smooth=lambda T, b_l, diag: _sweeps(T, b_l, diag, g_lat,
+                                            tc.n_smooth, 0, tc), **kw)[0]
 
 
 def _solve_jacobi(b, T0, g_v: float, g_lat: float, tc: ThermalConfig):
@@ -304,7 +262,7 @@ def solve(power_mw, m: int, n: int, t_amb, tc: ThermalConfig = ThermalConfig(),
     B = b.shape[0]
     if T0 is not None:
         T0 = torch.as_tensor(T0, dtype=torch.float32, device=dev)
-        T0 = T0.reshape(-1, m, n).expand(B, m, n)
+        T0 = T0.reshape(-1, m, n).expand(B, m, n).contiguous()
 
     if tc.solver == "multigrid":
         T = _solve_multigrid(b, T0, g_v, g_lat, tc)
@@ -319,3 +277,6 @@ def solve(power_mw, m: int, n: int, t_amb, tc: ThermalConfig = ThermalConfig(),
 
 solve.calls = 0  # calls of solve (one batched solve counts once)
 solve.host_syncs = 0  # stop-test reads, one per V-cycle or Jacobi chunk
+# multigrid solves on the card whose plan does not fit one CTA's shared
+# memory (the per-step form, the stencil kernel as smoother)
+solve.composed = 0

@@ -2,7 +2,8 @@
 
 Run on a machine with a CUDA card: ``pytest -m gpu tests/test_torch_gpu.py``.
 Without one every test here skips (the ``cuda`` fixture decides, at run
-time). The stencil kernel rounds every operation as the plain version does,
+time). The stencil kernel and the fused multigrid solve round every
+operation as their plain versions do,
 the error-injecting int8 matmuls decide every output in integer arithmetic
 and the reference's float32 rounding, the attention kernels' plain versions
 repeat the kernels' online softmax one operation at a time in the kernels'
@@ -91,6 +92,115 @@ def test_solve_kernel_backend_matches_torch_backend(cuda):
                         thermal.ThermalConfig(theta_ja=12.0, backend="torch"),
                         device=cuda)
     assert torch.equal(T_k, T_t)
+
+
+# --- the fused multigrid solve -------------------------------------------------
+
+# (m, n, theta_JA): the FPGA paths' grids at their paths' packages
+MG_GRIDS = [(92, 92, 12.0), (152, 152, 2.0), (56, 56, 12.0), (69, 69, 12.0)]
+
+
+def _mg_problem(m, n, theta, B, device, seed=4):
+    """(b, plan, kwargs) as ``thermal.solve`` builds them, from random power
+    maps (one of them zero) and ambients."""
+    tc = thermal.ThermalConfig(theta_ja=theta)
+    g_v, g_lat = thermal.conductances(m, n, tc)
+    plan = thermal._plan_on(m, n, g_v, g_lat, tc.coarse_cells, device)
+    rng = np.random.default_rng(seed)
+    P = rng.uniform(0.0, 5.0, (B, m, n))
+    P[B // 2] = 0.0
+    t_amb = rng.uniform(0.0, 85.0, (B, 1, 1))
+    b = torch.tensor(P * 1e-3 + g_v * t_amb, dtype=torch.float32,
+                     device=device)
+    kw = dict(tol=tc.tol, max_cycles=tc.max_cycles, n_smooth=tc.n_smooth)
+    return b, plan, kw
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("B", [1, 86])
+@pytest.mark.parametrize("m,n,theta", MG_GRIDS)
+def test_fused_solve_equals_plain(cuda, m, n, theta, B, warm):
+    from repro_torch.kernels import thermal_mg as MG
+    b, plan, kw = _mg_problem(m, n, theta, B, cuda)
+    T0 = (torch.full_like(b, 40.0) + b * 1e3) if warm else None
+    before = MG.thermal_mg_solve.launches
+    T, cycles = MG.thermal_mg_solve(b, T0, plan, **kw)
+    assert MG.thermal_mg_solve.launches == before + 1
+    ref, ref_cycles = MG.thermal_mg_solve_ref(b, T0, plan, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(cycles, ref_cycles)
+    assert torch.equal(T, ref)
+
+
+@pytest.mark.parametrize("max_cycles", [2, 200])
+def test_fused_solve_mixed_batch_and_cycle_budget(cuda, max_cycles):
+    """A batch of a converged field (0 cycles), a start far from the
+    solution and a zero map; with max_cycles 2 and tol 0 every unconverged
+    element stops at the budget."""
+    from repro_torch.kernels import thermal_mg as MG
+    b, plan, kw = _mg_problem(56, 56, 12.0, 3, cuda)
+    done, _ = MG.thermal_mg_solve_ref(b[:1], None, plan, **kw)
+    T0 = torch.cat([done, torch.full((2, 56, 56), 60.0, device=cuda)])
+    kw["max_cycles"] = max_cycles
+    if max_cycles == 2:
+        kw["tol"] = 0.0
+    T, cycles = MG.thermal_mg_solve(b, T0, plan, **kw)
+    ref, ref_cycles = MG.thermal_mg_solve_ref(b, T0, plan, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(cycles, ref_cycles) and torch.equal(T, ref)
+    assert cycles.tolist()[1:] == [2, 2] if max_cycles == 2 else (
+        int(cycles[0]) == 0)
+
+
+def test_path_solve_is_one_launch(cuda):
+    """A multigrid solve at a path grid is one fused launch: no stencil
+    launch and no host read of a stop test."""
+    from repro_torch.kernels import thermal_mg as MG
+    P = np.random.default_rng(3).uniform(0.0, 5.0, (4, 92 * 92))
+    counts = (MG.thermal_mg_solve.launches, TS.thermal_stencil.launches,
+              thermal.solve.host_syncs, thermal.solve.composed)
+    thermal.solve(P, 92, 92, [25.0, 40.0, 60.0, 85.0],
+                  thermal.ThermalConfig(theta_ja=12.0), device=cuda)
+    torch.cuda.synchronize()
+    assert (MG.thermal_mg_solve.launches, TS.thermal_stencil.launches,
+            thermal.solve.host_syncs, thermal.solve.composed) == (
+        counts[0] + 1, counts[1], counts[2], counts[3])
+
+
+def test_large_grid_takes_the_composition(cuda):
+    """256x256 does not fit one CTA: the per-step form with the stencil
+    kernel as smoother, one stop-test read per cycle, equal to the plain
+    version bit for bit."""
+    from repro_torch.kernels import thermal_mg as MG
+    P = np.random.default_rng(5).uniform(0.0, 1.0, (256 * 256,))
+    tc = thermal.ThermalConfig(theta_ja=2.0)
+    counts = (MG.thermal_mg_solve.launches, TS.thermal_stencil.launches,
+              thermal.solve.host_syncs, thermal.solve.composed)
+    T = thermal.solve(P, 256, 256, 25.0, tc, device=cuda)
+    assert MG.thermal_mg_solve.launches == counts[0]
+    assert TS.thermal_stencil.launches > counts[1]
+    assert thermal.solve.host_syncs > counts[2]
+    assert thermal.solve.composed == counts[3] + 1
+    plain = thermal.solve(P, 256, 256, 25.0,
+                          thermal.ThermalConfig(theta_ja=2.0, backend="torch"),
+                          device=cuda)
+    assert torch.equal(T, plain)
+
+
+def test_fused_solve_refuses_bad_input(cuda):
+    from repro_torch.kernels import thermal_mg as MG
+    b, plan, kw = _mg_problem(56, 56, 12.0, 2, cuda)
+    with pytest.raises(ValueError):
+        MG.thermal_mg_solve(b.double(), None, plan, **kw)
+    with pytest.raises(ValueError):
+        MG.thermal_mg_solve(b[:, :, :8].contiguous(), None, plan, **kw)
+    with pytest.raises(ValueError):
+        MG.thermal_mg_solve(b, b[:1], plan, **kw)
+    cpu_plan = thermal._plan_on(56, 56, *thermal.conductances(
+        56, 56, thermal.ThermalConfig(theta_ja=12.0)), 512,
+        torch.device("cpu"))
+    with pytest.raises(ValueError):
+        MG.thermal_mg_solve(b, None, cpu_plan, **kw)
 
 
 # --- the error-injecting int8 matmuls -----------------------------------------
