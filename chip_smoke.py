@@ -102,6 +102,25 @@ Phases, each of which exits non-zero on failure:
    one warm all-decode tick and one prefill-chunk tick of the bf16 engine
    and one warm prefill step profiled (the paged and flash kernels' shares
    of device time);
+10b. control loop: the serving control plane (the TPU-fleet substrate,
+   the RailField, the planner, the runtime, the controller, the actuators,
+   thermal-aware admission) governing llama3.2-1b at full width through
+   ``scenarios.serve_replay`` (8 slots, max_len 2048, pages of 16, prefill
+   chunk 256; ``serve_day(14, 42 C hot, 12 C from tick 7)``; a burst of 12
+   384-token prompts with 32 new tokens each and a Poisson tail). The
+   card's RailField (4 x 4 knots x 256 chips) equals the CPU port's (rails
+   exactly, p_nom within 1e-3), with the admission price's margin against
+   ``defer_premium`` per marginal slot at the day's ambients; every
+   replay's cap trace and counts equal a CPU replay of the same kind at
+   reduced width (a differing cap prints its margins). float32: thermal-aware
+   admission against the throughput-only baseline (streams held as in
+   path 10, deferrals, higher tokens/J), the paged engine against the
+   contiguous one, a hotspot on chip 0 at ticks 9 and 10 whose preempted
+   requests resume to the undisturbed streams, paged launches == (model
+   steps + 2 warm-up steps) x 16 layers; bf16 thermal-aware and
+   throughput-only runs (streams compared, reported). Each replay prints
+   its wall, ticks, tokens/s, energy ledger, launches and peak memory,
+   and ``loop.step``'s mean wall and host syncs (``set_sync_debug_mode``);
 11. recurrent serve path: the stateful ``Engine`` on mamba2-780m (8 slots,
    max_len 1024, prompts of 37 to 256 tokens and one of 512, one more
    after 4 ticks, 32 new tokens each) and zamba2-1.2b (4 slots, four
@@ -126,11 +145,13 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1878,6 +1899,302 @@ def serve_path(torch) -> dict:
     out["prefill_ms"] = {"kernel": p_ms, "plain": pp_ms}
     return out
 
+# --- the serving control loop (scenarios.serve_replay) -----------------------------
+CTL_DAY = dict(ticks=14, hot=42.0, cool=12.0, cool_at=7)
+CTL_BURST = dict(burst_at=1, burst_n=12, prompt_len=384, max_new=32,
+                 tail_ticks=4, tail_rate=0.5, seed=0)
+CTL_SWEEP = ((10.0, 45.0, 4), (0.25, 1.0, 4))  # serve_replay's own knots
+CTL_HOT_TICKS = (9, 10)  # chip 0 at T_MAX_CHIP - 1, slots busy
+CTL_PNOM_RTOL = 1e-3
+CTL_DEFER_PREMIUM = 1.05  # serve_replay's default
+
+
+def _ctl_inputs():
+    from repro_torch import scenarios as sc
+    from repro_torch.core import tpu_fleet as TF
+    day = sc.serve_day(**CTL_DAY)
+    hot = dataclasses.replace(day, hotspots=tuple(
+        sc.Hotspot(t, 0, TF.T_MAX_CHIP - 1.0) for t in CTL_HOT_TICKS))
+    return day, hot, sc.poisson_burst(**CTL_BURST)
+
+
+def _ctl_runtime(device):
+    from repro_torch.core import runtime as RT
+    from repro_torch.core import tpu_fleet as TF
+    return RT.EnergyAwareRuntime(
+        TF.StepProfile.from_roofline(compute_s=0.8, memory_s=0.45,
+                                     collective_s=0.2),
+        policy="power_save", device=device)
+
+
+# (label, serve_replay keyword arguments): the float32 pairs and the
+# preempting run; each card run is held to a CPU run of the same kind
+CTL_RUNS = {
+    "thermal": dict(admission=True),
+    "throughput": dict(admission=False),
+    "thermal_contiguous": dict(admission=True, paged=False),
+    "preempt": dict(admission=True, preempt=True),
+}
+CTL_DECISIONS = ("deferred", "forced", "finished", "preempts",
+                 "preempted_reqs", "ticks", "engine_ticks", "model_ticks")
+
+
+class _TickMeter:
+    """Wall time and host syncs of every ``ControlLoop.step`` while
+    installed: the loop's method is wrapped, and the syncs are the
+    warnings ``torch.cuda.set_sync_debug_mode("warn")`` raises inside the
+    call (every device -> host read, and every blocking host -> device
+    copy, waits for the card)."""
+
+    def __init__(self, torch):
+        from repro_torch.control import loop
+        self.torch, self.cls = torch, loop.ControlLoop
+        self.orig = self.cls.step
+        self.rows = []  # (wall s, syncs, replanned)
+
+    def __enter__(self):
+        torch, orig, rows = self.torch, self.orig, self.rows
+
+        def step(loop, *a, **kw):
+            stats = getattr(loop.controller, "inner", loop.controller).stats
+            replans = stats.replans
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                try:
+                    rep = orig(loop, *a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            rows.append((time.perf_counter() - t0,
+                         sum("synchroniz" in str(w.message) for w in caught),
+                         stats.replans > replans))
+            return rep
+
+        self.cls.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.orig
+
+    def summary(self) -> dict:
+        mean = lambda xs: sum(xs) / len(xs) if xs else 0.0
+        out = {}
+        for name, rows in (("all", self.rows),
+                           ("fast", [r for r in self.rows if not r[2]]),
+                           ("replan", [r for r in self.rows if r[2]])):
+            out[name] = {"ticks": len(rows),
+                         "step_ms": mean([r[0] for r in rows]) * 1e3,
+                         "syncs": mean([r[1] for r in rows])}
+        return out
+
+
+def _price_margins(rt, field, t_amb: float, slots: int) -> str:
+    """Where the admission price of each marginal slot of an idle pod sits
+    against ``defer_premium`` at ``t_amb``: m_now / m_best - premium, by
+    ``AdmissionController``'s own pod-power pricing."""
+    from repro_torch import control as ctl
+    pod = ctl.AdmissionController(ctl.LutController(
+        rt.planner, field=field))._pod_power
+    out = []
+    for k in range(1, slots + 1):
+        u0, u1 = (k - 1) / slots, k / slots
+        now = pod(t_amb, u1) - pod(t_amb, u0)
+        best = min(pod(float(t), u1) - pod(float(t), u0) for t in field.t)
+        out.append(f"{now / best - CTL_DEFER_PREMIUM:+.3e}")
+    return ", ".join(out)
+
+
+def _hold_decisions(label, got, want, rt, field, day) -> None:
+    """A card replay's decisions against the CPU replay of the same kind:
+    the cap trace and the counts."""
+    caps, wcaps = got.caps.tolist(), want.caps.tolist()
+    if caps != wcaps:
+        for k, (a, b) in enumerate(zip(caps, wcaps)):
+            if a != b:
+                print(f"{label}: cap at control tick {k} is {a} on the card, "
+                      f"{b} on the CPU; price - defer_premium per marginal "
+                      f"slot at {day.ambient_at(k)} C: "
+                      f"{_price_margins(rt, field, day.ambient_at(k), 8)}")
+    check(caps == wcaps, f"{label}: the cap trace equals the CPU replay's")
+    for name in CTL_DECISIONS:
+        check(getattr(got, name) == getattr(want, name),
+              f"{label}: {name} {getattr(got, name)} equals the CPU "
+              f"replay's {getattr(want, name)}")
+    check(abs(got.energy_j / want.energy_j - 1) <= CTL_PNOM_RTOL,
+          f"{label}: energy_j {got.energy_j} within {CTL_PNOM_RTOL} of the "
+          f"CPU replay's {want.energy_j}")
+
+
+def control_path(torch, card: str) -> dict:
+    """The serving control plane on the card: the RailField against the CPU
+    port's, then ``scenarios.serve_replay`` at llama3.2-1b full width
+    under the full control loop (float32 pairs, preemption, bf16), each
+    replay's decisions held to a CPU replay at reduced width."""
+    from repro_torch import scenarios as sc
+    from repro_torch.configs import registry
+    from repro_torch.control import sweep_points
+    from repro_torch.models.model import Model
+
+    out = {}
+    day, hot, wl = _ctl_inputs()
+    knots = [sweep_points(*s) for s in CTL_SWEEP]
+
+    # 1. the field: the card against the CPU port
+    rt = _ctl_runtime(None)
+    walls = []
+    for _ in range(2):  # cold (first solves on the card), then warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        field = rt.build_field(*knots)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    cpu_rt = _ctl_runtime("cpu")
+    t0 = time.perf_counter()
+    cpu_field = cpu_rt.build_field(*knots)
+    cpu_wall = time.perf_counter() - t0
+    pnom_err = float(np.max(np.abs(field.p_nom / cpu_field.p_nom - 1)))
+    print(f"control: build_field {len(knots[0])}x{len(knots[1])} knots x "
+          f"{field.chips} chips on the card: {walls[0] * 1e3:.3f} ms cold, "
+          f"{walls[1] * 1e3:.3f} ms warm; the CPU port: {cpu_wall * 1e3:.3f}"
+          f" ms; p_nom max rel diff {pnom_err:.3e} ({card})")
+    check(np.array_equal(field.vc, cpu_field.vc)
+          and np.array_equal(field.vs, cpu_field.vs),
+          "the card's RailField rails equal the CPU port's at every knot "
+          "and chip")
+    check(pnom_err <= CTL_PNOM_RTOL,
+          f"the card's p_nom within {CTL_PNOM_RTOL} of the CPU port's")
+    for t in sorted({day.ambient_at(k) for k in range(day.ticks)}):
+        print(f"control: admission price - defer_premium per marginal slot "
+              f"of an idle pod at {t} C: {_price_margins(rt, field, t, 8)}")
+    out["build_field_ms"] = {"cold": walls[0] * 1e3, "warm": walls[1] * 1e3,
+                             "cpu_port": cpu_wall * 1e3}
+    out["p_nom_max_rel_diff"] = pnom_err
+
+    # 2. the CPU replays at reduced width: the decisions to hold
+    rcfg = registry.get(SERVE_ARCH).reduced().replace(dtype="float32")
+    rmodel = Model(rcfg, device="cpu").init(SERVE_SEED)
+    kw = dict(batch_slots=SERVE_KW["batch_slots"],
+              max_len=SERVE_KW["max_len"], page_size=SERVE_KW["page_size"],
+              prefill_chunk=SERVE_KW["prefill_chunk"],
+              eos_id=SERVE_KW["eos_id"])
+    cpu = {}
+    t0 = time.perf_counter()
+    for label, args in CTL_RUNS.items():
+        args = dict(args)
+        cpu[label] = sc.serve_replay(
+            hot if label == "preempt" else day, wl, rmodel, runtime=cpu_rt,
+            **dict(kw, paged=args.pop("paged", True), **args))
+    print(f"control: CPU replays at reduced width in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del rmodel
+
+    # 3. the card, float32
+    cfg = registry.get(SERVE_ARCH)
+    n_layers = cfg.num_layers
+    vocab = cfg.vocab_size
+    prompts = {a.rid: sc.serve_prompt(a.rid, a.prompt_len, vocab)
+               for a in wl.arrivals}
+
+    def replay(model, label, dtype):
+        args = dict(CTL_RUNS[label])
+        paged = args.pop("paged", True)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with _TickMeter(torch) as meter:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = sc.serve_replay(hot if label == "preempt" else day, wl, model,
+                                runtime=rt, **dict(kw, paged=paged, **args))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ticks = meter.summary()
+        print(f"control {dtype} {label}: wall {wall:.3f} s, {r.ticks} control"
+              f" ticks, {r.engine_ticks} engine ticks ({r.model_ticks} model "
+              f"steps), {r.tokens} tokens, {r.tokens / wall:.1f} tokens/s, "
+              f"energy {r.energy_j:.1f} J, {r.tokens_per_joule:.6e} tokens/J,"
+              f" deferred {r.deferred}, forced {r.forced}, preempts "
+              f"{r.preempts}, caps {r.caps.tolist()}, launches {counts}, "
+              f"peak memory {peak / 2 ** 20:.1f} MiB ({card})")
+        print(f"control {dtype} {label}: loop.step " + "; ".join(
+            f"{k} {v['step_ms']:.3f} ms and {v['syncs']:.2f} host syncs "
+            f"per tick over {v['ticks']} ticks" for k, v in ticks.items())
+            + f" ({card})")
+        got = {rid: list(o) for rid, o in zip(sorted(prompts), r.outputs)}
+        stats = dict(wall_s=wall, ticks=r.ticks, engine_ticks=r.engine_ticks,
+                     model_ticks=r.model_ticks, tokens=r.tokens,
+                     tokens_per_s=r.tokens / wall, energy_j=r.energy_j,
+                     tokens_per_joule=r.tokens_per_joule,
+                     deferred=r.deferred, forced=r.forced,
+                     preempts=r.preempts, caps=r.caps.tolist(),
+                     counts=counts, peak_memory_bytes=peak, loop=ticks)
+        return r, got, stats
+
+    m32 = Model(cfg.replace(dtype="float32")).init(SERVE_SEED)
+    f32, streams = {}, {}
+    for label in CTL_RUNS:
+        r, streams[label], out[f"float32_{label}"] = replay(m32, label,
+                                                            "float32")
+        _hold_decisions(f"float32 {label}", r, cpu[label], rt, field,
+                        hot if label == "preempt" else day)
+        f32[label] = r
+        counts = out[f"float32_{label}"]["counts"]
+        if CTL_RUNS[label].get("paged", True):
+            # the engine's warm-up runs its two width buckets (1 and the
+            # prefill chunk) through the model once before the day
+            check(counts["paged_attention"]
+                  == (r.model_ticks + 2) * n_layers,
+                  f"float32 {label}: paged launches == (model steps + 2 "
+                  f"warm-up steps) x {n_layers} layers")
+        else:
+            check(counts["paged_attention"] == 0,
+                  f"float32 {label}: the contiguous engine launches no paged "
+                  f"kernel")
+    print(f"control float32 thermal_contiguous: flash launches "
+          f"{out['float32_thermal_contiguous']['counts']['flash_attention']}"
+          f" (the contiguous engine's chunked prefill attends through "
+          f"gqa_decode's plain _sdpa, as the reference's engine does)")
+    therm, thru = f32["thermal"], f32["throughput"]
+    check(therm.deferred > 0, "the thermal-aware run deferred admissions")
+    check(therm.tokens_per_joule > thru.tokens_per_joule,
+          f"thermal-aware tokens/J {therm.tokens_per_joule:.6e} > "
+          f"throughput-only {thru.tokens_per_joule:.6e}")
+    out["float32_thermal_vs_throughput_equal_streams"] = hold_streams(
+        torch, "control float32 thermal vs throughput", m32, prompts,
+        streams["thermal"], streams["throughput"])
+    out["float32_paged_vs_contiguous_equal_streams"] = hold_streams(
+        torch, "control float32 paged vs contiguous", m32, prompts,
+        streams["thermal"], streams["thermal_contiguous"])
+    check(f32["preempt"].preempts > 0 and f32["preempt"].preempted_reqs > 0,
+          "the hotspot preempted running requests")
+    out["float32_preempt_vs_undisturbed_equal_streams"] = hold_streams(
+        torch, "control float32 preempted vs undisturbed", m32, prompts,
+        streams["preempt"], streams["thermal"])
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. bf16, the working type: reported, not gated
+    m16 = Model(cfg).init(SERVE_SEED)
+    b16 = {}
+    for label in ("thermal", "throughput"):
+        r, b16[label], out[f"bf16_{label}"] = replay(m16, label, "bfloat16")
+        _hold_decisions(f"bf16 {label}", r, cpu[label], rt, field, day)
+    same = sum(b16["thermal"][rid] == b16["throughput"][rid]
+               for rid in prompts)
+    print(f"control bf16 thermal vs throughput (reported): {same} of "
+          f"{len(prompts)} streams equal")
+    out["bf16_thermal_vs_throughput_equal_streams"] = same
+    del m16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # --- the Mamba2 SSD-scan kernel ---------------------------------------------------
 # (b, S, H, P, G, N, chunk): the reference test's shapes (per-head B and C),
 # then the recurrent models' prefills (one B/C group, chunk 256)
@@ -2169,12 +2486,14 @@ def main() -> int:
     serve = timed("serve path", serve_path, torch)
     gc.collect()
     torch.cuda.empty_cache()
+    control = timed("control loop", control_path, torch, card)
     rec = {arch: timed(f"serve {arch}", recurrent_serve, torch, arch,
                        arch == "mamba2-780m") for arch in REC_SERVE}
     timed("profile", profile_phase, torch,
           mp["runs"]["table2_mkDelayWorker32B"]["fused_launches"],
           osp["params"], osp["fig8_probs"])
     print(f"serve path: {json.dumps(serve)}")
+    print(f"control loop: {json.dumps(control)}")
     print(f"recurrent serve path: {json.dumps(rec)}")
     print(f"phase times (s): {json.dumps(took)}")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

@@ -9,6 +9,7 @@ the CPU, where the kernels' plain PyTorch versions stand in for them.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -20,3 +21,16 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port on the CPU")
     return dev
+
+
+def to_device(x, device, dtype=torch.float32) -> torch.Tensor:
+    """A host array (or scalar) as a ``dtype`` tensor on ``device``. On the
+    card the copy goes through pinned memory and does not wait for the
+    device: a blocking copy from pageable memory would synchronise the
+    host with the stream (one host sync per upload)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    t = torch.as_tensor(np.asarray(x), dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

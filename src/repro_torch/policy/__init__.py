@@ -7,7 +7,8 @@
         {"t_amb": 60.0, "act": 1.0})
     v_core, v_bram = sub.decode(sol.idx)
 
-``fpga_substrate`` takes ``device=None`` (the CUDA card) or ``"cpu"``.
+``fpga_substrate`` and ``tpu_substrate`` take ``device=None`` (the CUDA
+card) or ``"cpu"``.
 """
 from repro_torch.policy.policies import (ABFT_ESCAPE, SDC_RATE0, SDC_RATE_K,
                                          ErrorTolerant, MinEnergy, Overscale,
@@ -16,7 +17,8 @@ from repro_torch.policy.policies import (ABFT_ESCAPE, SDC_RATE0, SDC_RATE_K,
 from repro_torch.policy.solver import Solution, Solver, cached_solver
 from repro_torch.policy.substrate import (T_GUARD, V_BRAM_GRID, V_CORE_GRID,
                                           FpgaNetlistSubstrate, Substrate,
-                                          fpga_substrate)
+                                          TpuFleetSubstrate, fpga_substrate,
+                                          tpu_substrate)
 
 __all__ = [
     "Policy", "PowerSave", "MinEnergy", "Overscale", "ErrorTolerant",
@@ -24,5 +26,6 @@ __all__ = [
     "SDC_RATE0", "SDC_RATE_K", "ABFT_ESCAPE",
     "Solver", "Solution", "cached_solver",
     "Substrate", "FpgaNetlistSubstrate", "fpga_substrate",
+    "TpuFleetSubstrate", "tpu_substrate",
     "T_GUARD", "V_CORE_GRID", "V_BRAM_GRID",
 ]

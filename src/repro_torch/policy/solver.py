@@ -35,6 +35,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import to_device
 from repro_torch.core import thermal
 from repro_torch.policy.policies import Policy
 from repro_torch.policy.substrate import Env, Substrate
@@ -78,8 +79,11 @@ def _where_rows(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
 
 
 def _policy_env(env: Env, ndim: int) -> Env:
-    """``env`` leaves reshaped to broadcast against (B, ...) of ``ndim``."""
-    return {k: v.reshape(-1, *([1] * (ndim - 1))) for k, v in env.items()}
+    """The (B,) ``env`` leaves reshaped to broadcast against (B, ...) of
+    ``ndim`` (the policies read only these; per-domain leaves such as the
+    pod's (B, D) ``util`` stay out)."""
+    return {k: v.reshape(-1, *([1] * (ndim - 1))) for k, v in env.items()
+            if v.dim() == 1}
 
 
 class Solver:
@@ -192,15 +196,25 @@ class Solver:
             n_iters=st.it, converged=st.done,
             d_final=d_fin, f_final=f_fin, p_final=p_fin,
             idx_hist=st.idx_hist, p_hist=st.p_hist, tj_hist=st.tj_hist)
-        return Solution(*(x.cpu().numpy() for x in out))
+        # one host read for every leaf: float64 holds each float32, index
+        # and flag exactly
+        B = st.T.shape[0]
+        flat = torch.cat([x.reshape(B, -1).to(torch.float64) for x in out],
+                         dim=1).cpu().numpy()
+        leaves, col = [], 0
+        for x in out:
+            n = x[0].numel()
+            leaves.append(flat[:, col:col + n].reshape(x.shape).astype(
+                torch.empty((), dtype=x.dtype).numpy().dtype))
+            col += n
+        return Solution(*leaves)
 
     # ------------------------------------------------------------------
     def _env_tensors(self, env: Dict[str, Any], batched: bool) -> Env:
         dev = self.substrate.device
-        out = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
-               for k, v in env.items()}
+        out = {k: to_device(v, dev) for k, v in env.items()}
         if not batched:
-            return {k: v.reshape(1) for k, v in out.items()}
+            return {k: v[None] for k, v in out.items()}
         B = int(next(iter(out.values())).shape[0])
         for k, v in out.items():
             if v.shape[:1] != (B,):
@@ -212,8 +226,7 @@ class Solver:
     def _T0(self, env: Env, T0) -> torch.Tensor:
         if T0 is None:
             return self.substrate.T0(env)
-        T0 = torch.as_tensor(np.asarray(T0, np.float32),
-                             device=self.substrate.device)
+        T0 = to_device(T0, self.substrate.device)
         return T0.reshape(-1, T0.shape[-1]).expand(
             next(iter(env.values())).shape[0], -1).clone()
 
@@ -249,17 +262,18 @@ class Solver:
             # the batch; padding repeats the first active element and its
             # duplicate rows are discarded
             P = min(1 << (int(active.size) - 1).bit_length(), B)
-            pad = torch.as_tensor(np.concatenate(
-                [active, np.repeat(active[:1], P - active.size)]),
-                device=dev)
+            pad = to_device(np.concatenate(
+                [active, np.repeat(active[:1], P - active.size)]), dev,
+                torch.long)
             sub_env = {k: v[pad] for k, v in env.items()}
             out = self._run(sub_env, _State(*(x[pad] for x in st)), seg)
             n = int(active.size)
             rows = pad[:n]
             st = _State(*(cur.index_copy(0, rows, new[:n])
                           for cur, new in zip(st, out)))
-            done = st.done[rows].cpu().numpy()
-            it = st.it[rows].cpu().numpy()
+            done, it = torch.stack([st.done[rows].to(torch.int32),
+                                    st.it[rows]]).cpu().numpy()
+            done = done.astype(bool)
             self.host_syncs += 1
             active = active[(~done) & (it < self.max_iters)]
         return st

@@ -1,7 +1,8 @@
 """Substrate protocol — the device a thermal-aware policy optimizes.
 
-The port of ``repro.policy.substrate`` (the FPGA half; the TPU-pod substrate
-comes with the port of ``core/tpu_fleet.py``). A :class:`Substrate` is what
+The port of ``repro.policy.substrate``: :class:`FpgaNetlistSubstrate` (the
+paper's placed-and-routed designs) and :class:`TpuFleetSubstrate` (the pod
+re-parameterisation of ``core/tpu_fleet.py``). A :class:`Substrate` is what
 Algorithm 1/2 need to know about a piece of silicon: a site grid ``(m, n)``
 with a :class:`~repro_torch.core.thermal.ThermalConfig`, ``D`` selection
 domains, a flat grid of ``C`` candidate operating points with the nominal
@@ -11,7 +12,8 @@ temperature field (``cand_delay``), per-candidate domain power
 (``site_power``), against the timing reference ``d_worst``.
 
 Every method takes a leading batch axis: ``T_sites`` is (B, S), ``env``
-leaves are (B,), candidate arrays are (B, D, C) and selections (B, D).
+leaves are (B,) (the pod's per-chip ``util`` is (B, D)), candidate arrays
+are (B, D, C) and selections (B, D).
 
 The candidate evaluation runs in chunks of the candidate axis so that no
 intermediate exceeds ``CHUNK_ELEMS`` elements (the reference evaluates one
@@ -31,6 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.core import characterization as C
 from repro_torch.core import netlist as NL
 from repro_torch.core import thermal
+from repro_torch.core import tpu_fleet as TF
 from repro_torch.core.netlist import Netlist
 
 # degC guard on timing eval (TSD error / spatial gradients, paper §III-B)
@@ -225,11 +228,123 @@ class FpgaNetlistSubstrate:
 
 
 # =============================================================================
-# substrate cache (repeated run() calls share substrates and their STA)
+# TPU fleet substrate (the pod re-parameterisation)
+# =============================================================================
+
+class TpuFleetSubstrate:
+    """A (m x n)-chip pod; every chip is its own selection domain.
+
+    ``env`` keys: ``t_amb`` (B,), ``util`` (per-chip utilization scale,
+    (B, D)). ``d_worst`` is the *relative* step-time contract 1.0: a
+    candidate is feasible when its worst pipeline delay factor stays within
+    gamma of it. The candidate math is the reference's float32 formulas on
+    the substrate's device.
+    """
+
+    def __init__(self, prof: TF.StepProfile,
+                 lib: Optional[TF.TpuLibrary] = None,
+                 grid: Tuple[int, int] = (16, 16),
+                 theta_chip: float = 0.20,
+                 tc: Optional[thermal.ThermalConfig] = None,
+                 v_core_grid=None, v_sram_grid=None,
+                 warm_offset: float = 25.0, device=None):
+        self.device = resolve_device(device)
+        self.prof = prof
+        self.lib = lib or TF.TpuLibrary()
+        self.grid = grid
+        self.thermal_cfg = tc or TF.pod_thermal_config(theta_chip,
+                                                       grid[0] * grid[1])
+        vc = np.asarray(
+            np.arange(0.55, TF.V_CORE_NOM + 0.001, 0.01)
+            if v_core_grid is None else v_core_grid, np.float32)
+        vs = np.asarray(
+            np.arange(0.60, TF.V_SRAM_NOM + 0.001, 0.01)
+            if v_sram_grid is None else v_sram_grid, np.float32)
+        VC, VS = np.meshgrid(vc, vs, indexing="ij")
+        self.vc_np, self.vs_np = VC.reshape(-1), VS.reshape(-1)
+        self.vc_flat = torch.as_tensor(self.vc_np, device=self.device)
+        self.vs_flat = torch.as_tensor(self.vs_np, device=self.device)
+        self.n_domains = grid[0] * grid[1]
+        self.n_candidates = int(self.vc_np.shape[0])
+        nom = (np.abs(self.vc_np - TF.V_CORE_NOM)
+               + np.abs(self.vs_np - TF.V_SRAM_NOM))
+        self.nominal_idx = int(np.argmin(nom))
+        self.warm_offset = warm_offset
+        self._nominal = None
+        self.f_nom = 1.0
+        self.f_cap = 1.0  # the pod never overclocks past the rated step
+
+    @property
+    def d_worst(self) -> float:
+        return 1.0  # the step-time contract, in relative units
+
+    def T0(self, env: Env) -> torch.Tensor:
+        """The cold-start field: (D,) for a scalar ``t_amb``, (B, D) for a
+        (B,) batch."""
+        t = torch.as_tensor(env["t_amb"], dtype=torch.float32,
+                            device=self.device)
+        return (t[..., None].expand(*t.shape, self.n_domains)
+                + self.warm_offset)
+
+    def cand_delay(self, T_sites, env: Env) -> torch.Tensor:
+        """Worst relative pipeline delay 1/f_max per (chip, candidate):
+        (B, D) -> (B, D, C)."""
+        Tg = T_sites[..., None] + T_GUARD
+        fmax = TF.f_max_rel(self.lib, self.vc_flat, self.vs_flat, Tg)
+        return 1.0 / fmax
+
+    def cand_power(self, T_sites, f, env: Env) -> torch.Tensor:
+        p = TF.chip_power(self.lib, self.prof, self.vc_flat, self.vs_flat, f,
+                          T_sites[..., None])
+        return p * env["util"][..., None]  # (B, D, C) [W]
+
+    def site_power(self, T_sites, idx, f_sel, env: Env) -> torch.Tensor:
+        p = TF.chip_power(self.lib, self.prof, self.vc_flat[idx],
+                          self.vs_flat[idx], f_sel, T_sites)
+        return p * env["util"] * 1e3  # (B, D) [mW] for the thermal solver
+
+    def delay_at(self, T_sites, idx, env: Env) -> torch.Tensor:
+        fmax = TF.f_max_rel(self.lib, self.vc_flat[idx], self.vs_flat[idx],
+                            T_sites + T_GUARD)
+        return 1.0 / fmax
+
+    def power_at(self, T_sites, idx, f_sel, env: Env) -> torch.Tensor:
+        p = TF.chip_power(self.lib, self.prof, self.vc_flat[idx],
+                          self.vs_flat[idx], f_sel, T_sites)
+        return p * env["util"]
+
+    def window_mask(self, idx_prev, window: float) -> torch.Tensor:
+        vc_p = self.vc_flat[idx_prev][..., None]
+        vs_p = self.vs_flat[idx_prev][..., None]
+        return (((self.vc_flat - vc_p).abs() <= window)
+                & ((self.vs_flat - vs_p).abs() <= window))
+
+    def exec_time(self, f) -> torch.Tensor:
+        """Relative step time when the core clock runs at f x nominal."""
+        scal = self.prof.f_scalable
+        return scal / f + (1.0 - scal)
+
+    def nominal_only(self) -> "TpuFleetSubstrate":
+        if self._nominal is None:
+            self._nominal = TpuFleetSubstrate(
+                self.prof, self.lib, self.grid, tc=self.thermal_cfg,
+                v_core_grid=[TF.V_CORE_NOM], v_sram_grid=[TF.V_SRAM_NOM],
+                warm_offset=self.warm_offset, device=self.device)
+        return self._nominal
+
+    def decode(self, idx) -> Tuple[np.ndarray, np.ndarray]:
+        """Candidate index -> (v_core, v_sram) as numpy."""
+        idx = np.asarray(idx)
+        return self.vc_np[idx], self.vs_np[idx]
+
+
+# =============================================================================
+# substrate caches (repeated run() calls share substrates and their STA)
 # =============================================================================
 
 _CACHE_LIMIT = 16  # LRU bound: a netlist sweep must not pin memory forever
 _FPGA_CACHE: "OrderedDict" = OrderedDict()
+_TPU_CACHE: "OrderedDict" = OrderedDict()
 
 
 def _lru_get(cache, key, make):
@@ -253,3 +368,17 @@ def fpga_substrate(netlist: Netlist, lib=None,
     key = (id(netlist), lib, tc, str(dev))
     return _lru_get(_FPGA_CACHE, key,
                     lambda: FpgaNetlistSubstrate(netlist, lib, tc, device=dev))
+
+
+def tpu_substrate(prof: TF.StepProfile, lib=None,
+                  grid: Tuple[int, int] = (16, 16),
+                  theta_chip: float = 0.20,
+                  device=None) -> TpuFleetSubstrate:
+    """Memoized pod substrate, keyed by profile, library, grid, theta and
+    the device."""
+    dev = resolve_device(device)
+    lib = lib or TF.TpuLibrary()
+    key = (prof, lib, grid, theta_chip, str(dev))
+    return _lru_get(_TPU_CACHE, key,
+                    lambda: TpuFleetSubstrate(prof, lib, grid, theta_chip,
+                                              device=dev))

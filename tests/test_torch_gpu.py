@@ -737,3 +737,24 @@ def test_recurrent_model_and_engine_on_the_card(cuda, arch):
         assert MS.mamba_scan.launches - before == (
             0 if plain else 3 * cfg.num_layers)
     assert outs[True] == outs[False]
+
+
+@pytest.mark.parametrize("t_sweep", [(10.0, 45.0, 8), (10.0, 45.0, 4)],
+                         ids=["railfield", "serve_replay"])
+def test_railfield_on_the_card_equals_the_cpu_port(cuda, t_sweep):
+    """The 16x16 pod's RailField built on the card (one early-freeze
+    solve_batch over the knots, batched direct-tier thermal solves) has
+    the CPU port's rails at every knot and chip, and its nominal-power grid
+    within 1e-3; the ambient knots of tests/test_railfield.py and of
+    serve_replay, the utilization knots 0.25 to 1 in four."""
+    from repro_torch.control import sweep_points
+    from repro_torch.core import runtime as RT
+    from repro_torch.core import tpu_fleet as TF
+    prof = TF.StepProfile.from_roofline(compute_s=0.8, memory_s=0.45,
+                                        collective_s=0.2)
+    knots = (sweep_points(*t_sweep), sweep_points(0.25, 1.0, 4))
+    card = RT.EnergyAwareRuntime(prof, device=cuda).build_field(*knots)
+    cpu = RT.EnergyAwareRuntime(prof, device="cpu").build_field(*knots)
+    np.testing.assert_array_equal(card.vc, cpu.vc)
+    np.testing.assert_array_equal(card.vs, cpu.vs)
+    np.testing.assert_allclose(card.p_nom, cpu.p_nom, rtol=1e-3)
