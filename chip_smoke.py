@@ -121,6 +121,25 @@ Phases, each of which exits non-zero on failure:
    throughput-only runs (streams compared, reported). Each replay prints
    its wall, ticks, tokens/s, energy ledger, launches and peak memory,
    and ``loop.step``'s mean wall and host syncs (``set_sync_debug_mode``);
+10c. fault, monitor and fleet tier: ``scenarios.replay`` of three named
+   days at the default knots (8 x 4) on the card and on the CPU port --
+   ``diurnal_load_spike``, ``chaos_day`` (the §9 chaos plane: sensor storm,
+   NACK burst, watchdog) and ``sdc_storm`` (an ErrorTolerant controller
+   with a seeded ``FaultInjector``) -- each card replay's rails, util trace,
+   shares and decisions equal the CPU port's (the SDC counts: injected
+   within 1e-5, escaped within 5 sigma of its binomial draw, as fields an
+   ulp apart move the draws); ``fleet_replay(pod_loss_day(16),
+   n_pods=2)``, its health events and state trace equal the CPU port's,
+   one quarantine and one restore; then the pod-loss serving drill,
+   ``fleet_serve_replay`` with two paged llama3.2-1b engines at full width
+   over one host page pool (phase 10b's engine settings; 12 requests, 2 a
+   tick over ticks 1-6, the serve path's prompt lengths in turn, 32 new
+   tokens, 2 engine steps a tick): float32 migrates requests, loses none,
+   and serves the no-failure day's streams (held as in path 10), its cap
+   trace and counts equal a CPU drill at reduced width, paged launches ==
+   (model steps + 2 warm-up steps x 2 engines) x 16 layers; bf16 reported.
+   Each run prints its wall and ``loop.step`` / ``FleetLoop.step`` wall
+   and host syncs per tick (fast path and replan ticks apart);
 11. recurrent serve path: the stateful ``Engine`` on mamba2-780m (8 slots,
    max_len 1024, prompts of 37 to 256 tokens and one of 512, one more
    after 4 ticks, 32 new tokens each) and zamba2-1.2b (4 slots, four
@@ -1939,16 +1958,26 @@ CTL_DECISIONS = ("deferred", "forced", "finished", "preempts",
                  "preempted_reqs", "ticks", "engine_ticks", "model_ticks")
 
 
-class _TickMeter:
-    """Wall time and host syncs of every ``ControlLoop.step`` while
-    installed: the loop's method is wrapped, and the syncs are the
-    warnings ``torch.cuda.set_sync_debug_mode("warn")`` raises inside the
-    call (every device -> host read, and every blocking host -> device
-    copy, waits for the card)."""
+def _loop_replans(loop) -> int:
+    """Replans so far of a ``ControlLoop``'s controller, or summed over a
+    ``FleetLoop``'s pod controllers."""
+    ctls = ([p.controller for p in loop.pods] if hasattr(loop, "pods")
+            else [loop.controller])
+    return sum(getattr(c, "inner", c).stats.replans for c in ctls)
 
-    def __init__(self, torch):
-        from repro_torch.control import loop
-        self.torch, self.cls = torch, loop.ControlLoop
+
+class _TickMeter:
+    """Wall time and host syncs of every ``ControlLoop.step`` (or, with
+    ``fleet=True``, ``FleetLoop.step``) while installed: the loop's method
+    is wrapped, and the syncs are the warnings
+    ``torch.cuda.set_sync_debug_mode("warn")`` raises inside the call
+    (every device -> host read, and every blocking host -> device copy,
+    waits for the card)."""
+
+    def __init__(self, torch, fleet=False):
+        from repro_torch import control
+        self.torch = torch
+        self.cls = control.FleetLoop if fleet else control.ControlLoop
         self.orig = self.cls.step
         self.rows = []  # (wall s, syncs, replanned)
 
@@ -1956,8 +1985,7 @@ class _TickMeter:
         torch, orig, rows = self.torch, self.orig, self.rows
 
         def step(loop, *a, **kw):
-            stats = getattr(loop.controller, "inner", loop.controller).stats
-            replans = stats.replans
+            replans = _loop_replans(loop)
             torch.cuda.synchronize()
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
@@ -1970,7 +1998,7 @@ class _TickMeter:
             torch.cuda.synchronize()
             rows.append((time.perf_counter() - t0,
                          sum("synchroniz" in str(w.message) for w in caught),
-                         stats.replans > replans))
+                         _loop_replans(loop) > replans))
             return rep
 
         self.cls.step = step
@@ -2189,6 +2217,268 @@ def control_path(torch, card: str) -> dict:
     print(f"control bf16 thermal vs throughput (reported): {same} of "
           f"{len(prompts)} streams equal")
     out["bf16_thermal_vs_throughput_equal_streams"] = same
+    del m16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# --- the fault, monitor and fleet tier (replay, fleet_replay, the drill) ----------
+FLEET_KNOTS = ((10.0, 45.0, 8), (0.25, 1.0, 4))  # replay's default knots
+FLEET_DAYS = ("diurnal_load_spike", "chaos_day", "sdc_storm")
+SDC_BUDGET = 1e-5  # the ErrorTolerant policy's escaped-SDC budget
+# SDC counts of one day on the card and on the CPU: the settled fields an
+# ulp apart move a Poisson draw of injected flips by a few, and the
+# escaped count is then a binomial draw over another n from the same
+# stream; injected within SDC_RTOL, escaped within SDC_SIGMAS standard
+# deviations of that draw (tests/test_torch_faults.py::sdc_agree)
+SDC_RTOL = 1e-5
+SDC_SIGMAS = 5.0
+FLEET_DECISIONS = ("replans", "lut_hits", "boosts", "rebalances",
+                   "replan_reasons", "condemned", "backoffs", "restores",
+                   "quarantined", "stale_fallbacks", "degraded_ticks",
+                   "frozen_ticks", "safe_states", "below_axis_clamps",
+                   "write_nacks", "write_retries", "watchdog_events",
+                   "recover_ticks")
+FLEET_EVENTS = ("events", "state_trace", "states", "quarantines",
+                "pod_restores", "replans", "replan_reasons", "condemned",
+                "write_nacks", "watchdog_events")
+# the pod-loss drill: 12 requests, 2 a tick over ticks 1-6, the serve
+# path's prompt lengths in turn, 32 new tokens; phase 10b's engine settings
+DRILL_PODS = 2
+DRILL_STEPS = 2  # engine steps per control tick
+DRILL_LENS = [SERVE_PROMPTS[i % len(SERVE_PROMPTS)] for i in range(12)]
+DRILL_DECISIONS = ("ticks", "engine_ticks", "model_ticks", "finished",
+                   "rejected", "migrated", "quarantines", "pod_restores",
+                   "preempts", "preempted_reqs")
+
+
+def _fleet_runtime(device, policy="power_save"):
+    from repro_torch.core import runtime as RT
+    from repro_torch.core import tpu_fleet as TF
+    return RT.EnergyAwareRuntime(
+        TF.StepProfile.from_roofline(compute_s=0.8, memory_s=0.45,
+                                     collective_s=0.2),
+        policy=policy, device=device)
+
+
+def _hold_replay(label, got, want, names, arrays=("rails",)) -> None:
+    """A card replay's decisions against the CPU port's: equal, and the
+    energy ledger within 1e-3."""
+    for name in arrays:
+        check(np.array_equal(getattr(got, name), getattr(want, name)),
+              f"{label}: {name} equal the CPU port's")
+    for name in names:
+        a, b = getattr(got, name), getattr(want, name)
+        check(a == b, f"{label}: {name} {a} equals the CPU port's {b}")
+    for name in ("mean_saving", "energy_j", "t_max"):
+        a, b = getattr(got, name), getattr(want, name)
+        check(abs(a / b - 1) <= CTL_PNOM_RTOL,
+              f"{label}: {name} {a} within {CTL_PNOM_RTOL} of the CPU "
+              f"port's {b}")
+
+
+def _sdc_agree(got, want) -> bool:
+    from repro_torch.policy.policies import ABFT_ESCAPE as p
+    gi, wi = got.sdc_injected, want.sdc_injected
+    return (got.sdc_checked == want.sdc_checked
+            and abs(gi - wi) <= SDC_RTOL * max(wi, 1)
+            and abs(got.sdc_escaped - want.sdc_escaped)
+            <= SDC_SIGMAS * (wi * p * (1 - p)) ** 0.5 + p * abs(gi - wi) + 1)
+
+
+def _meter_line(label, meter, card) -> dict:
+    ticks = meter.summary()
+    print(f"{label}: step " + "; ".join(
+        f"{k} {v['step_ms']:.3f} ms and {v['syncs']:.2f} host syncs per "
+        f"tick over {v['ticks']} ticks" for k, v in ticks.items())
+        + f" ({card})")
+    return ticks
+
+
+def _day_replay(torch, day, device):
+    """One named day through ``scenarios.replay`` on ``device`` at the
+    default knots (``sdc_storm``: an ErrorTolerant controller with an SDC
+    budget and a seeded FaultInjector); returns (result, wall s)."""
+    from repro_torch import scenarios as sc
+    from repro_torch.control import sweep_points
+    from repro_torch.tolerance import FaultInjector, TimingFaultModel
+    sdc = day == "sdc_storm"
+    rt = _fleet_runtime(device, f"error_tolerant:{SDC_BUDGET}" if sdc
+                        else "power_save")
+    field = rt.build_field(*[sweep_points(*k) for k in FLEET_KNOTS])
+    kw = {"sdc_budget": SDC_BUDGET} if sdc else {}
+    inj = (FaultInjector(TimingFaultModel(rt.lib), seed=7) if sdc
+           else None)
+    controller = rt.controller(field=field, guard_band_c=3.0, **kw)
+    solves = rt.planner.baseline_solves
+    if device is None:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = sc.replay(sc.SCENARIOS[day](), runtime=rt, controller=controller,
+                  injector=inj)
+    if device is None:
+        torch.cuda.synchronize()
+    return r, time.perf_counter() - t0, rt.planner.baseline_solves - solves
+
+
+def _drill(model, rt, clean):
+    from repro_torch import scenarios as sc
+    day = sc.pod_loss_day(ticks=16)
+    if clean:
+        day = sc.Scenario(name=day.name, ticks=day.ticks,
+                          ambient=day.ambient, load=day.load)
+    wl = sc.trace_requests([(1 + i // 2, n, SERVE_NEW)
+                            for i, n in enumerate(DRILL_LENS)],
+                           name="pod_loss_drill")
+    return sc.fleet_serve_replay(
+        day, wl, model, n_pods=DRILL_PODS, runtime=rt,
+        engine_steps=DRILL_STEPS, paged=True, **SERVE_KW)
+
+
+def fleet_path(torch, card: str) -> dict:
+    """The control plane's fault, monitor and fleet tier on the card:
+    three named days through ``replay``, the pod-loss day through
+    ``fleet_replay`` at 2 pods, each held to the CPU port; then the
+    pod-loss serving drill at llama3.2-1b full width through
+    ``fleet_serve_replay`` (two paged engines over one host page pool)."""
+    from repro_torch import scenarios as sc
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+
+    out = {}
+    # 1. replay: the card against the CPU port
+    for day in FLEET_DAYS:
+        with _TickMeter(torch) as meter:
+            got, wall, solves = _day_replay(torch, day, None)
+        want, cpu_wall, _ = _day_replay(torch, day, "cpu")
+        label = f"fleet replay {day}"
+        print(f"{label}: {got.ticks} ticks, wall {wall:.3f} s on the card "
+              f"(the CPU port {cpu_wall:.3f} s), replans {got.replans}, "
+              f"lut_hits {got.lut_hits}, mean_saving {got.mean_saving:.6f},"
+              f" t_max {got.t_max:.3f} C, quarantined {got.quarantined}, "
+              f"frozen {got.frozen_ticks}, safe_states {got.safe_states}, "
+              f"write_nacks {got.write_nacks}, backoffs {got.backoffs}, "
+              f"below-axis clamps {got.below_axis_clamps}, nominal-baseline "
+              f"solves {solves} (ticks whose load left the field's util "
+              f"axis), sdc injected / escaped {got.sdc_injected} / "
+              f"{got.sdc_escaped} (CPU {want.sdc_injected} / "
+              f"{want.sdc_escaped}) ({card})")
+        _hold_replay(label, got, want, FLEET_DECISIONS,
+                     ("rails", "util_trace", "shares"))
+        check(_sdc_agree(got, want),
+              f"{label}: SDC counts agree with the CPU port's (injected "
+              f"within {SDC_RTOL}, escaped within {SDC_SIGMAS} sigma)")
+        check(got.t_max < 95.0, f"{label}: t_max under the junction limit")
+        out[f"replay_{day}"] = {
+            "wall_s": wall, "cpu_wall_s": cpu_wall, "ticks": got.ticks,
+            "replans": got.replans, "fingerprint": got.fingerprint,
+            "sdc_injected": got.sdc_injected, "baseline_solves": solves,
+            "loop": _meter_line(label + " loop", meter, card)}
+    check(out["replay_chaos_day"]["loop"]["all"]["ticks"] == 48,
+          "the chaos day ticked 48 times")
+
+    # 2. fleet_replay of the pod-loss day at 2 pods
+    kw = dict(n_pods=2, sweep=FLEET_KNOTS[0], util_sweep=FLEET_KNOTS[1])
+    rt = _fleet_runtime(None)
+    with _TickMeter(torch, fleet=True) as meter:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sc.fleet_replay(sc.pod_loss_day(ticks=16), runtime=rt, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    solves = rt.planner.baseline_solves
+    want = sc.fleet_replay(sc.pod_loss_day(ticks=16),
+                           runtime=_fleet_runtime("cpu"), **kw)
+    print(f"fleet_replay pod_loss_day x 2 pods: wall {wall:.3f} s (the "
+          f"field build included), nominal-baseline solves {solves} beside "
+          f"the field's, events {got.events} ({card})")
+    _hold_replay("fleet_replay pod_loss_day", got, want, FLEET_EVENTS)
+    check(got.quarantines == 1 and got.pod_restores == 1,
+          "fleet_replay pod_loss_day: one quarantine and one restore")
+    out["fleet_replay"] = {
+        "wall_s": wall, "events": got.events, "baseline_solves": solves,
+        "loop": _meter_line("fleet_replay FleetLoop", meter, card)}
+
+    # 3. the pod-loss serving drill; the CPU drill at reduced width first
+    rcfg = registry.get(SERVE_ARCH).reduced().replace(dtype="float32")
+    t0 = time.perf_counter()
+    cpu = _drill(Model(rcfg, device="cpu").init(SERVE_SEED),
+                 _fleet_runtime("cpu"), clean=False)
+    print(f"fleet drill: the CPU drill at reduced width in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg = registry.get(SERVE_ARCH)
+    n_layers = cfg.num_layers
+    prompts = {rid: sc.serve_prompt(rid, n, cfg.vocab_size)
+               for rid, n in enumerate(DRILL_LENS)}
+
+    def run(model, dtype, clean):
+        label = f"fleet drill {dtype} {'no-failure' if clean else 'pod loss'}"
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        solves = rt.planner.baseline_solves
+        with _TickMeter(torch, fleet=True) as meter:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = _drill(model, rt, clean)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{label}: wall {wall:.3f} s, {r.ticks} control ticks, "
+              f"{r.engine_ticks} engine ticks ({r.model_ticks} model steps),"
+              f" {r.tokens} tokens, {r.tokens / wall:.1f} tokens/s, "
+              f"finished {r.finished}, rejected {r.rejected}, migrated "
+              f"{r.migrated}, quarantines {r.quarantines}, restores "
+              f"{r.pod_restores}, energy {r.energy_j:.1f} J, nominal-baseline "
+              f"solves {rt.planner.baseline_solves - solves}, launches "
+              f"{counts}, peak memory {peak / 2 ** 20:.1f} MiB ({card})")
+        # each engine's warm-up runs its two width buckets once
+        check(counts["paged_attention"]
+              == (r.model_ticks + 2 * DRILL_PODS) * n_layers,
+              f"{label}: paged launches == (model steps + 2 warm-up steps "
+              f"x {DRILL_PODS} engines) x {n_layers} layers")
+        stats = dict(wall_s=wall, ticks=r.ticks, engine_ticks=r.engine_ticks,
+                     model_ticks=r.model_ticks, tokens=r.tokens,
+                     tokens_per_s=r.tokens / wall, migrated=r.migrated,
+                     finished=r.finished, energy_j=r.energy_j,
+                     baseline_solves=rt.planner.baseline_solves - solves,
+                     caps=r.caps.tolist(), counts=counts,
+                     peak_memory_bytes=peak,
+                     loop=_meter_line(label + " FleetLoop", meter, card))
+        got = {rid: list(o) for rid, o in zip(sorted(prompts), r.outputs)}
+        return r, got, stats
+
+    m32 = Model(cfg.replace(dtype="float32")).init(SERVE_SEED)
+    loss, loss_streams, out["float32_pod_loss"] = run(m32, "float32", False)
+    _, clean_streams, out["float32_no_failure"] = run(m32, "float32", True)
+    check(loss.migrated > 0, "the drill migrated in-flight requests")
+    check(loss.finished == len(DRILL_LENS) and loss.rejected == 0,
+          f"the drill finished all {len(DRILL_LENS)} requests, none lost")
+    check(loss.caps.tolist() == cpu.caps.tolist(),
+          "the drill's cap trace equals the CPU drill's")
+    for name in DRILL_DECISIONS:
+        a, b = getattr(loss, name), getattr(cpu, name)
+        check(a == b, f"fleet drill: {name} {a} equals the CPU drill's {b}")
+    check(abs(loss.energy_j / cpu.energy_j - 1) <= CTL_PNOM_RTOL,
+          "fleet drill: energy_j within 1e-3 of the CPU drill's")
+    out["float32_migrated_vs_no_failure_equal_streams"] = hold_streams(
+        torch, "fleet drill float32 pod loss vs no failure", m32, prompts,
+        loss_streams, clean_streams)
+    out["paged_launches"] = out["float32_pod_loss"]["counts"][
+        "paged_attention"]
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. bf16, the working type: reported, not gated
+    m16 = Model(cfg).init(SERVE_SEED)
+    _, b_loss, out["bf16_pod_loss"] = run(m16, "bfloat16", False)
+    _, b_clean, out["bf16_no_failure"] = run(m16, "bfloat16", True)
+    same = sum(b_loss[rid] == b_clean[rid] for rid in prompts)
+    print(f"fleet drill bf16 pod loss vs no failure (reported): {same} of "
+          f"{len(prompts)} streams equal")
+    out["bf16_migrated_vs_no_failure_equal_streams"] = same
     del m16
     gc.collect()
     torch.cuda.empty_cache()
@@ -2487,6 +2777,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     control = timed("control loop", control_path, torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet = timed("fleet tier", fleet_path, torch, card)
     rec = {arch: timed(f"serve {arch}", recurrent_serve, torch, arch,
                        arch == "mamba2-780m") for arch in REC_SERVE}
     timed("profile", profile_phase, torch,
@@ -2494,6 +2787,7 @@ def main() -> int:
           osp["params"], osp["fig8_probs"])
     print(f"serve path: {json.dumps(serve)}")
     print(f"control loop: {json.dumps(control)}")
+    print(f"fleet tier: {json.dumps(fleet)}")
     print(f"recurrent serve path: {json.dumps(rec)}")
     print(f"phase times (s): {json.dumps(took)}")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
@@ -2541,11 +2835,15 @@ def main() -> int:
                       sec5["counts"]["abft_matmul"],
                       mm["max_abs_err"]["abft_matmul"], rep_abft,
                       mm["rows"]["abft_matmul"]),
-        _kernel_entry("paged_attention", src + "paged_attention.cu",
-                      "src/repro/kernels/paged_attention.py:118",
-                      serve["gate_counts"]["paged_attention"],
-                      att["max_abs_err"]["paged_attention"], rep_paged,
-                      att["rows"]["paged_attention"]),
+        dict(_kernel_entry("paged_attention", src + "paged_attention.cu",
+                           "src/repro/kernels/paged_attention.py:118",
+                           serve["gate_counts"]["paged_attention"]
+                           + fleet["paged_launches"],
+                           att["max_abs_err"]["paged_attention"], rep_paged,
+                           att["rows"]["paged_attention"]),
+             launches_by_path={
+                 "serve_gate": serve["gate_counts"]["paged_attention"],
+                 "fleet_drill": fleet["paged_launches"]}),
         _kernel_entry("flash_attention", src + "flash_attention.cu",
                       "src/repro/kernels/flash_attention.py:76",
                       serve["prefill_counts"]["flash_attention"],

@@ -17,12 +17,10 @@ plane of the port (the reference's ``repro.control``):
     report = loop.step(now)
 
 The planner's fixed points and the actuator's thermal settle run on the
-runtime's device; telemetry, the RailField lookups, the controller and
-admission pricing are host-side numpy, as in the reference.
-
-Still to come (the next slice): ``faults`` (``ControlFaultModel``,
-``ChaosTelemetry``), ``fleet`` (the multi-pod loop) and
-``MonitorTelemetry``.
+runtime's device; telemetry, the RailField lookups, the controller,
+admission pricing, the §9 fault model (``faults``) and the §10 fleet
+health machine (``fleet``: a ``FleetLoop`` over one ``PodDomain`` per pod)
+are host-side numpy, as in the reference.
 """
 from repro_torch.control.actuator import (Actuator, EngineActuator,
                                           FleetActuator, FleetReadout)
@@ -33,14 +31,21 @@ from repro_torch.control.controller import (Action, BoostRail, Controller,
                                             Preempt, RailBackoff, Rebalance,
                                             Restore, SafeState, SetRails,
                                             Throttle)
+from repro_torch.control.faults import ChaosTelemetry, ControlFaultModel
+from repro_torch.control.fleet import (DEGRADED, DRAINED, HEALTHY,
+                                       QUARANTINED, FanoutTelemetry,
+                                       FleetLoop, FleetReport, PodDomain,
+                                       PodPlanner, PodRailChannel,
+                                       PodTelemetryView, TickContext)
 from repro_torch.control.loop import ControlLoop, LoopReport
 from repro_torch.control.lut import (DEFAULT_UTIL_KNOTS, DynamicLut,
                                      RailField, sweep_points)
 from repro_torch.control.planner import FleetPlanner, PlanOut
 from repro_torch.control.telemetry import (AmbientSample, AmbientSensor,
                                            ChipTempSample, EngineTelemetry,
-                                           HeartbeatSample, SafeStateSample,
-                                           SdcSample, Snapshot, StepSample,
+                                           HeartbeatSample, MonitorTelemetry,
+                                           SafeStateSample, SdcSample,
+                                           Snapshot, StepSample,
                                            StragglerSample, TelemetryBus,
                                            TelemetrySource, TickSample,
                                            UtilSample)
@@ -48,10 +53,16 @@ from repro_torch.control.telemetry import (AmbientSample, AmbientSensor,
 __all__ = [
     # telemetry
     "TelemetrySource", "TelemetryBus", "Snapshot",
-    "AmbientSensor", "EngineTelemetry",
+    "AmbientSensor", "EngineTelemetry", "MonitorTelemetry",
     "AmbientSample", "ChipTempSample", "StepSample", "TickSample",
     "UtilSample", "StragglerSample", "HeartbeatSample", "SdcSample",
     "SafeStateSample",
+    # fault containment (§9)
+    "ControlFaultModel", "ChaosTelemetry",
+    # fleet failure domains (§10)
+    "FleetLoop", "FleetReport", "PodDomain", "PodRailChannel",
+    "PodPlanner", "TickContext", "FanoutTelemetry", "PodTelemetryView",
+    "HEALTHY", "DEGRADED", "QUARANTINED", "DRAINED",
     # decisions
     "Controller", "LutController", "ControllerStats",
     "AdmissionController", "AdmissionStats",

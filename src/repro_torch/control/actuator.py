@@ -18,9 +18,10 @@ and ignores the rest:
   (:class:`Throttle` -> ``engine.admit_cap``, :class:`Preempt` ->
   ``engine.preempt_to``).
 
-The rail-write channel keeps its ``write_faults`` hook (a control fault
-model with a ``nack(n, now, attempt)`` method; ``control/faults.py`` is
-ported with the next slice).
+The rail-write channel takes a ``write_faults`` model
+(:class:`~repro_torch.control.faults.ControlFaultModel`, whose
+``nack(n, now, attempt)`` NACKs chip writes): verify-after-write with
+bounded retries, then the chip pins to nominal safe-state rails.
 """
 from __future__ import annotations
 

@@ -29,10 +29,10 @@ two-axis fast path:
   serve engine's admission is capped; the cap lifts once temperature
   drops out of the emergency band.
 
-The §9 hooks are kept: ``faults`` takes a control fault model (scripted
-deadline misses and solver faults; ``control/faults.py`` is ported with
-the next slice) and the watchdog ladder degrades and recovers as in the
-reference.
+The §9 hooks: ``faults`` takes a
+:class:`~repro_torch.control.faults.ControlFaultModel` (scripted deadline
+misses and solver faults) and the watchdog ladder degrades and recovers as
+in the reference.
 """
 from __future__ import annotations
 

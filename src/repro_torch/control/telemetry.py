@@ -14,9 +14,9 @@ control tick, which is all a controller ever sees:
 - :class:`~repro_torch.control.actuator.FleetActuator` is also a source: it
   reports the chip-temperature field of the rails it last applied, closing
   the thermal loop.
-
-(The reference's ``MonitorTelemetry``, which drains ``ft.monitor``'s
-straggler detector, comes with the port of ``ft/monitor.py``.)
+- :class:`MonitorTelemetry` — drains ``ft.monitor.StragglerDetector``
+  events (and optionally a ``Heartbeat`` dead-set) so mitigation becomes a
+  controller decision instead of a dangling helper.
 """
 from __future__ import annotations
 
@@ -371,3 +371,43 @@ class EngineTelemetry:
 def _default_chip_of(worker: str) -> int:
     m = re.search(r"(\d+)$", worker)  # trailing rank: "host1-worker7" -> 7
     return int(m.group(1)) if m else 0
+
+
+class MonitorTelemetry:
+    """Drains ``StragglerDetector.events`` (exactly once each) and reports
+    the ``Heartbeat`` dead-set; ``chip_of`` maps worker names to the chip
+    index the actuator can boost.
+
+    Pass ``topology`` (a :class:`repro_torch.launch.mesh.PodTopology`) for
+    the rank -> pod-coordinate mapping with validation: non-numeric worker
+    names and ranks beyond the pod map to ``-1`` (the controller counts
+    them as ``unmapped`` instead of boosting a phantom chip 0). The bare
+    trailing-digit parser is the default when neither ``topology`` nor
+    ``chip_of`` is given.
+    """
+
+    def __init__(self, detector, heartbeat=None,
+                 chip_of: Optional[Callable[[str], int]] = None,
+                 topology=None):
+        self.detector = detector
+        self.heartbeat = heartbeat
+        if chip_of is None:
+            chip_of = (topology.chip_of if topology is not None
+                       else _default_chip_of)
+        self.chip_of = chip_of
+        self._seen = len(detector.events)
+
+    def record_step(self, worker: str, step: int, step_s: float):
+        """Convenience passthrough so callers feed one object."""
+        return self.detector.record(worker, step, step_s)
+
+    def poll(self, now: float) -> List[Sample]:
+        out: List[Sample] = []
+        new = self.detector.events[self._seen:]
+        self._seen = len(self.detector.events)
+        for ev in new:
+            out.append(StragglerSample(ev.worker, ev.step, ev.ratio,
+                                       self.chip_of(ev.worker)))
+        if self.heartbeat is not None:
+            out.append(HeartbeatSample(frozenset(self.heartbeat.dead())))
+        return out

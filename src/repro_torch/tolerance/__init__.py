@@ -7,23 +7,24 @@ repaired and counted.
 
 - :mod:`~repro_torch.tolerance.faults` — the timing-error model at the
   live (v_core, v_sram, T) state, calibrated so guard-band rails inject
-  nothing, and a seeded SDC sampler.
+  nothing, a seeded SDC sampler, and ``SdcTelemetry``, which feeds the
+  sampler's counters at the applied rails to the control plane's bus.
 - :mod:`~repro_torch.tolerance.abft` — the ABFT row/column-checksummed int8
   matmul (the CUDA kernel in ``kernels/abft_matmul`` beside its plain
   version): detects SDCs, corrects single flips and keeps
   detect/correct/escape counters.
 
-``SdcTelemetry`` (the control-plane adapter) and ``routed_matmuls`` (the
-model layers' matmul hook) come with the control-plane and model slices.
+``routed_matmuls`` (the model layers' matmul hook) comes with a later
+slice.
 """
 from repro_torch.tolerance.abft import (AbftCounters, AbftMatmul,
                                         checksum_refs, detect_and_correct,
                                         topk_agreement)
 from repro_torch.tolerance.faults import (FaultInjector, SdcCounts,
-                                          TimingFaultModel)
+                                          SdcTelemetry, TimingFaultModel)
 
 __all__ = [
-    "TimingFaultModel", "FaultInjector", "SdcCounts",
+    "TimingFaultModel", "FaultInjector", "SdcCounts", "SdcTelemetry",
     "AbftCounters", "AbftMatmul", "checksum_refs", "detect_and_correct",
     "topk_agreement",
 ]

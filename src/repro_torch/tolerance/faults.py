@@ -1,7 +1,7 @@
 """Live timing-fault model + stochastic SDC injector (§V).
 
-The port of ``repro.tolerance.faults`` (without ``SdcTelemetry``, which
-needs the control plane). ``core/overscaling.error_profile`` computes a
+The port of ``repro.tolerance.faults``. ``core/overscaling.error_profile``
+computes a
 static per-bit flip profile from an FPGA netlist's violating-path
 population; this module is the same physics as a function of the live fleet
 state (applied rails, chip temperature):
@@ -14,6 +14,10 @@ state (applied rails, chip temperature):
 - :class:`FaultInjector` — seeded sampling of per-tick (injected, detected,
   corrected, escaped) counts with numpy's ``default_rng``, so the same seed
   and call order give the reference's counts exactly.
+- :class:`SdcTelemetry` — the control-plane adapter: polls the injector at
+  the :class:`~repro_torch.control.actuator.FleetActuator`'s *applied*
+  rails and the host copy of its settled temperature field, and emits an
+  :class:`~repro_torch.control.telemetry.SdcSample` per control tick.
 
 Both are host-side models (numpy in, numpy out, as in the reference); the
 delay factor is the port's float32 ``tpu_fleet.f_max_rel`` on the CPU.
@@ -21,11 +25,12 @@ delay factor is the port's float32 ``tpu_fleet.f_max_rel`` on the CPU.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.control.telemetry import SdcSample
 from repro_torch.core import tpu_fleet as TF
 from repro_torch.policy.policies import ABFT_ESCAPE, SDC_RATE0, SDC_RATE_K
 from repro_torch.policy.substrate import T_GUARD
@@ -144,3 +149,25 @@ class FaultInjector:
             checked=int(round(float(act.sum()) * self.macs_per_tick)))
         self.totals.add(counts)
         return counts
+
+
+class SdcTelemetry:
+    """TelemetrySource: samples the injector at the fleet's applied state.
+
+    Reads the :class:`~repro_torch.control.actuator.FleetActuator`'s applied
+    per-chip rails, the host copy of its last settled temperature field
+    (``t_chip``: no device read) and utilization — the natural one-tick
+    sensor latency of a real SDC counter readout — and emits one
+    ``SdcSample`` per poll.
+    """
+
+    def __init__(self, injector: FaultInjector, fleet):
+        self.injector = injector
+        self.fleet = fleet
+
+    def poll(self, now: float) -> List:
+        c = self.injector.tick(
+            now, self.fleet.v_core, self.fleet.v_sram, self.fleet.t_chip,
+            util=getattr(self.fleet, "util_applied", None))
+        return [SdcSample(detected=c.detected, corrected=c.corrected,
+                          escaped=c.escaped, checked=c.checked)]

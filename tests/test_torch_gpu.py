@@ -758,3 +758,72 @@ def test_railfield_on_the_card_equals_the_cpu_port(cuda, t_sweep):
     np.testing.assert_array_equal(card.vc, cpu.vc)
     np.testing.assert_array_equal(card.vs, cpu.vs)
     np.testing.assert_allclose(card.p_nom, cpu.p_nom, rtol=1e-3)
+
+
+def test_clean_fleet_day_is_pod_count_invariant_on_the_card(cuda):
+    """The §10 contract on the card: a clean day through ``fleet_replay``
+    at 1 and 2 pods gives the same rails, energy and condemned set (one
+    shared solve per environment and tick, sliced), and the 2-pod day's
+    events and rails equal the CPU port's."""
+    from repro_torch import scenarios as sc
+    from repro_torch.core import runtime as RT
+    from repro_torch.core import tpu_fleet as TF
+    prof = TF.StepProfile.from_roofline(compute_s=0.8, memory_s=0.45,
+                                        collective_s=0.2)
+    kw = dict(sweep=(15.0, 40.0, 4), util_sweep=(0.25, 1.0, 3))
+    day = sc.diurnal_load_spike(ticks=10)
+    rt = RT.EnergyAwareRuntime(prof, device=cuda)
+    runs = {n: sc.fleet_replay(day, n_pods=n, runtime=rt, **kw)
+            for n in (1, 2)}
+    assert runs[1].fleet_fingerprint == runs[2].fleet_fingerprint
+    cpu = sc.fleet_replay(day, n_pods=2, runtime=RT.EnergyAwareRuntime(
+        prof, device="cpu"), **kw)
+    np.testing.assert_array_equal(runs[2].rails, cpu.rails)
+    assert runs[2].replan_reasons == cpu.replan_reasons
+    assert runs[2].energy_j == pytest.approx(cpu.energy_j, rel=1e-3)
+
+
+def test_foreign_resume_guard_with_engines_on_the_card(cuda):
+    """Two paged engines on the card over one host pool: a request parked
+    by one engine whose pages its origin still owns is refused by the
+    other; once freed it resumes there (a migration) and finishes with the
+    undisturbed engine's tokens."""
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+    from repro_torch.serve import Engine, Request
+    from repro_torch.serve.cache import HostPagePool
+    cfg = registry.get("llama3.2-1b").reduced().replace(dtype="float32")
+    model = Model(cfg, device=cuda).init(0)
+    prompt = (np.arange(21) * 3 + 5).astype(np.int32) % cfg.vocab_size
+
+    def engine(pool=None):
+        return Engine(model, batch_slots=2, max_len=64, eos_id=-1,
+                      paged=True, pool=pool)
+
+    ref = engine()
+    ref.submit(Request(0, prompt, max_new=12))
+    ref.run()
+    want = list(ref.finished[0].out)
+
+    pool = HostPagePool()
+    home, away = engine(pool), engine(pool)
+    home.submit(Request(0, prompt, max_new=12))
+    for _ in range(4):
+        home.step()
+    (req,) = [r for r in home.slot_req if r is not None]
+    slot = home.slot_req.index(req)
+    pages = home.mgr.slot_pages(slot)
+    pool.put(req.rid, home.mgr.read_rows([slot]), int(home.mgr.pos[slot]),
+             pages=pages, owner=home.mgr,
+             page_ids=home.mgr.block_table[slot, :pages].copy(),
+             freed=False)
+    with pytest.raises(RuntimeError, match="foreign"):
+        pool.take(req.rid, owner=away.mgr)
+    pool.put(req.rid, home.mgr.read_rows([slot]), int(home.mgr.pos[slot]),
+             pages=pages, owner=home.mgr, freed=True)
+    home.slot_req[slot] = None
+    home.mgr.free(slot)
+    away.submit(req)
+    away.run()
+    assert pool.migrations == 1
+    assert list(away.finished[0].out) == want
