@@ -63,7 +63,12 @@ Phases, each of which exits non-zero on failure:
    decode rows (8 rows over 128 permuted pages, one row at pos = -1,
    window 0 and 48) and on three chunk forms of the serve path (the first
    8 x 256 chunk at positions 0-255, the 8 x 256 extend at 256 i, a
-   speculative 4-row chunk per slot), and the flash-attention kernel at
+   speculative 4-row chunk per slot), at the mixtral path's shapes (32/8
+   heads of 128, window 4096: 8 decode rows on wrapped 4096-entry rings
+   after their write, and 8 x 256 chunks over [256 ring pages | 16
+   scratch pages] before their ring-scatter: the first wrap, a padded
+   tail, an empty ring, a decode row mid-page, an idle slot), and the
+   flash-attention kernel at
    B = 4, H = 32 / 8 kv heads, S = T in {128, 1000, 2048}, causal and not,
    held to their plain versions (1e-5 in float32, 5e-2 in bfloat16) and,
    in bfloat16, both set beside a float64 softmax attention over the same
@@ -140,6 +145,30 @@ Phases, each of which exits non-zero on failure:
    (model steps + 2 warm-up steps x 2 engines) x 16 layers; bf16 reported.
    Each run prints its wall and ``loop.step`` / ``FleetLoop.step`` wall
    and host syncs per tick (fast path and replan ticks apart);
+10d. mixtral serve path: ``Engine`` on mixtral-8x7b at full width (d_model
+   4096, 32/8 heads of 128, 8 experts top-2 of 14336, window 4096, vocab
+   32000) with random weights from a seed, the depth cut (one layer is
+   1.4513 B parameters, the 32 layers 93.4 GB in bf16): 16 layers in bf16,
+   the deepest that fits with headroom, and 4 in float32, for the gate's
+   time. 8 slots, max_len 6144, pages of 16,
+   prefill chunk 256, 32 new tokens; two prompts of 4352 and 5000 tokens
+   (their 4096-entry rings wrap), the serve path's prompts, one late. First
+   the reduced mixtral (a 32-entry ring, chunks of 12) in a paged engine on
+   the card and on the CPU port: each step's routes equal and logits
+   within 1e-4, steps past the wrap included. The float32 gate: the paged
+   engine (the kernel with the window bound; a chunk passes through each
+   slot's scratch pages; launched model steps x 4 layers times) serves the
+   contiguous engine's streams (the ring form of ``_sdpa``): both run one
+   schedule, their routes are compared step by step, the first routes that
+   differ (while the steps' tokens are equal) must be router near-ties
+   (k-th and (k + 1)-th probabilities within 1e-6), and a stream may
+   first differ only at or after the step the runs part, or at a row whose
+   top-2 logit margin is under 1e-4 (printed). Then bf16 with its times,
+   launches, peak memory, agreement with the contiguous engine and the
+   share of routes dropped by capacity at decode and extend steps
+   (reported); one warm 256-row extend step past the wrap and one warm
+   decode step profiled (the experts' products, the dispatch scatter and
+   gather, the paged kernel as shares of device time);
 11. recurrent serve path: the stateful ``Engine`` on mamba2-780m (8 slots,
    max_len 1024, prompts of 37 to 256 tokens and one of 512, one more
    after 4 ticks, 32 new tokens each) and zamba2-1.2b (4 slots, four
@@ -1111,15 +1140,22 @@ def _profile(torch, label: str, run) -> dict:
                      or getattr(e, "self_cuda_time_total", 0) or 0)
     # the kernels themselves (device-side events); the aten ops that
     # launched them carry the same device time again
-    events = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    events = [e for e in averages
               if str(e.device_type).endswith("CUDA") and dev(e) > 0]
     busy_us = sum(dev(e) for e in events)
+    # an aten op's device time: the time of the kernels it launched
+    total = lambda e: (getattr(e, "device_time_total", None)
+                       or getattr(e, "cuda_time_total", 0) or 0)
+    ops = {e.key: total(e) / 1e3 for e in averages
+           if e.key.startswith("aten::") and total(e) > 0}
     print(f"profile {label} (warm): wall {wall * 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / 1e6 / wall:.4f}")
     for e in sorted(events, key=dev, reverse=True)[:12]:
         print(f"  {dev(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
     return {"wall_ms": wall * 1e3, "busy_ms": busy_us / 1e3,
-            "kernels_ms": {e.key: dev(e) / 1e3 for e in events}}
+            "kernels_ms": {e.key: dev(e) / 1e3 for e in events},
+            "ops_ms": ops}
 
 
 def _share(prof: dict, name: str) -> float:
@@ -1232,6 +1268,65 @@ def paged_cases(torch, dtype, g):
     return cases
 
 
+# mixtral's heads and window on the paged ring path (phase 10d's shapes)
+RING_H, RING_HKV, RING_D, RING_W = 32, 8, 128, 4096
+RING_DECODE_POS = [-1, 37, 4095, 4096, 4351, 4999, 5200, 6143]
+# (start, real rows) of each slot's 256-row chunk: the first wrap, the last
+# chunk of a 5000-token prompt, an empty ring, a decode row at mid-page,
+# the ring's last chunk before max_len 6144, two unwrapped chunks, and an
+# idle slot (every row at pos = -1)
+RING_CHUNKS = [(4096, 256), (4864, 136), (0, 256), (4399, 1), (5888, 256),
+               (300, 256), (1000, 200), (-1, 0)]
+
+
+def ring_cases(torch, dtype, g):
+    """{name: (q, k, v, ids, bt, pos)} as the paged ring path hands them to
+    the kernel (window 4096) at mixtral's heads, 8 slots of 4096-entry
+    rings over a permuted pool: the decode rows after their write
+    (position p at ring index p % 4096; one row at pos = -1), and the
+    256-row chunks before their ring-scatter, each table [256 ring pages |
+    16 scratch pages] (the pre-update ring, then the chunk at start + j,
+    the padded tail's ids -1). Ring pages that hold nothing are the null
+    page (the last page, ids -1), as unallocated pages are."""
+    ps, n = ATT_PS, RING_W // ATT_PS
+    idx = torch.arange(RING_W, device=DEV)
+    cases = {}
+    for name, S, slots in (
+            ("ring_decode", 1, [(p, 1) for p in RING_DECODE_POS]),
+            ("ring_chunk", EXTEND_S, RING_CHUNKS)):
+        m = n + (S // ps if S > 1 else 0)
+        B = len(slots)
+        P = B * m
+        k = torch.randn((P + 1, ps, RING_HKV, RING_D), generator=g,
+                        device=DEV).to(dtype)
+        v = torch.randn((P + 1, ps, RING_HKV, RING_D), generator=g,
+                        device=DEV).to(dtype)
+        bt = torch.randperm(P, generator=g, device=DEV).to(torch.int32)
+        bt = bt.reshape(B, m).contiguous()
+        ids = torch.full((P + 1, ps), -1, dtype=torch.int32, device=DEV)
+        for b, (s, nv) in enumerate(slots):
+            newest = s if S == 1 else s - 1
+            last = newest - ((newest - idx) % RING_W)
+            ent = ring = torch.where(last >= 0, last, -1)
+            if S > 1:
+                ent = torch.cat([ring, torch.where(idx[:S] < nv,
+                                                   s + idx[:S], -1)])
+            ids[bt[b].long()] = ent.reshape(m, ps).to(torch.int32)
+            bt[b, :n][(ring.reshape(n, ps) < 0).all(1)] = P
+        starts = torch.tensor([s for s, _ in slots], dtype=torch.int32,
+                              device=DEV)
+        if S == 1:
+            q = torch.randn((B, RING_H, RING_D), generator=g, device=DEV)
+            pos = starts
+        else:
+            q = torch.randn((B, S, RING_H, RING_D), generator=g, device=DEV)
+            pos = starts[:, None] + torch.arange(
+                S, dtype=torch.int32, device=DEV)[None]
+            pos[starts < 0] = -1
+        cases[name] = (q.to(dtype), k, v, ids, bt, pos.contiguous())
+    return cases
+
+
 def _visible_keys(torch, ids, bt, pos, window=0):
     """(B, S, n * ps) bool: the logical cache entries each row may see."""
     B = bt.shape[0]
@@ -1258,17 +1353,17 @@ def paged_bound(torch, dtype, q, k, ids, bt, pos, window=0):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def paged_library_call(torch, q, k, v, ids, bt, pos):
+def paged_library_call(torch, q, k, v, ids, bt, pos, window=0):
     """One ``F.scaled_dot_product_attention`` over the gathered logical
     cache with a boolean mask, each slot's rows as (B, H, S, D)."""
     import torch.nn.functional as F
     qc = q[:, None] if q.dim() == 3 else q
     B, S = qc.shape[:2]
-    n, ps = bt.shape[1], k.shape[1]
+    n, (ps, Hkv, D) = bt.shape[1], k.shape[1:]
     btl = bt.long()
-    kl = k[btl].reshape(B, n * ps, ATT_HKV, ATT_D).transpose(1, 2)
-    vl = v[btl].reshape(B, n * ps, ATT_HKV, ATT_D).transpose(1, 2)
-    mask = _visible_keys(torch, ids, bt, pos)[:, None]
+    kl = k[btl].reshape(B, n * ps, Hkv, D).transpose(1, 2)
+    vl = v[btl].reshape(B, n * ps, Hkv, D).transpose(1, 2)
+    mask = _visible_keys(torch, ids, bt, pos, window)[:, None]
     ql = qc.transpose(1, 2)
     return lambda: F.scaled_dot_product_attention(
         ql, kl, vl, attn_mask=mask, enable_gqa=True)
@@ -1293,12 +1388,13 @@ def attention64(torch, q, k, v, mask):
     return out
 
 
-def paged64(torch, q, k, v, ids, bt, pos):
+def paged64(torch, q, k, v, ids, bt, pos, window=0):
     qc = q[:, None] if q.dim() == 3 else q
-    B, n, ps = bt.shape[0], bt.shape[1], k.shape[1]
-    kl = k[bt.long()].reshape(B, n * ps, ATT_HKV, ATT_D)
-    vl = v[bt.long()].reshape(B, n * ps, ATT_HKV, ATT_D)
-    out = attention64(torch, qc, kl, vl, _visible_keys(torch, ids, bt, pos))
+    (B, n), (ps, Hkv, D) = bt.shape, k.shape[1:]
+    kl = k[bt.long()].reshape(B, n * ps, Hkv, D)
+    vl = v[bt.long()].reshape(B, n * ps, Hkv, D)
+    out = attention64(torch, qc, kl, vl,
+                      _visible_keys(torch, ids, bt, pos, window))
     return out[:, 0] if q.dim() == 3 else out
 
 
@@ -1312,7 +1408,9 @@ def flash_bound(dtype, B, S, T, causal, elem):
 
 def attention_kernel_phase(torch) -> dict:
     """Both attention kernels against their plain versions at the serving
-    path's shapes, both dtypes, and in bf16 both against a float64
+    path's shapes (the paged kernel also at the mixtral path's: wrapped
+    4096-entry rings, scratch pages, window 4096, heads of 128), both
+    dtypes, and in bf16 both against a float64
     softmax attention over the same inputs; then times beside the bound,
     the plain version and the library call."""
     import torch.nn.functional as F
@@ -1321,7 +1419,7 @@ def attention_kernel_phase(torch) -> dict:
     g = torch.Generator(device=DEV)
     g.manual_seed(23)
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    worst = {"paged_attention": {}, "flash_attention": {}}
+    worst = {"paged_attention": {}, "paged_ring": {}, "flash_attention": {}}
     rows = {"paged_attention": [], "flash_attention": []}
 
     def err(a, b):
@@ -1336,25 +1434,32 @@ def attention_kernel_phase(torch) -> dict:
         return {"err64_kernel": e["kernel"], "err64_plain": e["plain"]}
 
     for dt in ("float32", "bfloat16"):
-        cases = paged_cases(torch, tdt[dt], g)
-        for name, args in cases.items():
+        cases = {name: (args, 0) for name, args in
+                 paged_cases(torch, tdt[dt], g).items()}
+        cases.update({name: (args, RING_W) for name, args in
+                      ring_cases(torch, tdt[dt], g).items()})
+        for name, (args, win) in cases.items():
             q, k, v, ids, bt, pos = args
             e64 = {}
-            for window in ((0, 48) if name == "decode" else (0,)):
+            for window in ((0, 48) if name == "decode" else (win,)):
                 got = PA.paged_attention(*args, window=window)
                 want = PA.paged_attention_ref(*args, window=window)
                 torch.cuda.synchronize()
                 e = err(got, want)
                 worst["paged_attention"][dt] = max(
                     worst["paged_attention"].get(dt, 0.0), e)
-                if name == "decode":
-                    check(bool((got[0] == 0).all()),
-                          "paged: the pos = -1 row is exactly zero")
-                print(f"paged {name} {dt} q={tuple(q.shape)} window="
-                      f"{window}: max|kernel-plain|={e:.3e}")
-                if window == 0:
+                if name.startswith("ring"):
+                    worst["paged_ring"][dt] = max(
+                        worst["paged_ring"].get(dt, 0.0), e)
+                if bool((pos < 0).any()):
+                    check(bool((got[pos < 0] == 0).all()),
+                          f"paged {name}: the pos = -1 rows are exactly zero")
+                print(f"paged {name} {dt} q={tuple(q.shape)} pages/table="
+                      f"{bt.shape[1]} window={window}: max|kernel-plain|="
+                      f"{e:.3e}" + (" (bit for bit)" if e == 0 else ""))
+                if window == win:
                     e64 = vs64(dt, got, want,
-                               paged64(torch, q, k, v, ids, bt, pos))
+                               paged64(torch, q, k, v, ids, bt, pos, win))
                 if name == "spec":  # what greedy decoding of its rows gives
                     B, S, H, D = q.shape
                     dec = PA.paged_attention(
@@ -1363,15 +1468,17 @@ def attention_kernel_phase(torch) -> dict:
                     check(torch.equal(got.reshape(dec.shape), dec),
                           f"paged spec {dt}: the chunk equals the decode of "
                           f"its rows bit for bit")
-            k_ms = _time_ms(torch, lambda: PA.paged_attention(*args))
-            p_ms = _time_once_ms(torch,
-                                 lambda: PA.paged_attention_ref(*args))
-            l_ms = _time_ms(torch, paged_library_call(torch, *args))
-            bound, by = paged_bound(torch, dt, q, k, ids, bt, pos)
+            k_ms = _time_ms(torch, lambda: PA.paged_attention(
+                *args, window=win))
+            # the plain version is warm: it ran just above on these inputs
+            p_ms = _events_ms(torch, lambda: PA.paged_attention_ref(
+                *args, window=win), 1)
+            l_ms = _time_ms(torch, paged_library_call(torch, *args, win))
+            bound, by = paged_bound(torch, dt, q, k, ids, bt, pos, win)
             rows["paged_attention"].append(dict(
                 case=name, dtype=dt, shape=list(q.shape),
-                n_pages=bt.shape[1], ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-                bound_by=by, library_ms=l_ms, **e64))
+                n_pages=bt.shape[1], window=win, ms=k_ms, plain_ms=p_ms,
+                bound_ms=bound, bound_by=by, library_ms=l_ms, **e64))
             print(f"time paged {name} {dt}: kernel {k_ms:.5f} ms "
                   f"({k_ms / bound:.1f}x the bound), plain {p_ms:.5f} ms, "
                   f"bound {bound:.7f} ms ({by}), sdpa over the gathered "
@@ -2485,6 +2592,426 @@ def fleet_path(torch, card: str) -> dict:
     return out
 
 
+# --- the mixtral serve path: mixtral-8x7b at full width (phase 10d) ----------
+MIX_ARCH = "mixtral-8x7b"
+MIX_SEED = 0
+# the depth cut: one layer is 1.4513 B parameters, so the 32 layers are
+# 93.4 GB in bf16, more than the card's 85 GB. The bf16 timing run takes
+# the deepest stack that fits with headroom: drawing a stacked expert leaf
+# holds a float32 copy beside the bf16 leaves, 4.7 GB a layer at its peak,
+# so 16 layers peak near 76 GB (17 would leave the allocator about 3 GB).
+# The float32 gate serves the traffic twice with products on the CUDA
+# cores (TF32 off); memory would hold about 12 layers, and 4 keep it
+# inside the phase's time.
+MIX_LAYERS = {"float32": 4, "bfloat16": 16}
+MIX_LONG = [4352, 5000]  # cross the 4096-token window: the ring wraps
+MIX_KW = dict(batch_slots=8, max_len=6144, page_size=16, prefill_chunk=256,
+              eos_id=-1)
+MIX_PROFILE_PROMPT = 4352  # 8 of them: the 17th chunk wraps every ring
+# the card against the CPU port at reduced width: a 32-entry ring, chunks
+# of 12 (the chunk at 24 wraps mid-chunk), ticks compared in turn
+MIX_REDUCED = dict(window=32, chunk=12, ticks=5,
+                   prompts=[60, 45, 12, 3, 33, 50, 27, 8])
+ROUTE_TIE = 1e-6  # tests/test_torch_moe.py: a near-tie of two experts
+
+
+def mix_prompts(vocab: int):
+    """The two long prompts first (they take slots at once and wrap their
+    rings early), then the serve path's prompts, the last one late."""
+    rng = np.random.default_rng(MIX_SEED + 2)
+    return ([rng.integers(0, vocab, n).astype(np.int32) for n in MIX_LONG]
+            + serve_prompts(vocab))
+
+
+class _MixMeter:
+    """Per step of an engine, kept on the device until read: the step's
+    plan (tokens' shape, pos, n_valid), the top-2 logit margin of each
+    slot's sampled row, with ``keep_routes`` the step's tokens and the
+    routes of every layer (the experts chosen, the kept routes and each
+    token's router margin, :func:`moe.route_margin`), and the routes and
+    drops of decode and extend steps (all rows, and the rows of real
+    tokens); and which step and slot produced each (request, token). It
+    wraps the engine's ``step_logits`` and ``_append``."""
+
+    def __init__(self, torch, engine, keep_routes=False):
+        from repro_torch.models import moe
+        self.margins, self.made, self.plans = {}, {}, {}
+        self.tokens, self.layers = {}, {}
+        z = lambda: torch.zeros(4, dtype=torch.long, device=DEV)
+        self.routes = {"decode": z(), "extend": z()}
+        step_logits, append = engine.step_logits, engine._append
+        k = engine.model.cfg.num_experts_per_tok
+
+        def metered(tokens, pos, n_valid):
+            with moe.capture_routes() as routes:
+                logits = step_logits(tokens, pos, n_valid)
+            B, S = logits.shape[:2]
+            tick = engine.ticks
+            self.plans[tick] = (tuple(np.shape(tokens)),
+                                tuple(np.asarray(pos).tolist()),
+                                tuple(np.asarray(n_valid).tolist()))
+            nv = torch.as_tensor(n_valid, device=DEV).long()
+            last = logits[torch.arange(B, device=DEV),
+                          (nv - 1).clamp(0, S - 1)].float()
+            top = torch.topk(last, 2).values
+            self.margins[tick] = top[:, 0] - top[:, 1]
+            if keep_routes:
+                self.tokens[tick] = np.array(tokens)
+                self.layers[tick] = [
+                    (r["idx"], r["keep"], moe.route_margin(r["logits"], k))
+                    for r in routes]
+            real = (torch.arange(S, device=DEV)[None] < nv[:, None]
+                    ).reshape(-1).repeat_interleave(k)
+            keep = torch.stack([r["keep"].reshape(-1) for r in routes])
+            self.routes["decode" if S == 1 else "extend"] += torch.stack([
+                torch.ones_like(keep).sum(), (~keep).sum(),
+                real.sum() * keep.shape[0], (~keep & real).sum()])
+            return logits
+
+        def appended(req, slot, tok):
+            self.made[(req.rid, len(req.out))] = (engine.ticks, slot)
+            append(req, slot, tok)
+
+        engine.step_logits, engine._append = metered, appended
+
+    def margin(self, rid, i) -> float:
+        """The top-2 logit margin of the row that made token i."""
+        tick, slot = self.made[(rid, i)]
+        return float(self.margins[tick][slot])
+
+    def drop_shares(self) -> dict:
+        out = {}
+        for kind, (n, dropped, n_real, dropped_real) in self.routes.items():
+            n, dropped, n_real, dropped_real = (int(v) for v in (
+                n, dropped, n_real, dropped_real))
+            out[kind] = {"routes": n, "dropped": dropped,
+                         "share": dropped / n if n else None,
+                         "real_routes": n_real, "real_dropped": dropped_real,
+                         "real_share": dropped_real / n_real if n_real
+                         else None}
+        return out
+
+
+def route_split(label, a, b):
+    """(step, details): the first step at which the two meters' runs part
+    (None if they never do). Both engines run one schedule (checked step
+    by step), and each step is one dispatch group a layer. The runs part
+    where the steps' tokens differ (a stream parted earlier, which
+    :func:`hold_mix` holds), or, at the first layer whose routes differ:
+    where the experts of a live slot's token differ (a slot with real
+    tokens this step, its padded tail included), every such token must be
+    a router near-tie (its k-th and (k + 1)-th probabilities within
+    ``ROUTE_TIE`` in one of the two runs); where only idle slots' tokens
+    moved (they route too, on whatever their caches hold, which differs
+    between the two layouts) and that moved a live route across the
+    capacity, the runs part there too. Past such a layer the layers'
+    inputs differ."""
+    check(a.plans == b.plans, f"{label}: both engines ran one schedule")
+    for tick in sorted(a.layers):
+        if not np.array_equal(a.tokens[tick], b.tokens[tick]):
+            print(f"{label}: the steps' tokens first differ at step {tick}")
+            return tick, {"by": "tokens"}
+        (B, S), _, n_valid = a.plans[tick]
+        # (1, B * S): the tokens of slots with real tokens this step
+        live = a.layers[tick][0][0].new_tensor(
+            np.repeat(np.asarray(n_valid) > 0, S)[None]).bool()
+        for layer, ((ia, ka, ma), (ib, kb, mb)) in enumerate(
+                zip(a.layers[tick], b.layers[tick])):
+            check(ia.shape[:2] == (1, B * S), f"{label}: one dispatch group "
+                                              f"a layer")
+            moved = (ia != ib).any(-1)  # (1, B * S): their experts differ
+            if not bool(moved.any()):
+                check(bool((ka == kb).all()),
+                      f"{label}: step {tick} layer {layer}: the same experts "
+                      f"keep the same routes")
+                continue
+            if bool((moved & live).any()):
+                margin = float(ma.minimum(mb)[moved & live].max())
+                n_moved = int((moved & live).sum())
+                print(f"{label}: the routes first differ at step {tick}, "
+                      f"layer {layer}: {n_moved} live tokens' experts, the "
+                      f"largest of their router margins {margin:.3e}")
+                check(margin < ROUTE_TIE,
+                      f"{label}: the first routes that differ are near-ties "
+                      f"(router margin {margin:.3e} < {ROUTE_TIE})")
+                return tick, {"by": "routes", "layer": layer,
+                              "tokens": n_moved, "router_margin": margin}
+            k = ia.shape[-1]
+            crossed = (ka != kb) & live.repeat_interleave(k, dim=-1)
+            if bool(crossed.any()):
+                print(f"{label}: at step {tick}, layer {layer}, "
+                      f"{int(moved.sum())} idle slots' tokens route apart "
+                      f"and move {int(crossed.sum())} live routes across "
+                      f"the capacity")
+                return tick, {"by": "capacity", "layer": layer,
+                              "idle_tokens": int(moved.sum()),
+                              "live_routes": int(crossed.sum())}
+    return None
+
+
+def hold_mix(label, got, want, meters) -> dict:
+    """The float32 gate. Every stream of ``got`` equals ``want``'s, or
+    first differs at a token made at or after the step at which the runs
+    first part (:func:`route_split`: a live token's route flip, itself
+    held to a near-tie, idle slots' routes moving live routes across the
+    capacity, or tokens that differ), or at a row whose top-2 logit margin
+    is under ``NEAR_TIE`` in one of the two runs (``meters``)."""
+    split = route_split(label, *meters)
+    at = split[0] if split else None
+    same, after, logit_ties = 0, 0, 0
+    for rid, w in want.items():
+        i = _first_diff(got[rid], w)
+        if i is None:
+            same += 1
+            continue
+        ticks = {m.made[(rid, i)][0] for m in meters if (rid, i) in m.made}
+        check(len(ticks) == 1, f"{label}: request {rid}'s token {i} was made "
+                               f"at one step in both runs")
+        tick = ticks.pop()
+        logit_m = min(m.margin(rid, i) for m in meters)
+        print(f"{label}: request {rid} first differs at generated token {i} "
+              f"({got[rid][i] if i < len(got[rid]) else None} vs "
+              f"{w[i] if i < len(w) else None}), made at step {tick} (the "
+              f"runs first part at step {at}); top-2 logit margin "
+              f"{logit_m:.3e}")
+        if at is not None and tick >= at:
+            after += 1
+        else:
+            check(logit_m < NEAR_TIE,
+                  f"{label}: request {rid} differs before the runs part, "
+                  f"so only at a logit near-tie ({logit_m:.3e} < {NEAR_TIE})")
+            logit_ties += 1
+    print(f"{label}: {same} of {len(want)} streams equal token for token, "
+          f"{after} part at or after the step the runs part, {logit_ties} "
+          f"at logit near-ties")
+    return {"streams_equal": same, "streams": len(want),
+            "after_route_split": after, "at_logit_ties": logit_ties,
+            "split": None if split is None else dict(step=at, **split[1])}
+
+
+def mix_card_vs_cpu(torch) -> dict:
+    """The reduced mixtral (a 32-entry ring, float32) in a paged engine on
+    the card and on the CPU port, the same weights and traffic: each model
+    step's routes (the experts chosen and the capacity's kept routes, every
+    layer) equal and its logits within 1e-4, step by step while the
+    sampled streams agree; the steps compared include extends past the
+    ring's wrap."""
+    from repro_torch.configs import registry
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.serve import Engine, Request
+    r = MIX_REDUCED
+    cfg = registry.get(MIX_ARCH).reduced().replace(
+        dtype="float32", sliding_window=r["window"])
+    cpu = Model(cfg, device="cpu").init(MIX_SEED)
+    models = {"card": Model(cfg).load_reference(cpu.weights()), "cpu": cpu}
+    rng = np.random.default_rng(MIX_SEED + 3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in r["prompts"]]
+    seen = {}
+    for name, model in models.items():
+        eng = Engine(model, paged=True, batch_slots=len(prompts), max_len=64,
+                     page_size=16, prefill_chunk=r["chunk"], eos_id=-1)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid, p, max_new=8))
+        steps = seen[name] = []
+
+        def capture(tokens, pos, n_valid, _step=eng.step_logits, _s=steps):
+            with moe.capture_routes() as routes:
+                logits = _step(tokens, pos, n_valid)
+            _s.append({"end": int((pos + n_valid).max()), "routes": routes,
+                       "logits": logits.cpu()})
+            return logits
+
+        eng.step_logits = capture
+        for _ in range(r["ticks"]):
+            eng.step()
+            steps[-1]["streams"] = [None if q is None else list(q.out)
+                                    for q in eng.slot_req]
+    worst, compared, wrapped = 0.0, 0, False
+    for t, (a, b) in enumerate(zip(seen["card"], seen["cpu"])):
+        for la, lb in zip(a["routes"], b["routes"]):
+            idx_a, idx_b = la["idx"].cpu(), lb["idx"]
+            if torch.equal(idx_a, idx_b):
+                check(torch.equal(la["keep"].cpu(), lb["keep"]),
+                      f"mixtral card vs CPU, step {t}: the kept routes")
+                continue
+            bad = (idx_a != idx_b).any(-1)
+            m = float(moe.route_margin(lb["logits"], 2)[bad].max())
+            print(f"mixtral card vs CPU, step {t}: {int(bad.sum())} routes "
+                  f"differ, largest margin {m:.3e}")
+            check(m < ROUTE_TIE, "mixtral card vs CPU: routes differ only "
+                                 "at near-ties")
+        worst = max(worst, float((a["logits"] - b["logits"]).abs().max()))
+        compared += 1
+        wrapped |= a["end"] > r["window"]
+        if a["streams"] != b["streams"]:
+            print(f"mixtral card vs CPU: the streams part after step {t}")
+            break
+    print(f"mixtral card vs CPU (reduced, window {r['window']}, chunks of "
+          f"{r['chunk']}): {compared} steps compared (past the wrap: "
+          f"{wrapped}), logits within {worst:.3e}")
+    check(compared >= 3 and wrapped, "mixtral card vs CPU: steps past the "
+                                     "ring's wrap compared")
+    check(worst <= 1e-4, "mixtral card vs CPU: logits within 1e-4")
+    return {"steps_compared": compared, "logits_max_abs_err": worst}
+
+
+def _op_ms(prof: dict, names) -> float:
+    """Device time (ms) of the aten ops named (their kernels' time)."""
+    return sum(v for k, v in prof["ops_ms"].items() if k in names)
+
+
+def mix_profile(torch, model) -> dict:
+    """One warm 256-row extend step past the wrap (8 slots of 4352-token
+    prompts, the 17th chunk: positions 4096-4351) and one warm decode step
+    on the wrapped rings, bf16: the experts' products (``aten::bmm``), the
+    dispatch scatter and gather, and the paged kernel as shares of the
+    device time."""
+    from repro_torch.serve import Engine, Request
+    rng = np.random.default_rng(MIX_SEED + 4)
+    eng = Engine(model, paged=True, **MIX_KW)
+    for rid in range(MIX_KW["batch_slots"]):
+        eng.submit(Request(rid, rng.integers(0, model.cfg.vocab_size,
+                                             MIX_PROFILE_PROMPT).astype(
+                                                 np.int32), max_new=8))
+    chunks = MIX_PROFILE_PROMPT // MIX_KW["prefill_chunk"]
+    for _ in range(chunks - 1):
+        eng.step()
+    out = {}
+    for label, extra in (("extend", 0), ("decode", 2)):
+        for _ in range(extra):
+            eng.step()
+        plan, _ = eng._compose()
+        prof = _profile(torch, f"mixtral bf16 {label} step ({plan.width} "
+                               f"rows x {plan.tokens.shape[0]} slots, pos "
+                               f"{int(plan.pos.min())})", eng.step)
+        busy = prof["busy_ms"]
+        parts = {"experts": _op_ms(prof, ("aten::bmm",)),
+                 "dispatch_scatter": _op_ms(prof, ("aten::scatter_",)),
+                 "combine_gather": _op_ms(prof, ("aten::gather",)),
+                 "paged": busy * _share(prof, "paged_")}
+        shares = {k: v / busy if busy else 0.0 for k, v in parts.items()}
+        print(f"mixtral bf16 {label} step: shares of device time "
+              + ", ".join(f"{k} {v:.4f}" for k, v in shares.items()))
+        out[label] = dict(busy_ms=busy, wall_ms=prof["wall_ms"], ms=parts,
+                          shares=shares)
+    return out
+
+
+def mixtral_path(torch) -> dict:
+    """mixtral-8x7b at full width (depth cut): the card against
+    the CPU port at reduced width, the float32 gate (paged through the
+    kernel with the window bound against the contiguous ring form), the
+    bf16 run with its drops, and the bf16 profiles."""
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+    from repro_torch.serve import Engine
+    cfg = registry.get(MIX_ARCH)
+    prompts = mix_prompts(cfg.vocab_size)
+    per_layer = (Model(cfg.replace(num_layers=2), device="cpu").n_params()
+                 - Model(cfg.replace(num_layers=1), device="cpu").n_params())
+    full_gb = (Model(cfg, device="cpu").n_params() * 2) / 1e9
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    print(f"mixtral: {MIX_ARCH} at full width (d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+          f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok} of "
+          f"{cfg.moe_d_ff}, window {cfg.sliding_window}); one layer "
+          f"{per_layer} parameters, the {cfg.num_layers} layers {full_gb:.1f}"
+          f" GB in bf16 against the card's {card_gb:.1f} GB: depth cut to "
+          f"{MIX_LAYERS['bfloat16']} layers in bf16 (the deepest that fits "
+          f"with headroom) and {MIX_LAYERS['float32']} in float32 (the "
+          f"gate's time)")
+    out = {"depth": dict(MIX_LAYERS), "layer_params": per_layer,
+           "full_bf16_gb": full_gb,
+           "card_vs_cpu": mix_card_vs_cpu(torch)}
+
+    # 1. the float32 gate: paged (the kernel, window bound, scratch pages)
+    # against contiguous (the ring form of _sdpa)
+    n32 = MIX_LAYERS["float32"]
+    m32 = Model(cfg.replace(dtype="float32", param_dtype="float32",
+                            num_layers=n32)).init(MIX_SEED)
+    eng = Engine(m32, paged=True, **MIX_KW)
+    check(eng.mgr.seq_len == cfg.sliding_window
+          and eng.mgr.scratch_table is not None,
+          "mixtral: the paged slot is a 4096-entry ring with scratch pages")
+    meters = [_MixMeter(torch, eng, keep_routes=True)]
+    reset_counts()
+    paged, ticks, wall = drive(eng, prompts)
+    counts = read_counts()
+    n_steps = sum(1 for w, _, _, _ in ticks if w > 0)
+    print(f"mixtral gate float32 paged: wall {wall:.3f} s, {n_steps} model "
+          f"steps, launches {counts}")
+    check(counts["paged_attention"] == n_steps * n32,
+          f"mixtral paged launches == model steps x {n32} layers")
+    out["gate_counts"] = counts
+    out["gate"] = dict(_tick_times(ticks), wall_s=wall,
+                       drops=meters[0].drop_shares())
+    del eng
+    eng = Engine(m32, **MIX_KW)
+    meters.append(_MixMeter(torch, eng, keep_routes=True))
+    cont, _, wall_c = drive(eng, prompts)
+    print(f"mixtral gate float32 contiguous: wall {wall_c:.3f} s")
+    out["gate_hold"] = hold_mix(
+        "mixtral float32 paged vs contiguous", paged, cont, meters)
+    for rid in sorted(paged):
+        print(f"  request {rid} ({len(prompts[rid])} prompt tokens): "
+              f"{paged[rid][:8]}...")
+    print(f"mixtral float32 drops (paged run): {meters[0].drop_shares()}")
+    del eng, meters, m32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. bf16, the working type: times, launches, peak memory; agreement
+    # with the contiguous engine and the drops reported
+    n16 = MIX_LAYERS["bfloat16"]
+    torch.cuda.reset_peak_memory_stats()
+    m16 = Model(cfg.replace(param_dtype="bfloat16",
+                            num_layers=n16)).init(MIX_SEED)
+    init_peak = torch.cuda.max_memory_allocated()
+    print(f"mixtral bf16 ({n16} layers): weights "
+          f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB, the init's "
+          f"peak {init_peak / 2 ** 20:.1f} MiB")
+    eng = Engine(m16, paged=True, **MIX_KW)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    got16, tt = serve_bf16_run(torch, eng, prompts)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"mixtral bf16 paged ({n16} layers): wall {tt['wall_s']:.3f} s, "
+          f"{tt['tokens']} tokens, {tt['tokens_per_s']:.1f} tokens/s, decode "
+          f"tick {tt['decode_tick_s']:.5f} s ({tt['decode_ticks']}), extend "
+          f"tick {tt['prefill_tick_s']:.5f} s ({tt['prefill_ticks']}), "
+          f"launches {counts}, peak memory {peak / 2 ** 20:.1f} MiB")
+    check(counts["paged_attention"] == (tt["decode_ticks"]
+                                        + tt["prefill_ticks"]) * n16,
+          f"mixtral bf16: paged launches == model steps x {n16} layers")
+    del eng
+    eng = Engine(m16, **MIX_KW)
+    meter = _MixMeter(torch, eng)
+    cont16, _, _ = drive(eng, prompts)
+    agree = sum(a == b for rid in cont16
+                for a, b in zip(got16[rid], cont16[rid]))
+    total = sum(len(v) for v in cont16.values())
+    same = sum(got16[rid] == cont16[rid] for rid in cont16)
+    drops = meter.drop_shares()
+    print(f"mixtral bf16 paged vs contiguous (reported): {same} of "
+          f"{len(cont16)} streams equal, {agree} of {total} tokens agree "
+          f"position by position; routes dropped by capacity (contiguous "
+          f"run): {drops}")
+    out["bf16"] = dict(tt, counts=counts, peak_memory_bytes=peak,
+                       init_peak_memory_bytes=init_peak,
+                       streams_equal_contiguous=same,
+                       tokens_agree_contiguous=agree, tokens_total=total,
+                       drops=drops)
+    del eng, meter
+    out["profile"] = mix_profile(torch, m16)
+    del m16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # --- the Mamba2 SSD-scan kernel ---------------------------------------------------
 # (b, S, H, P, G, N, chunk): the reference test's shapes (per-head B and C),
 # then the recurrent models' prefills (one B/C group, chunk 256)
@@ -2780,6 +3307,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fleet = timed("fleet tier", fleet_path, torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mix = timed("mixtral serve path", mixtral_path, torch)
     rec = {arch: timed(f"serve {arch}", recurrent_serve, torch, arch,
                        arch == "mamba2-780m") for arch in REC_SERVE}
     timed("profile", profile_phase, torch,
@@ -2788,6 +3318,7 @@ def main() -> int:
     print(f"serve path: {json.dumps(serve)}")
     print(f"control loop: {json.dumps(control)}")
     print(f"fleet tier: {json.dumps(fleet)}")
+    print(f"mixtral serve path: {json.dumps(mix)}")
     print(f"recurrent serve path: {json.dumps(rec)}")
     print(f"phase times (s): {json.dumps(took)}")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
@@ -2838,12 +3369,18 @@ def main() -> int:
         dict(_kernel_entry("paged_attention", src + "paged_attention.cu",
                            "src/repro/kernels/paged_attention.py:118",
                            serve["gate_counts"]["paged_attention"]
-                           + fleet["paged_launches"],
+                           + fleet["paged_launches"]
+                           + mix["gate_counts"]["paged_attention"],
                            att["max_abs_err"]["paged_attention"], rep_paged,
                            att["rows"]["paged_attention"]),
              launches_by_path={
                  "serve_gate": serve["gate_counts"]["paged_attention"],
-                 "fleet_drill": fleet["paged_launches"]}),
+                 "fleet_drill": fleet["paged_launches"],
+                 "mixtral_gate": mix["gate_counts"]["paged_attention"]},
+             # the mixtral path's shapes: 4096-entry rings, window 4096
+             max_abs_err_ring=att["max_abs_err"]["paged_ring"],
+             mixtral_rows=[r for r in att["rows"]["paged_attention"]
+                           if r["case"].startswith("ring")]),
         _kernel_entry("flash_attention", src + "flash_attention.cu",
                       "src/repro/kernels/flash_attention.py:76",
                       serve["prefill_counts"]["flash_attention"],

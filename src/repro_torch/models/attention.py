@@ -1,9 +1,10 @@
 """Attention, GQA (the counterpart of the reference's ``models/attention.py``).
 
 KV caches are dicts of tensors with an explicit per-slot ``pos_ids`` table
-(``(B, T)``), so one masking rule, evaluated per batch row, serves every
-cache:
-    valid(b, t) = 0 <= pos_ids[b, t] <= pos[b].
+(``(B, T)``), so full and ring-buffer (sliding-window) caches share one
+masking rule, evaluated per batch row:
+    valid(b, t) = 0 <= pos_ids[b, t] <= pos[b]
+                  and pos_ids[b, t] > pos[b] - window   (with a window).
 
 Decode is *ragged*: ``pos`` is a scalar or a ``(B,)`` vector of per-slot
 positions, and the new-token axis ``S`` may exceed 1 (a chunked-prefill
@@ -17,8 +18,11 @@ paged-attention kernel). Both are updated in place, where the reference
 returns new arrays. Causal self-attention without a window (``gqa_apply``:
 ``Model.apply`` and ``Model.prefill``) runs on the flash-attention kernel.
 
-MLA (deepseek-v2) and the sliding-window ring (mixtral) wait for their
-slices of the port.
+A sliding-window model (mixtral) keeps a ring of ``T = min(max_len,
+window)`` entries per slot: position p lives at ring index ``p % T``, a
+chunk's entries wrap index-wise and its padded tails never overwrite live
+entries (:func:`_ring_scatter`). MLA (deepseek-v2) waits for its slice of
+the port.
 """
 from __future__ import annotations
 
@@ -81,7 +85,9 @@ def _chunk_index(start, S: int, T: int) -> torch.Tensor:
     """Indices ``(B, S)`` that a width-S write at per-row ``start`` covers
     in a length-T row, with the start clamped to [0, T - S] as XLA's
     ``dynamic_update_slice`` clamps it: a chunk that would run past the end
-    lands shifted back instead."""
+    lands shifted back instead. The clamp reproduces the reference's
+    ``_row_update`` fault of the full cache; a ring wraps instead
+    (:func:`_ring_index`), and the two must not share it."""
     if S > T:
         raise ValueError(f"a chunk of {S} tokens does not fit a {T}-entry "
                          f"cache row")
@@ -99,14 +105,54 @@ def _row_update(arr, new, start):
     return arr
 
 
+def _ring_index(start, S: int, T: int) -> torch.Tensor:
+    """Indices ``(B, S)`` that a width-S chunk at per-row ``start`` covers
+    in a T-entry ring: ``(start + j) % T``, wrapping index-wise. One chunk
+    may not lap the ring (the indices must stay unique)."""
+    if S > T:
+        raise ValueError(f"chunk of {S} tokens would lap the {T}-entry ring")
+    return (start.long()[:, None]
+            + torch.arange(S, device=start.device)[None]) % T
+
+
+def _keep(n_valid, B: int, S: int, device) -> torch.Tensor:
+    """(B, S) bool: the real tokens of each row (all, without n_valid)."""
+    if n_valid is None:
+        return torch.ones((B, S), dtype=torch.bool, device=device)
+    nv = torch.as_tensor(n_valid, dtype=torch.int32, device=device)
+    return torch.arange(S, device=device)[None] < nv[:, None]
+
+
+def _masked_put(arr, index, new, keep=None):
+    """``arr[index] = new`` where ``keep`` (everywhere when None), the old
+    value elsewhere, in place: ``index`` a tuple of (B, S) index tensors,
+    new (B, S, ...)."""
+    new = new.to(arr.dtype)
+    if keep is not None:
+        k = keep.reshape(keep.shape + (1,) * (new.dim() - 2))
+        new = torch.where(k, new, arr[index])
+    arr[index] = new
+
+
+def _ring_scatter(arr, new, start, n_valid):
+    """Write ``new`` (B,S,...) into ring ``arr`` (B,T,...) at per-row
+    offsets modulo T, in place. Unlike :func:`_row_update` (which clamps
+    ``start``, so a chunk touching the end lands shifted), entries wrap
+    index-wise, and rows' padded tails (past ``n_valid``) are masked out so
+    they never overwrite live window entries. Requires ``S <= T``."""
+    B, S = new.shape[:2]
+    t = _ring_index(start, S, arr.shape[1])
+    rows = torch.arange(B, device=arr.device)[:, None].expand(B, S)
+    _masked_put(arr, (rows, t), new, _keep(n_valid, B, S, arr.device))
+    return arr
+
+
 def _new_pos_ids(positions, n_valid):
     """Position ids to record for an appended chunk: the absolute position,
     or -1 (invalid) past each row's ``n_valid`` real tokens."""
     if n_valid is None:
         return positions
-    S = positions.shape[1]
-    nv = torch.as_tensor(n_valid, dtype=torch.int32, device=positions.device)
-    keep = torch.arange(S, device=positions.device)[None] < nv[:, None]
+    keep = _keep(n_valid, *positions.shape, positions.device)
     return torch.where(keep, positions, torch.full_like(positions, -1))
 
 
@@ -211,70 +257,137 @@ def gqa_apply(p, x, cfg: ModelConfig, positions=None, kv_x=None,
 
 # --- decode ------------------------------------------------------------------
 
+def cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Entries per slot of the decode cache: the ring ``min(max_len,
+    window)`` for a sliding-window model, else ``max_len``."""
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+
+
 def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
                    device=None):
-    if cfg.sliding_window:
-        _not_ported("the sliding-window ring cache", "mixtral")
+    T = cache_len(cfg, max_len)
     hkv, dh = cfg.num_kv_heads, cfg.head_dim
     return {
-        "k": torch.zeros((batch, max_len, hkv, dh), dtype=dtype,
-                         device=device),
-        "v": torch.zeros((batch, max_len, hkv, dh), dtype=dtype,
-                         device=device),
-        "pos_ids": torch.full((batch, max_len), -1, dtype=torch.int32,
+        "k": torch.zeros((batch, T, hkv, dh), dtype=dtype, device=device),
+        "v": torch.zeros((batch, T, hkv, dh), dtype=dtype, device=device),
+        "pos_ids": torch.full((batch, T), -1, dtype=torch.int32,
                               device=device),
     }
 
 
+def _win_mask(entry_pos, positions, window: int):
+    """(B, S, T') validity of entries with ids ``entry_pos`` (B, T') for the
+    queries at ``positions`` (B, S)."""
+    e = entry_pos[:, None, :]
+    p = positions[..., None]
+    return (e >= 0) & (e <= p) & (e > p - window)
+
+
+def _paged_write(cache, block_table, t, news, keep=None):
+    """Write a chunk's entries ``news`` ({name: (B, S, ...)}) at the logical
+    indices ``t`` (B, S) of each slot's table, in place, where ``keep``
+    (everywhere when None)."""
+    ps = cache["k"].shape[1]
+    page = torch.gather(block_table.long(), 1, t // ps)
+    for name, new in news.items():
+        _masked_put(cache[name], (page, t % ps), new, keep)
+
+
 def gqa_decode(p, x, cache, pos, cfg: ModelConfig, n_valid=None,
-               block_table=None, cols: bool = False):
+               block_table=None, scratch_table=None, cols: bool = False):
     """Ragged decode/extend. x (B,S,D); pos: scalar or (B,) per-slot
-    position. Appends S new tokens per row at that row's own offset, in
-    place; ``n_valid`` (B,) marks how many of the S tokens are real per row
-    (padded tails record ``pos_id = -1``).
+    position. Appends S new tokens per row at that row's own offset (ring-
+    modded for sliding-window caches), in place; ``n_valid`` (B,) marks how
+    many of the S tokens are real per row (padded tails record
+    ``pos_id = -1``).
+
+    A sliding-window ring: token j of the chunk evicts the entry at
+    ``(pos + j) % T``, which for S > 1 may still be inside token i < j's
+    window, so the queries attend over the PRE-update ring plus the chunk's
+    own K/V under the window mask, and the chunk is then ring-scattered
+    (wrapped, padded tails masked off), as the reference does.
 
     With ``block_table`` (B, n_pages) int32, ``cache`` is one layer of the
     paged pool, ``k``/``v`` (P, page_size, Hkv, D) and ``pos_ids``
-    (P, page_size): the chunk's logical index ``t`` (the start clamped as
-    the contiguous write clamps it) lands at ``(bt[b, t // ps], t % ps)``,
-    tails that map to unallocated entries on the inert null page, and the
-    paged-attention kernel reads the pool directly, the (B, S) queries as
-    one chunk per slot with the slot's table and each row's own position:
-    the reference's mask over the freshly written cache, without gathering
-    a logical cache or scattering it back.
+    (P, page_size): the chunk's logical index ``t`` lands at
+    ``(bt[b, t // ps], t % ps)``, and the paged-attention kernel reads the
+    pool directly, the (B, S) queries as one chunk per slot with the slot's
+    table and each row's own position: the reference's mask over the
+    freshly written cache, without gathering a logical cache or scattering
+    it back. Without a window, ``t`` is the contiguous write's (the start
+    clamped) and tails that map to unallocated entries land on the inert
+    null page. With one, ``t`` wraps the ring of ``n_pages * page_size``
+    entries and the kernel takes the window bound. Where the cache's owner
+    gives a ``scratch_table`` (B, n_scratch) (``PagedKVCacheManager`` does
+    for a ring as long as the window, on which an evicted entry can still
+    be in a query's window), a chunk of S > 1 is first written to the
+    slot's scratch pages, the kernel reads ``[ring pages | scratch pages]``
+    (the pre-update ring plus the chunk), and the chunk is then scattered
+    into the ring; such a chunk without scratch pages raises. A decode row
+    (S = 1) evicts only ``pos - window``, which its window leaves out, so
+    it is written first.
 
     ``cols``: the qk-norms' means run a column at a time
     (``L.by_column``), so each row of a short chunk takes its decode row's
     arithmetic; the paged kernel scores such a chunk so by itself."""
-    if cfg.sliding_window:
-        _not_ported("the sliding-window ring cache", "mixtral")
     B, S, _ = x.shape
     q, k_new, v_new = _qkv(p, x, x, cfg, cols)
     positions = decode_positions(pos, B, S, x.device)  # (B,S)
     q = apply_rope(q, positions, cfg)
     k_new = apply_rope(k_new, positions, cfg)
     ids = _new_pos_ids(positions, n_valid)
+    news = {"k": k_new, "v": v_new, "pos_ids": ids}
+    w = cfg.sliding_window
     if block_table is None:
         T = cache["k"].shape[1]
-        start = positions[:, 0] % T
-        for name, new in (("k", k_new), ("v", v_new), ("pos_ids", ids)):
-            _row_update(cache[name], new, start)
-        pos_ids = cache["pos_ids"]
-        valid = (pos_ids >= 0)[:, None, :] & \
-            (pos_ids[:, None, :] <= positions[..., None])
-        o = _sdpa(q, cache["k"], cache["v"], valid[:, None, None])
+        start = positions[:, 0] % T  # ring for SWA; == pos when T == max_len
+        if w:
+            mask = torch.cat([_win_mask(cache["pos_ids"], positions, w),
+                              _win_mask(ids, positions, w)], dim=-1)
+            o = _sdpa(q, torch.cat([cache["k"], k_new.to(cache["k"].dtype)],
+                                   dim=1),
+                      torch.cat([cache["v"], v_new.to(cache["v"].dtype)],
+                                dim=1), mask[:, None, None])
+            for name, new in news.items():
+                _ring_scatter(cache[name], new, start, n_valid)
+        else:
+            for name, new in news.items():
+                _row_update(cache[name], new, start)
+            pos_ids = cache["pos_ids"]
+            valid = (pos_ids >= 0)[:, None, :] & \
+                (pos_ids[:, None, :] <= positions[..., None])
+            o = _sdpa(q, cache["k"], cache["v"], valid[:, None, None])
+        return _out(L.tap("attn", o), p["wo"]), cache
+    ps = cache["k"].shape[1]
+    T = block_table.shape[1] * ps
+    table = block_table
+    if not w:
+        t = _chunk_index(positions[:, 0] % T, S, T)  # (B,S)
+        _paged_write(cache, block_table, t, news)
     else:
-        ps = cache["k"].shape[1]
-        n = block_table.shape[1]
-        t = _chunk_index(positions[:, 0] % (n * ps), S, n * ps)  # (B,S)
-        page = torch.gather(block_table.long(), 1, t // ps)
-        off = t % ps
-        cache["k"][page, off] = k_new.to(cache["k"].dtype)
-        cache["v"][page, off] = v_new.to(cache["v"].dtype)
-        cache["pos_ids"][page, off] = ids
-        o = KERNELS["paged"](q.contiguous(), cache["k"], cache["v"],
-                             cache["pos_ids"], block_table,
-                             positions.contiguous())
+        t = _ring_index(positions[:, 0] % T, S, T)
+        keep = ids >= 0
+        if S > 1 and scratch_table is None and T >= w:
+            raise ValueError(f"a chunk of {S} tokens on a wrapping ring "
+                             f"needs scratch pages for it")
+        if S > 1 and scratch_table is not None:
+            # the cache's owner gave scratch pages: its ring can wrap
+            # under the chunk, which may evict entries it still sees
+            if S > scratch_table.shape[1] * ps:
+                raise ValueError(f"a chunk of {S} tokens does not fit "
+                                 f"{tuple(scratch_table.shape)} scratch "
+                                 f"pages of {ps}")
+            cache["pos_ids"][scratch_table.long()] = -1
+            j = torch.arange(S, device=x.device)[None].expand(B, S)
+            _paged_write(cache, scratch_table, j, news)
+            table = torch.cat([block_table, scratch_table], dim=1)
+        else:
+            _paged_write(cache, block_table, t, news, keep)
+    o = KERNELS["paged"](q.contiguous(), cache["k"], cache["v"],
+                         cache["pos_ids"], table.contiguous(),
+                         positions.contiguous(), window=w)
+    if table is not block_table:
+        _paged_write(cache, block_table, t, news, keep)
     return _out(L.tap("attn", o), p["wo"]), cache
 
 
@@ -283,15 +396,20 @@ def gqa_seed_cache(cache, kv, prefill_len: int, lengths=None):
 
     ``lengths`` (B,) optionally marks per-row true prompt lengths for
     right-padded batched prefill: positions past a row's length record
-    ``pos_id = -1`` so they stay invisible to the decode mask."""
+    ``pos_id = -1`` so they stay invisible to the decode mask.
+
+    A prefill longer than a sliding-window ring (S > T) keeps its last T
+    entries and writes them from ring index 0, as the reference's does
+    (``repro/models/attention.py:319-323``), though decode writes position
+    p at ``p % T``: when S % T != 0 the first decode overwrites a live
+    entry. The port reproduces that fault on purpose."""
     k, v = kv
     B, S = k.shape[:2]
     T = cache["k"].shape[1]
-    if S > T:
-        raise ValueError(f"a prefill of {S} tokens does not fit a cache of "
-                         f"{T} entries")
-    pos2 = torch.arange(S, dtype=torch.int32, device=k.device)[None].expand(
-        B, S)
+    pos = torch.arange(S, dtype=torch.int32, device=k.device)
+    if S > T:  # the reference's tail branch, its ring offset as it is
+        k, v, pos, S = k[:, S - T:], v[:, S - T:], pos[S - T:], T
+    pos2 = pos[None].expand(B, S)
     if lengths is not None:
         ln = torch.as_tensor(lengths, dtype=torch.int32, device=k.device)
         pos2 = torch.where(pos2 < ln[:, None], pos2, torch.full_like(pos2, -1))
@@ -299,4 +417,3 @@ def gqa_seed_cache(cache, kv, prefill_len: int, lengths=None):
     cache["v"][:, :S] = v.to(cache["v"].dtype)
     cache["pos_ids"][:, :S] = pos2
     return cache
-

@@ -1,9 +1,9 @@
 """The model facade (the counterpart of the reference's ``models/model.py``),
-for the dense, ssm and hybrid families.
+for the dense, moe, ssm and hybrid families.
 
     model = Model(cfg).init(seed)              # random weights, on the card
     model = Model(cfg, device="cpu").load_reference(ref_params)
-    logits, aux = model.apply({"tokens": tokens})
+    logits, aux = model.apply({"tokens": tokens})  # aux: moe_aux, moe_z
     logits, cache = model.prefill({"tokens": tokens}, max_len=...)
     logits, cache = model.decode(tokens, cache, pos, n_valid=...)
 
@@ -31,9 +31,9 @@ from repro_torch.models.layers import cdt
 # leaves the reference casts to the compute dtype at use; the rest (norm
 # scales and biases, qk-norm scales, the mamba blocks' A_log and norm) it
 # reads in float32
-CAST_KEYS = frozenset({"wq", "wk", "wv", "wo", "wg", "wu", "wd", "embedding",
-                       "unembed", "gate", "wz", "wx", "wB", "wC", "wdt",
-                       "conv_w", "conv_b", "D", "dt_bias"})
+CAST_KEYS = frozenset({"wq", "wk", "wv", "wo", "wg", "wu", "wd", "router",
+                       "embedding", "unembed", "gate", "wz", "wx", "wB",
+                       "wC", "wdt", "conv_w", "conv_b", "D", "dt_bias"})
 
 
 class _Tree(nn.Module):
@@ -134,14 +134,17 @@ class Model(nn.Module):
                              max_len, lengths=lengths)
 
     @torch.no_grad()
-    def decode(self, tokens, cache, pos, n_valid=None, block_table=None):
+    def decode(self, tokens, cache, pos, n_valid=None, block_table=None,
+               scratch_table=None):
         """Ragged decode: ``pos`` scalar or (B,) per-slot; tokens (B,S),
         S >= 1 for attention stacks and S = 1 for the recurrent families;
         ``n_valid`` (B,) marks real tokens per row. The cache (or, with
-        ``block_table``, the page pool) is updated in place."""
+        ``block_table``, the page pool; ``scratch_table``: each slot's
+        scratch pages for a wrapping ring) is updated in place."""
         return tf.lm_decode(self.params, _tokens(tokens, self.device), cache,
                             pos, self.cfg, n_valid=n_valid,
-                            block_table=block_table)
+                            block_table=block_table,
+                            scratch_table=scratch_table)
 
     def cache(self, batch_size: int, max_len: int, device=None):
         """The zero decode cache, on the model's device unless ``device``

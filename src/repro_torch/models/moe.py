@@ -1,0 +1,172 @@
+"""Mixture-of-Experts: top-k router and capacity-bounded scatter dispatch
+(the counterpart of the reference's ``models/moe.py``).
+
+Dispatch is scatter/gather based, GShard-style: each route's slot in its
+expert's buffer is its position among the routes to that expert, from a
+one-hot cumsum over the group's routes flattened token-major, then by rank
+(``idx.reshape(n, T * k)``); routes at or past ``capacity`` are dropped (a
+zero row in the overflow slot, weight 0 in the combine). The capacity is
+per dispatch group, so the routes of every row of a step, idle slots and
+padded chunk tails included, compete for it, as in the reference.
+
+The experts' SwiGLU runs as batched products over (experts, capacity)
+buffers: plain ``torch.matmul``, which the reference computes outside any
+kernel too. One card has no data sharding, so a dispatch group is the
+reference's group on its one shard (``n_dp = 1``), and the reference's
+``lax.scan`` over groups is a Python loop here.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Dict, Iterator, List, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.params import ParamMeta, dense
+
+_SINK: contextvars.ContextVar = contextvars.ContextVar("moe_routes",
+                                                      default=None)
+
+
+@contextlib.contextmanager
+def capture_routes() -> Iterator[List[Dict[str, torch.Tensor]]]:
+    """Collect the routes of every dispatch run inside the block, in call
+    order, into the list it yields: one dict per dispatch, of tensors it
+    computed anyway: ``idx`` (n, T, k) the experts chosen, ``keep``
+    (n, T * k) the routes within capacity, ``logits`` (n, T, E) the
+    router's logits (:func:`route_margin`). Outside such a block (and in
+    other threads) nothing is kept."""
+    sink: List[Dict[str, torch.Tensor]] = []
+    token = _SINK.set(sink)
+    try:
+        yield sink
+    finally:
+        _SINK.reset(token)
+
+
+def moe_params(cfg: ModelConfig):
+    d, ff, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    p = {
+        "router": dense(d, E, "embed", None),
+        "wg": ParamMeta((E, d, ff), ("experts", "embed", "expert_ffn"),
+                        fan_in=d),
+        "wu": ParamMeta((E, d, ff), ("experts", "embed", "expert_ffn"),
+                        fan_in=d),
+        "wd": ParamMeta((E, ff, d), ("experts", "expert_ffn", "embed"),
+                        fan_in=ff),
+    }
+    if cfg.num_shared_experts:
+        p["shared"] = L.mlp_params(
+            cfg, d_ff=cfg.num_shared_experts * cfg.moe_d_ff)
+    return p
+
+
+def capacity(cfg: ModelConfig, group: int) -> int:
+    """Slots per expert in a dispatch group of ``group`` tokens."""
+    return max(int(group * cfg.num_experts_per_tok
+                   * cfg.moe_capacity_factor / cfg.num_experts), 4)
+
+
+def _topk_sorted(probs, k: int):
+    """(weights, indices) of the k largest, the lower index first on a tie
+    (``jax.lax.top_k``'s order; ``torch.topk`` promises none on the card),
+    and the full descending sort's values."""
+    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return srt.values[..., :k], srt.indices[..., :k], srt.values
+
+
+def router_topk(logits, k: int):
+    """Softmax-then-top-k with renormalized weights (+ aux losses).
+
+    logits (..., E) -> weights and indices (..., k), aux and z scalars
+    (means over all leading dims), all float32."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    w, idx, _ = _topk_sorted(probs, k)
+    w = w / (w.sum(-1, keepdim=True) + 1e-9)
+    E = logits.shape[-1]
+    lead = tuple(range(logits.dim() - 1))
+    me = probs.mean(dim=lead)
+    ce = F.one_hot(idx, E).float().sum(-2).mean(dim=lead) / k
+    aux = E * torch.sum(me * ce)
+    z = torch.logsumexp(logits.float(), -1).square().mean()
+    return w, idx, aux, z
+
+
+def route_margin(logits, k: int):
+    """(...,) the k-th less the (k + 1)-th router probability of each
+    token: how near a tie its route is (1 with no (k + 1)-th expert)."""
+    srt = _topk_sorted(torch.softmax(logits.float(), dim=-1), k)[2]
+    if srt.shape[-1] == k:
+        return torch.ones_like(srt[..., 0])
+    return srt[..., k - 1] - srt[..., k]
+
+
+def _dispatch_batched(p, x, cfg: ModelConfig, cap: int):
+    """x (n, T, D): n dispatch groups -> (out (n, T, D), aux, z)."""
+    n, T, D = x.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    dt = x.dtype
+    logits = x @ p["router"]
+    w, idx, aux, z = router_topk(logits, k)  # (n, T, k)
+
+    flat_e = idx.reshape(n, T * k)
+    onehot = F.one_hot(flat_e, E)  # (n, T*k, E)
+    pos_in_e = torch.cumsum(onehot, dim=1) - onehot
+    pos = torch.gather(pos_in_e, 2, flat_e[..., None])[..., 0]
+    keep = pos < cap
+    slot = torch.where(keep, flat_e * cap + pos,
+                       torch.full_like(pos, E * cap))  # (n, T*k)
+    sink = _SINK.get()
+    if sink is not None:
+        sink.append({"idx": idx, "keep": keep, "logits": logits})
+
+    # each kept route's token into its slot; the dropped ones (zeros) all
+    # land in the overflow row, which is cut off
+    xs = x.repeat_interleave(k, dim=1) * keep[..., None].to(dt)
+    buf = x.new_zeros((n, E * cap + 1, D))
+    buf.scatter_(1, slot[..., None].expand(n, T * k, D), xs)
+    buf = buf[:, :-1].reshape(n, E, cap, D)
+
+    # the experts' SwiGLU, batched over groups x experts
+    h = F.silu(buf @ p["wg"]) * (buf @ p["wu"])
+    out_buf = h @ p["wd"]  # (n, E, cap, D)
+
+    flat = out_buf.reshape(n, E * cap, D)
+    safe = torch.clamp(slot, max=E * cap - 1)
+    gathered = torch.gather(flat, 1, safe[..., None].expand(n, T * k, D))
+    gathered = gathered * (keep[..., None]
+                           * w.reshape(n, T * k)[..., None]).to(dt)
+    return gathered.reshape(n, T, k, D).sum(2), aux, z
+
+
+def moe_apply(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """x (B, S, D) -> (out, {moe_aux, moe_z}) with shared experts added.
+    The B * S tokens are dispatched in groups of ``cfg.moe_group_size``
+    (one group when 0 or larger than B * S). A row's output depends on the
+    other rows of its group (they share the capacity), so a decode chunk's
+    rows do not take their decode rows' arithmetic here (``L.by_column``
+    has nothing to keep)."""
+    B, S, D = x.shape
+    T = B * S
+    gs = min(cfg.moe_group_size or T, T)
+    if T % gs:
+        raise ValueError(f"{T} tokens do not split into dispatch groups of "
+                         f"{gs}")
+    cap = capacity(cfg, gs)
+    xf = x.reshape(T // gs, 1, gs, D)
+    outs, auxs, zs = [], [], []
+    for xg in xf:  # the reference's scan over dispatch groups
+        o, aux, z = _dispatch_batched(p, xg, cfg, cap)
+        outs.append(o)
+        auxs.append(aux)
+        zs.append(z)
+    out = torch.cat(outs, dim=0).reshape(B, S, D)
+    if cfg.num_shared_experts:
+        out = out + L.mlp_apply(p["shared"], x, cfg)
+    losses = {"moe_aux": torch.stack(auxs).mean(),
+              "moe_z": torch.stack(zs).mean()}
+    return out, losses

@@ -69,7 +69,7 @@ def materialize(tree, generator: torch.Generator,
             / np.sqrt(fan_in)
         x = torch.randn(m.shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return (x * float(scale)).to(dt)
+        return x.mul_(float(scale)).to(dt)  # in place: one float32 copy
 
     return tree_map(make, tree)
 

@@ -1,5 +1,5 @@
 """Block assembly and the full LM forward, prefill and decode for the dense,
-ssm and hybrid families (the counterpart of the reference's
+moe, ssm and hybrid families (the counterpart of the reference's
 ``models/transformer.py``).
 
 Layer parameters are stacked ``(L, ...)`` as in the reference, so its
@@ -8,10 +8,13 @@ stack is a Python loop over layers here (``cfg.scan_layers`` has no
 effect). The hybrid stack (zamba2) is the reference's groups: ``(n_groups,
 k, ...)`` stacked mamba layers, each group followed by the one weight-shared
 attention block, then a ``tail`` of the ``num_layers % k`` leftover mamba
-layers (``{}`` when there are none). ``params`` are the parameters in the
-compute dtype, as ``Model`` hands them over (norm scales stay in float32).
-The moe family, MLA and the multimodal families wait for their slices of
-the port.
+layers (``{}`` when there are none). The moe stack (mixtral) is the
+reference's too: ``first_k_dense`` leading dense blocks under ``dense{i}``,
+then the stacked MoE blocks, whose ``moe_aux`` and ``moe_z`` sum over the
+stack as the reference's scan sums them. ``params`` are the parameters in
+the compute dtype, as ``Model`` hands them over (norm scales stay in
+float32). MLA and the multimodal families wait for their slices of the
+port.
 """
 from __future__ import annotations
 
@@ -22,10 +25,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.params import stack_tree, tree_leaves
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_supported(cfg: ModelConfig):
@@ -33,8 +37,7 @@ def check_supported(cfg: ModelConfig):
     if cfg.attn_type == "mla":
         attn._not_ported("MLA attention", "deepseek-v2")
     if cfg.family not in FAMILIES:
-        slice_name = {"moe": "mixtral (MoE)"}.get(cfg.family, "multimodal")
-        attn._not_ported(f"the {cfg.family} family", slice_name)
+        attn._not_ported(f"the {cfg.family} family", "multimodal")
 
 
 def zero_aux(device=None):
@@ -66,35 +69,47 @@ def _stack(trees):
 # single blocks
 # =============================================================================
 
-def attn_block_params(cfg: ModelConfig, d_ff=None):
-    return {
+def attn_block_params(cfg: ModelConfig, use_moe: bool = False, d_ff=None):
+    p = {
         "ln1": L.norm_params(cfg),
         "ln2": L.norm_params(cfg),
         "attn": attn.gqa_params(cfg),
-        "mlp": L.mlp_params(cfg, d_ff=d_ff),
     }
+    if use_moe:
+        p["moe"] = moe_lib.moe_params(cfg)
+    else:
+        p["mlp"] = L.mlp_params(cfg, d_ff=d_ff)
+    return p
+
+
+def _ffn(p, h, cfg, cols=False):
+    """The block's MLP or MoE layer: (out, {moe_aux, moe_z})."""
+    if "moe" in p:
+        return moe_lib.moe_apply(p["moe"], h, cfg)
+    return L.mlp_apply(p["mlp"], h, cfg, cols), zero_aux(h.device)
 
 
 def attn_block_apply(p, x, cfg, positions=None, collect_kv=False):
+    """-> (x, aux), or (x, aux, (k, v)) with ``collect_kv``."""
     h = L.norm_apply(p["ln1"], x, cfg)
     a, kv = attn.gqa_apply(p["attn"], h, cfg, positions)
     x = x + a
-    h = L.norm_apply(p["ln2"], x, cfg)
-    x = x + L.mlp_apply(p["mlp"], h, cfg)
-    return (x, kv) if collect_kv else x
+    m, aux = _ffn(p, L.norm_apply(p["ln2"], x, cfg), cfg)
+    x = x + m
+    return (x, aux, kv) if collect_kv else (x, aux)
 
 
 def attn_block_decode(p, x, cache, pos, cfg, n_valid=None, block_table=None,
-                      cols=False):
+                      scratch_table=None, cols=False):
     """``cols``: the ops whose rounding depends on the row count a column
     at a time (``L.by_column``)."""
     h = L.tap("ln1", L.norm_apply(p["ln1"], x, cfg, cols))
     a, cache = attn.gqa_decode(p["attn"], h, cache, pos, cfg,
                                n_valid=n_valid, block_table=block_table,
-                               cols=cols)
+                               scratch_table=scratch_table, cols=cols)
     x = x + a
     h = L.tap("ln2", L.norm_apply(p["ln2"], x, cfg, cols))
-    return x + L.mlp_apply(p["mlp"], h, cfg, cols), cache
+    return x + _ffn(p, h, cfg, cols)[0], cache
 
 
 def ssm_block_params(cfg: ModelConfig):
@@ -133,6 +148,18 @@ def _ssm_stack_decode(stack, x, cache, cfg):
 # top-level model params
 # =============================================================================
 
+def _n_dense(cfg: ModelConfig) -> int:
+    """Leading dense blocks of an MoE stack (``dense{i}``)."""
+    return cfg.first_k_dense if cfg.is_moe else 0
+
+
+def _blocks(tree, cfg: ModelConfig):
+    """The per-layer trees of an attention stack (parameters or cache) in
+    order: the ``dense{i}`` blocks, then the stacked layers."""
+    return ([tree[f"dense{i}"] for i in range(_n_dense(cfg))]
+            + [layer(tree["stack"], i) for i in range(depth(tree["stack"]))])
+
+
 def lm_params(cfg: ModelConfig):
     check_supported(cfg)
     p: Dict[str, Any] = {"embed": L.embed_params(cfg),
@@ -147,10 +174,15 @@ def lm_params(cfg: ModelConfig):
             "tail": (stack_tree(ssm_block_params(cfg), rem) if rem
                      else {}),
         }
+    elif cfg.family == "ssm":
+        p["blocks"] = {"stack": stack_tree(ssm_block_params(cfg),
+                                           cfg.num_layers)}
     else:
-        one = (ssm_block_params(cfg) if cfg.family == "ssm"
-               else attn_block_params(cfg))
-        p["blocks"] = {"stack": stack_tree(one, cfg.num_layers)}
+        n_dense = _n_dense(cfg)
+        p["blocks"] = {
+            "stack": stack_tree(attn_block_params(cfg, use_moe=cfg.is_moe),
+                                cfg.num_layers - n_dense),
+            **{f"dense{i}": attn_block_params(cfg) for i in range(n_dense)}}
     return p
 
 
@@ -161,38 +193,49 @@ def lm_params(cfg: ModelConfig):
 def _hybrid_apply(bp, x, cfg):
     for g in range(depth(bp["groups"])):
         x = _ssm_stack_apply(layer(bp["groups"], g), x, cfg)
-        x = attn_block_apply(bp["shared_attn"], x, cfg)
+        x, _ = attn_block_apply(bp["shared_attn"], x, cfg)
     return _ssm_stack_apply(bp["tail"], x, cfg)
 
 
 def lm_apply(params, tokens, cfg: ModelConfig):
-    """tokens (B,S) -> (logits (B,S,V), aux)."""
+    """tokens (B,S) -> (logits (B,S,V), aux): ``moe_aux`` and ``moe_z``
+    summed over the stacked layers (zeros without MoE)."""
     check_supported(cfg)
     x = L.embed_apply(params["embed"], tokens, cfg)
     bp = params["blocks"]
+    aux = zero_aux(x.device)
     if cfg.family == "hybrid":
         x = _hybrid_apply(bp, x, cfg)
     elif cfg.family == "ssm":
         x = _ssm_stack_apply(bp["stack"], x, cfg)
     else:
+        for i in range(_n_dense(cfg)):
+            x, _ = attn_block_apply(bp[f"dense{i}"], x, cfg)
         for i in range(depth(bp["stack"])):
-            x = attn_block_apply(layer(bp["stack"], i), x, cfg)
+            x, a = attn_block_apply(layer(bp["stack"], i), x, cfg)
+            aux = {k: aux[k] + a[k] for k in aux}
     x = L.norm_apply(params["final_ln"], x, cfg)
-    return L.unembed_apply(params["embed"], x, cfg), zero_aux(x.device)
+    return L.unembed_apply(params["embed"], x, cfg), aux
 
 
 def lm_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
              device=None):
     """Zero decode cache for the whole stack, every leaf with its leading
-    layer axes: dense ``{"stack": {"k", "v": (L, B, T, Hkv, D), "pos_ids":
-    (L, B, T)}}``; ssm ``{"stack": {"ssm": (L, B, H, P, N), "conv": (L, B,
-    d_inner, K - 1)}}``; hybrid ``{"groups": (n_groups, k, B, ...) states,
+    layer axes: dense and moe ``{"stack": {"k", "v": (L, B, T, Hkv, D),
+    "pos_ids": (L, B, T)}}`` (T the ring ``min(max_len, window)`` for a
+    sliding window), with the moe stack's ``dense{i}`` blocks beside it,
+    ``(B, T, ...)`` each; ssm ``{"stack": {"ssm": (L, B, H, P, N), "conv":
+    (L, B, d_inner, K - 1)}}``; hybrid ``{"groups": (n_groups, k, B, ...) states,
     "shared_attn": (n_groups, B, T, ...) K/V, "tail": (r, B, ...) states or
     {}}``."""
     check_supported(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
+        n_dense = _n_dense(cfg)
         kv = attn.gqa_cache_init(cfg, batch, max_len, dtype, device)
-        return {"stack": _stack([kv] * cfg.num_layers)}
+        return {"stack": _stack([kv] * (cfg.num_layers - n_dense)),
+                **{f"dense{i}": attn.gqa_cache_init(cfg, batch, max_len,
+                                                    dtype, device)
+                   for i in range(n_dense)}}
     state = ssm_lib.ssm_state_init(cfg, batch, dtype, device)
     if cfg.family == "ssm":
         return {"stack": _stack([state] * cfg.num_layers)}
@@ -235,31 +278,32 @@ def lm_prefill(params, tokens, cfg: ModelConfig,
             states = []
             x = _ssm_stack_apply(layer(bp["groups"], g), x, cfg, states)
             g_states.append(_stack(states))
-            x, kv = attn_block_apply(bp["shared_attn"], x, cfg,
-                                     collect_kv=True)
+            x, _, kv = attn_block_apply(bp["shared_attn"], x, cfg,
+                                        collect_kv=True)
             attn.gqa_seed_cache(layer(shared, g), kv, S, lengths=lengths)
         x = _ssm_stack_apply(bp["tail"], x, cfg, tail)
         cache = {"groups": _stack(g_states), "shared_attn": shared,
                  "tail": _stack(tail) if tail else {}}
     else:
         cache = lm_cache(cfg, B, max_len, dtype, x.device)
-        st = bp["stack"]
-        for i in range(depth(st)):
-            x, kv = attn_block_apply(layer(st, i), x, cfg, collect_kv=True)
-            attn.gqa_seed_cache(layer(cache["stack"], i), kv, S,
-                                lengths=lengths)
+        for lp, lc in zip(_blocks(bp, cfg), _blocks(cache, cfg)):
+            x, _, kv = attn_block_apply(lp, x, cfg, collect_kv=True)
+            attn.gqa_seed_cache(lc, kv, S, lengths=lengths)
     x = L.norm_apply(params["final_ln"], x, cfg)
     return L.unembed_apply(params["embed"], x, cfg), cache
 
 
 def lm_decode(params, tokens, cache, pos, cfg: ModelConfig, n_valid=None,
-              block_table=None):
+              block_table=None, scratch_table=None):
     """tokens (B,S) -> logits (B,S,V); the cache is updated in place (and
     returned). ``pos`` is a scalar or a (B,) vector of per-slot positions.
     Attention stacks take S > 1 (a chunked-prefill extend) with ``n_valid``
     (B,) marking real tokens per row, and with ``block_table`` (B, n_pages)
     int32 the serving tier's page pool (``lm_cache(cfg, pages, page_size,
-    ...)``) as the cache. A recurrent state advances one token per step, so
+    ...)``) as the cache; ``scratch_table`` (B, n_scratch) int32 names
+    each slot's scratch pages of the pool, which a chunk on a wrapping
+    sliding-window ring passes through (``attention.gqa_decode``). A
+    recurrent state advances one token per step, so
     the ssm and hybrid families take S = 1 and the contiguous cache only;
     ``pos`` and ``n_valid`` reach the hybrid's shared attention. A chunk of
     2..16 tokens (a speculative verify, ``L.by_column``) runs the ops whose
@@ -269,7 +313,7 @@ def lm_decode(params, tokens, cache, pos, cfg: ModelConfig, n_valid=None,
     cols = L.by_column(tokens.shape[1])
     x = L.tap("embed", L.embed_apply(params["embed"], tokens, cfg))
     bp = params["blocks"]
-    if cfg.family != "dense":
+    if cfg.family in ("ssm", "hybrid"):
         if block_table is not None or tokens.shape[1] != 1:
             raise ValueError(
                 f"the {cfg.family} family decodes one token per step on the "
@@ -286,11 +330,9 @@ def lm_decode(params, tokens, cache, pos, cfg: ModelConfig, n_valid=None,
                                      n_valid=n_valid)
         x = _ssm_stack_decode(bp["tail"], x, cache["tail"], cfg)
     else:
-        st = bp["stack"]
-        for i in range(depth(st)):
-            x, _ = attn_block_decode(layer(st, i), x,
-                                     layer(cache["stack"], i), pos, cfg,
-                                     n_valid=n_valid,
-                                     block_table=block_table, cols=cols)
+        for lp, lc in zip(_blocks(bp, cfg), _blocks(cache, cfg)):
+            x, _ = attn_block_decode(lp, x, lc, pos, cfg, n_valid=n_valid,
+                                     block_table=block_table,
+                                     scratch_table=scratch_table, cols=cols)
     x = L.tap("final_ln", L.norm_apply(params["final_ln"], x, cfg, cols))
     return L.tap("logits", L.unembed_apply(params["embed"], x, cfg)), cache

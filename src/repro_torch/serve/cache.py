@@ -17,7 +17,10 @@ chunk's K/V into the pages in place and runs the paged-attention kernel on
 the pool; ``gather_logical``/``scatter_logical`` (the reference's fused
 step) serve only ``read_rows``/``write_rows``/``restore`` here. Freed and
 trimmed pages get their ``pos_ids`` invalidated before they return to the
-pool.
+pool. A sliding-window model's slot spans its ring, ``seq_len =
+min(max_len, window)`` entries, as the reference's probe finds it; where
+the ring can wrap under a chunk, each slot also owns scratch pages for one
+chunk (see :class:`PagedKVCacheManager`).
 
 The cache's layout belongs to the model (``models/transformer.lm_cache``):
 ``KVCacheManager`` finds each leaf's slot axis as the reference does, by
@@ -27,9 +30,11 @@ nothing is allocated) and taking the axis where they differ
 hybrid's ``(n_groups, k, B, ...)`` group states. Only ``pos_ids`` leaves are
 invalidated when a slot is freed; a recurrent state is overwritten whole
 when its slot is next filled. The paged pool serves attention-only stacks
-(pages on the batch axis and ``page_size`` entries on the sequence axis,
-axis 2); the engine refuses it for the recurrent families, as the reference
-does. The expandable managers wait for a later slice of the port.
+(pages on the slot axis and ``page_size`` entries on the sequence axis
+after it: axis 1 and 2 of a stack's ``(L, pages, ps, ...)`` leaves, axis 0
+and 1 of an MoE stack's ``dense{i}`` blocks); the engine refuses it for the
+recurrent families, as the reference does. The expandable managers wait for
+a later slice of the port.
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-SEQ_AXIS = 2  # of every paged-pool leaf: (L, pages, sequence, ...)
+from repro_torch.models.attention import cache_len
 
 
 def tree_map(fn, *trees, _path=()):
@@ -322,15 +327,26 @@ class PageAllocator:
 class PagedKVCacheManager:
     """Block-table KV cache: non-contiguous pages behind the same slot API.
 
-    The device pool is ``model.cache(total_pages + 1, page_size)``: pages on
-    the batch axis, ``page_size`` tokens on the sequence axis, and index
-    ``total_pages`` is the **null page**, permanently invalid
-    (``pos_ids = -1``), the target of every unallocated block-table entry."""
+    The device pool is ``model.cache(total_pages + 1 + scratch, page_size)``:
+    pages on the slot axis, ``page_size`` tokens on the sequence axis, and
+    index ``total_pages`` is the **null page**, permanently invalid
+    (``pos_ids = -1``), the target of every unallocated block-table entry.
+
+    A slot's logical extent is ``seq_len``: ``max_len``, or a
+    sliding-window model's ring ``min(max_len, window)``. Where the ring
+    is as long as the window, a chunk of the step evicts entries that its
+    earlier tokens still see, so each slot also owns ``ceil(chunk /
+    page_size)`` scratch pages (``scratch_table``, after the null page),
+    reserved here and outside the allocator's count, so that
+    ``pages_in_use`` stays the reference's: the model's step passes each
+    chunk through them (``attention.gqa_decode``). ``chunk`` is the widest
+    step the engine makes (its ``prefill_chunk``)."""
 
     def __init__(self, model, slots: int, max_len: int,
-                 page_size: int = 16, total_pages: Optional[int] = None):
-        cfg = getattr(model, "cfg", None)
-        window = getattr(cfg, "sliding_window", 0) or 0
+                 page_size: int = 16, total_pages: Optional[int] = None,
+                 chunk: int = 1):
+        cfg = model.cfg
+        window = cfg.sliding_window
         if window and window <= page_size:
             raise ValueError(
                 f"page_size {page_size} must be < sliding_window {window}")
@@ -338,7 +354,7 @@ class PagedKVCacheManager:
         self.slots = slots
         self.max_len = max_len
         self.page_size = page_size
-        self.seq_len = max_len  # the logical per-slot extent (no ring)
+        self.seq_len = cache_len(cfg, max_len)  # the logical per-slot extent
         if self.seq_len % page_size:
             raise ValueError(
                 f"sequence extent {self.seq_len} not divisible by "
@@ -347,7 +363,14 @@ class PagedKVCacheManager:
         self.total_pages = (slots * self.pages_per_slot
                             if total_pages is None else int(total_pages))
         self.null_page = self.total_pages
-        self.pool = model.cache(self.total_pages + 1, page_size)
+        n_scratch = (math.ceil(chunk / page_size)
+                     if window and self.seq_len >= window else 0)
+        self.scratch_table = (self.null_page + 1 + np.arange(
+            slots * n_scratch, dtype=np.int32).reshape(slots, n_scratch)
+            if n_scratch else None)
+        self.axes = slot_axes(model, page_size)
+        self.pool = model.cache(self.total_pages + 1 + slots * n_scratch,
+                                page_size)
         self.allocator = PageAllocator(self.total_pages)
         self.block_table = np.full((slots, self.pages_per_slot),
                                    self.null_page, np.int32)
@@ -361,24 +384,26 @@ class PagedKVCacheManager:
 
     def _invalidate_pages(self, pool, page_ids):
         """Mark pages invalid (``pos_ids = -1``), in place."""
-        ids = torch.as_tensor(page_ids, dtype=torch.long,
-                              device=pool["stack"]["pos_ids"].device)
-        pool["stack"]["pos_ids"][:, ids] = -1
-        return pool
+        def inv(path, leaf, axis):
+            if path[-1] == "pos_ids":
+                leaf[_slots(axis, torch.as_tensor(
+                    page_ids, dtype=torch.long, device=leaf.device))] = -1
+            return leaf
+
+        return tree_map(inv, pool, self.axes)
 
     # -- pool <-> logical layout (preemption and restore) ----------------------
     def gather_logical(self, pool, bt):
         """Gather block tables ``bt`` (n, pages) into a slot-contiguous
         logical cache (n, pages * page_size)."""
-        bt = torch.as_tensor(bt, dtype=torch.long,
-                             device=pool["stack"]["pos_ids"].device)
+        def take(path, leaf, axis):
+            b = torch.as_tensor(bt, dtype=torch.long, device=leaf.device)
+            g = leaf[_slots(axis, b)]  # (..., n, pages, ps, ...)
+            return g.reshape(*leaf.shape[:axis], b.shape[0],
+                             b.shape[1] * self.page_size,
+                             *leaf.shape[axis + 2:])
 
-        def take(path, leaf):
-            g = leaf[:, bt]  # (L, n, pages, ps, ...)
-            return g.reshape(leaf.shape[0], bt.shape[0],
-                             bt.shape[1] * self.page_size, *leaf.shape[3:])
-
-        return tree_map(take, pool)
+        return tree_map(take, pool, self.axes)
 
     def inverse_map(self) -> np.ndarray:
         """Host-side inverse of the block tables: physical page -> flat
@@ -396,18 +421,17 @@ class PagedKVCacheManager:
         """Scatter a logical cache back into the pool through ``bt``, in
         place; the null page is re-filled (``pos_ids = -1``, zeros)
         afterwards, since every unallocated entry aliases it."""
-        bt = torch.as_tensor(bt, dtype=torch.long,
-                             device=pool["stack"]["pos_ids"].device)
         ps, null = self.page_size, self.null_page
 
-        def put(path, leaf, lg):
+        def put(path, leaf, axis, lg):
+            b = torch.as_tensor(bt, dtype=torch.long, device=leaf.device)
             v = torch.as_tensor(lg).to(leaf.device, leaf.dtype)
-            leaf[:, bt] = v.reshape(leaf.shape[0], bt.shape[0], bt.shape[1],
-                                    ps, *leaf.shape[3:])
-            leaf[:, null] = _fill(path)
+            leaf[_slots(axis, b)] = v.reshape(
+                *leaf.shape[:axis], *b.shape, ps, *leaf.shape[axis + 2:])
+            leaf[_slots(axis, null)] = _fill(path)
             return leaf
 
-        return tree_map(put, pool, logical)
+        return tree_map(put, pool, self.axes, logical)
 
     # -- slot lifecycle -------------------------------------------------------
     @property
@@ -525,18 +549,19 @@ class PagedKVCacheManager:
         ``pos_ids``)."""
         width = self.block_table.shape[1] * self.page_size
 
-        def fit(path, row):
+        def fit(path, row, axis):
             row = torch.as_tensor(row)
-            pad = width - row.shape[SEQ_AXIS]
+            seq = axis + 1
+            pad = width - row.shape[seq]
             if pad <= 0:
                 return row
             shape = list(row.shape)
-            shape[SEQ_AXIS] = pad
+            shape[seq] = pad
             return torch.cat([row, torch.full(shape, _fill(path),
                                               dtype=row.dtype,
-                                              device=row.device)], SEQ_AXIS)
+                                              device=row.device)], seq)
 
-        return tree_map(fit, rows)
+        return tree_map(fit, rows, self.axes)
 
     def restore(self, slot: int, rows, pos: int):
         """Scatter a preempted row set back into a (re)allocated slot —

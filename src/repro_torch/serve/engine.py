@@ -7,13 +7,17 @@ all active slots with ONE model step, sampling on the device and one host
 sync per tick. Two scheduling paths, picked by model family as in the
 reference:
 
-- **ragged** (attention-only stacks): the step carries chunked-prefill
+- **ragged** (attention-only stacks, dense and moe; a sliding-window ring
+  as long as one chunk fits it): the step carries chunked-prefill
   extends for slots still consuming their prompt and single-token decode
   for slots mid-generation, each slot at its own ``pos`` (the ragged
   ``pos``/``n_valid`` contract of ``Model.decode``), so a request admitted
-  while others are mid-decode produces what it would alone;
-- **stateful** (the ssm and hybrid families): a recurrent state would
-  absorb padded prompt tokens, so admission runs an exact-length prefill of
+  while others are mid-decode produces what it would alone. Every slot's
+  row, an idle one included, goes through the model step, so an MoE
+  layer's dispatch group holds every row, as the reference's does;
+- **stateful** (the ssm and hybrid families, and a sliding-window model
+  whose chunk would lap its ring): a recurrent state would absorb padded
+  prompt tokens, so admission runs an exact-length prefill of
   the prompt at batch 1 (the SSD-scan kernel in every mamba layer), writes
   the slot's rows and samples the first token from the last logit; the
   step is then an S = 1 decode over all slots. The chunked scan takes a
@@ -26,8 +30,13 @@ hands the pool and the tables to ``Model.decode``: each layer writes the
 chunk's K/V into its pages in place and runs the paged-attention kernel on
 the pool. The reference instead gathers a logical cache, runs the unchanged
 decode and scatters the pool back, donating the pool buffer so the scatter
-is in place; here the in-place page write takes the place of both.
-Admission and extension run at page granularity off the actual free list.
+is in place; here the in-place page write takes the place of both. A
+sliding-window model's slot spans its ring of ``min(max_len, window)``
+entries; where the ring can wrap under a chunk, the step also hands each
+slot's scratch pages to the model, which passes the chunk through them so
+that the kernel sees the pre-update ring plus the chunk, as the
+reference's decode does. Admission and extension run at page granularity
+off the actual free list.
 
 ``speculate=k`` adds draft-k self-speculative decode (greedy only):
 n-gram prompt-lookup drafts ride the ragged contract as an ``S = k+1``
@@ -43,8 +52,10 @@ that guarantee lapses: the chunk takes every op whole. A bf16 stream can
 also depend on what else shares its tick: a decode row that rides a
 prefill chunk wider than 16 goes through that chunk's products.
 
-Paged mode and speculation take the ragged path only, as in the reference.
-Sliding-window stacks and the expandable managers wait for later slices.
+Paged mode and speculation take the ragged path only, as in the reference,
+and speculation refuses a window shorter than ``max_len`` (a wrapped ring
+cannot roll a rejected draft back). The expandable managers wait for a
+later slice.
 Every ``step()`` emits a ``TickSample`` to the ``on_tick`` subscribers.
 """
 from __future__ import annotations
@@ -121,10 +132,16 @@ class Engine:
             if cfg.sliding_window and cfg.sliding_window < max_len:
                 raise ValueError(
                     "speculate requires sliding_window >= max_len")
+        self._scratch_dev: Optional[torch.Tensor] = None
         if self._paged:
             self.mgr = PagedKVCacheManager(model, batch_slots, max_len,
                                            page_size=page_size,
-                                           total_pages=total_pages)
+                                           total_pages=total_pages,
+                                           chunk=self.prefill_chunk)
+            if self.mgr.scratch_table is not None:
+                self._scratch_dev = torch.as_tensor(
+                    self.mgr.scratch_table, dtype=torch.int32,
+                    device=model.device)
         else:
             self.mgr = KVCacheManager(model, batch_slots, max_len,
                                       page_size=page_size)
@@ -162,7 +179,8 @@ class Engine:
         if self._paged:
             logits, _ = self.model.decode(toks, self.mgr.pool, pos,
                                           n_valid=nv,
-                                          block_table=self._bt_device())
+                                          block_table=self._bt_device(),
+                                          scratch_table=self._scratch_dev)
         else:
             logits, _ = self.model.decode(toks, self.mgr.cache, pos,
                                           n_valid=nv)

@@ -617,6 +617,150 @@ def test_model_and_engine_on_the_card(cuda):
     assert outs[True] == outs[False]
 
 
+# --- the sliding-window ring (mixtral) ------------------------------------------
+
+RING_W = 256  # a ring as long as the window: 16 pages of 16
+
+
+def _ring_inputs(device, dtype, S, H=32, Hkv=8, D=128, ps=16, seed=13):
+    """The serving tier's wrapped ring at mixtral's head shapes: per slot a
+    table of 16 ring pages (the pre-update ring, position p at ring index
+    p % 256) then 16 scratch pages (the chunk of S rows at ``start + j``,
+    the padded tail's ids -1), over a permuted pool with a null page.
+    Slots start at 300 and 611 (wrapped; 611 mid-page), 0 (an empty ring)
+    and 1000; slot 1 has 100 real rows of a 256-row chunk, slot 2's last
+    row is disabled (pos = -1)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + S)
+    n = RING_W // ps
+    starts = [300, 611, 0, 1000]
+    valid = [S, min(S, 100), S, S]
+    B = len(starts)
+    P = B * 2 * n
+    q = torch.randn((B, S, H, D), generator=g, device=device).to(dtype)
+    k = torch.randn((P + 1, ps, Hkv, D), generator=g, device=device).to(dtype)
+    v = torch.randn((P + 1, ps, Hkv, D), generator=g, device=device).to(dtype)
+    bt = torch.randperm(P, generator=g, device=device).to(torch.int32)
+    bt = bt.reshape(B, 2 * n).contiguous()
+    ids = torch.full((P + 1, ps), -1, dtype=torch.int32, device=device)
+    idx = torch.arange(RING_W, dtype=torch.int32, device=device)
+    for b, (s, nv) in enumerate(zip(starts, valid)):
+        last = s - 1 - ((s - 1 - idx) % RING_W)  # newest p < s at index i
+        ring = torch.where(last >= 0, last, -1)
+        chunk = torch.where(idx < nv, s + idx, -1)
+        ids[bt[b].long()] = torch.cat([ring, chunk]).reshape(2 * n, ps)
+    bt[2, 1:n] = P  # the empty ring: one page, the rest the null page
+    pos = (torch.tensor(starts, dtype=torch.int32, device=device)[:, None]
+           + torch.arange(S, dtype=torch.int32, device=device)[None])
+    pos[2, -1] = -1
+    return q, k, v, ids, bt, pos.contiguous()
+
+
+def _ring_visible(ids, bt, pos, window):
+    """(B, S, n * ps) bool: the entries each row may see (chip_smoke's
+    ``_visible_keys``): 0 <= id <= pos and id > pos - window."""
+    seen = ids[bt.long()].reshape(bt.shape[0], 1, -1).long()
+    p = pos.reshape(bt.shape[0], -1, 1).long()
+    return (seen >= 0) & (seen <= p) & (seen > p - window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 256])
+def test_paged_ring_with_scratch_equals_plain(cuda, dtype, S):
+    """Decode rows and 256-row chunks over a wrapped ring and its scratch
+    pages, the window bound on: bit for bit with the plain version."""
+    from repro_torch.kernels import paged_attention as PA
+    args = _ring_inputs(cuda, dtype, S)
+    got = PA.paged_attention(*args, window=RING_W)
+    want = PA.paged_attention_ref(*args, window=RING_W)
+    torch.cuda.synchronize()
+    assert (got[2, -1] == 0).all()  # pos = -1: exact zeros
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S", [1, 256])
+def test_windowed_chunk_sees_exactly_the_visible_keys(cuda, S):
+    """Through the kernel each row attends exactly the entries the window
+    rule names: changing every entry no row may see leaves the output bit
+    for bit, and the output is float64 softmax attention over exactly the
+    visible set (float32, 1e-5)."""
+    from repro_torch.kernels import paged_attention as PA
+    q, k, v, ids, bt, pos = _ring_inputs(cuda, torch.float32, S)
+    got = PA.paged_attention(q, k, v, ids, bt, pos, window=RING_W)
+    vis = _ring_visible(ids, bt, pos, RING_W)  # (B, S, n * ps)
+    ps, Hkv, D = k.shape[1], k.shape[2], k.shape[3]
+    entries = torch.zeros(k.shape[:2], dtype=torch.bool, device=cuda)
+    B, n = bt.shape
+    seen_any = vis.any(1).reshape(B, n, ps)
+    entries[bt.long()] |= seen_any
+    k2, v2 = k.clone(), v.clone()
+    k2[~entries] = 100.0
+    v2[~entries] = -100.0
+    again = PA.paged_attention(q, k2, v2, ids, bt, pos, window=RING_W)
+    assert torch.equal(got, again)
+    heads = torch.arange(q.shape[2], device=cuda) // (q.shape[2] // Hkv)
+    kl = k[bt.long()].reshape(B, n * ps, Hkv, D)[:, :, heads].double()
+    vl = v[bt.long()].reshape(B, n * ps, Hkv, D)[:, :, heads].double()
+    s = torch.einsum("bshd,bthd->bhst", q.double(), kl) / D ** 0.5
+    s = s.masked_fill(~vis[:, None], float("-inf"))
+    w = torch.nan_to_num(torch.softmax(s, -1), nan=0.0)
+    want = torch.einsum("bhst,bthd->bshd", w, vl)
+    assert float((got.double() - want).abs().max()) <= 1e-5
+
+
+def test_moe_routes_on_the_card_equal_the_cpu_port(cuda):
+    """The reduced mixtral's routes (experts chosen, the capacity's kept
+    routes; capacity factor 1.25, so some drop) and logits, card against
+    the CPU port on the same weights: routes equal, logits within 1e-4."""
+    from repro_torch.configs import registry
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    cfg = registry.get("mixtral-8x7b").reduced().replace(dtype="float32")
+    cpu = Model(cfg, device="cpu").init(0)
+    card = Model(cfg, device=cuda).load_reference(cpu.weights())
+    toks = np.random.default_rng(0).integers(0, 256, (4, 16))
+    runs = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        with moe.capture_routes() as routes:
+            logits, _ = model.apply({"tokens": toks})
+        runs[name] = (logits.cpu(), routes)
+    dropped = 0
+    for a, b in zip(runs["card"][1], runs["cpu"][1]):
+        assert torch.equal(a["idx"].cpu(), b["idx"])
+        assert torch.equal(a["keep"].cpu(), b["keep"])
+        dropped += int((~b["keep"]).sum())
+    assert dropped > 0
+    assert float((runs["card"][0] - runs["cpu"][0]).abs().max()) <= 1e-4
+
+
+def test_swa_engine_on_the_card(cuda):
+    """The reduced mixtral with a 32-entry ring in float32 on the card: the
+    paged engine (the kernel with the window bound, chunks through the
+    scratch pages) serves the contiguous engine's tokens, prompts that
+    wrap the ring included."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models.model import Model
+    from repro_torch.serve import Engine, Request
+    cfg = registry.get("mixtral-8x7b").reduced().replace(dtype="float32",
+                                                         sliding_window=32)
+    model = Model(cfg, device=cuda).init(0)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 256, n).astype(np.int32)
+               for n in (5, 40, 50, 9)]
+    outs = {}
+    for paged in (False, True):
+        eng = Engine(model, batch_slots=2, max_len=64, eos_id=-1,
+                     prefill_chunk=12, paged=paged)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid, p, max_new=12))
+        before = PA.paged_attention.launches
+        eng.run()
+        outs[paged] = {r.rid: tuple(r.out) for r in eng.finished}
+        assert (PA.paged_attention.launches > before) == paged
+    assert outs[True] == outs[False]
+
+
 @pytest.mark.parametrize("paged", [False, True])
 def test_verify_rows_equal_decode_rows_bf16(cuda, paged):
     """The reduced llama in bf16 on the card: a speculative verify tick (4

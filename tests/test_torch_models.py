@@ -206,14 +206,14 @@ def test_from_reference_copies_the_tree():
 
 def test_device_rule_and_unported_families(monkeypatch):
     cfg = registry.get(ARCH).reduced()
-    for arch, match in (("mixtral-8x7b", "mixtral"),
-                        ("llama-3.2-vision-11b", "multimodal"),
+    for arch, match in (("llama-3.2-vision-11b", "multimodal"),
                         ("deepseek-v2-236b", "deepseek")):
         with pytest.raises(NotImplementedError, match=match):
             Model(registry.get(arch).reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mixtral"):
-        attn.gqa_cache_init(cfg.replace(sliding_window=8), 1, 16,
-                            torch.float32)
+    # the mixtral slice is ported: the moe family and the ring cache
+    Model(registry.get("mixtral-8x7b").reduced(), device="cpu")
+    assert attn.gqa_cache_init(cfg.replace(sliding_window=8), 1, 16,
+                               torch.float32)["k"].shape[1] == 8
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Model(cfg)
