@@ -75,16 +75,20 @@ Phases, each of which exits non-zero on failure:
    inputs, and the speculative chunk equal bit for bit to the decode of its
    rows; timed beside the bound, the plain version and one library call
    (``F.scaled_dot_product_attention``, timed only, never used);
-9. scan kernel vs plain: the Mamba2 SSD-scan kernel at the reference
+9. scan kernel vs plain: the Mamba2 SSD-scan kernel (two launches a
+   call: C B^T once per (b, group, chunk), then the scan) at the reference
    test's shapes and at both recurrent models' prefill shapes (mamba2: 48
    heads of 64, state 128; zamba2: 64 heads of 64, state 64; chunk 256,
-   S = 256 and 512 at B = 1 and 4, and at B = 1 every prompt length of
-   path 11 that ends inside a 32-row tile), float32 and bfloat16, held to
-   its plain version (tolerance 0: bit for bit, y and the final state) and
-   in float32 to the reference-form ``ssd_chunked`` (2e-4, the reference's
-   kernel-vs-oracle bound), timed beside the bound (C B^T at the peak of
-   the inputs' type, the products with a float32 operand at the float32
-   rate) and the plain version;
+   S = 256 and 512 at B = 1 and 4, and at B = 1 every other prompt length
+   of path 11), and with more than one B/C group at the models' widths
+   (mamba2 G = 4 and 48 at B = 2, S = 512; zamba2 G = 2 at B = 2, S =
+   256), float32 and bfloat16, held to its plain version (tolerance 0: bit
+   for bit, y and the final state) and in float32 to the reference-form
+   ``ssd_chunked`` (2e-4, the reference's kernel-vs-oracle bound), timed
+   (``scan_timing``, which ``tools/scan_ab.py`` runs on other trees)
+   beside the bound (C B^T once per group at the peak of the inputs'
+   type, the products with a float32 operand at the float32 rate) and the
+   plain version;
 10. serve path: ``Engine`` on llama3.2-1b at full width with random weights
    from a seed. The float32 gate: the paged engine (the paged-attention
    kernel, launched ticks x 16 layers times) serves 8 prompts plus one
@@ -3020,7 +3024,26 @@ SCAN_REF_SHAPES = [(2, 128, 4, 16, 4, 32, 32), (2, 256, 8, 32, 8, 64, 64),
 SCAN_MODELS = {"mamba2": (48, 64, 128), "zamba2": (64, 64, 64)}  # H, P, N
 SCAN_ARCH = {"mamba2": "mamba2-780m", "zamba2": "zamba2-1.2b"}
 SCAN_PREFILL = [(B, S) for B in (1, 4) for S in (256, 512)]
+# more than one B/C group at the models' widths: C B^T is shared by H / G
+# heads, down to one head a group
+SCAN_GROUPS = [("mamba2", (2, 512, 48, 64, 4, 128, 256)),
+               ("mamba2", (2, 512, 48, 64, 48, 128, 256)),
+               ("zamba2", (2, 256, 64, 64, 2, 64, 256))]
 SCAN_ORACLE_TOL = 2e-4  # tests/test_kernels.py: kernel vs ssd_chunked
+
+
+def scan_cases() -> list:
+    """(name, (b, S, H, P, G, N, chunk)) of phase 9: the reference test's
+    shapes ("ref", held but not timed), each model's prefills at S = 256 and
+    512, B = 1 and 4, every other prompt length that path 11 prefills at
+    B = 1, and the group cases."""
+    cases = [("ref", sh) for sh in SCAN_REF_SHAPES]
+    for name, (H, P, N) in SCAN_MODELS.items():
+        _, lengths, late, _, _ = REC_SERVE[SCAN_ARCH[name]]
+        others = sorted(set(lengths + [late]) - {S for _, S in SCAN_PREFILL})
+        cases += [(name, (B, S, H, P, 1, N, 256))
+                  for B, S in SCAN_PREFILL + [(1, S) for S in others]]
+    return cases + SCAN_GROUPS
 
 
 def scan_inputs(torch, b, S, H, P, G, N, dtype, g):
@@ -3036,50 +3059,67 @@ def scan_inputs(torch, b, S, H, P, G, N, dtype, g):
 
 def scan_bound(b, S, H, P, G, N, chunk, dtype, elem):
     """(ms, "bytes" | "operations"): x, dt, B, C and A read once, y and the
-    final state written once, against the chunk's four products per chunk
-    and head. The lower triangle of C B^T (Q(Q+1)/2 N multiply-adds) takes
-    two operands of the inputs' type, so it is priced at that type's peak
-    (bf16 tensor cores for bf16 inputs); its weighted sum over x, the
-    read-out and the state update (Q(Q+1)/2 P + 2 Q P N) each have a
-    float32 operand (the weights, the state, the decay) and are priced at
-    the float32 rate of the CUDA cores."""
+    final state written once, against the least work the function needs.
+    The lower triangle of C B^T (Q(Q+1)/2 N multiply-adds) depends on
+    (b, group, chunk) alone, so it is counted once per group and chunk; it
+    takes two operands of the inputs' type, so it is priced at that type's
+    peak (bf16 tensor cores for bf16 inputs). The weighted sum over x, the
+    read-out and the state update (Q(Q+1)/2 P + 2 Q P N per chunk and
+    head) each have a float32 operand (the weights, the state, the decay)
+    and are priced at the float32 rate of the CUDA cores. Both rates are
+    the earlier bound's, the published peaks every bound here uses."""
     Q = min(chunk, S)
     nbytes = (elem * (2 * b * S * H * P + b * S * H + 2 * b * S * G * N)
               + 4 * H + 4 * b * H * P * N)
-    flops = 2.0 * (S // Q) * b * H  # per multiply-add, chunk and head
-    t_ops = (flops * (Q * (Q + 1) // 2 * N) / _peak(dtype)
-             + flops * (Q * (Q + 1) // 2 * P + 2 * Q * P * N)
+    flops = 2.0 * (S // Q) * b  # per multiply-add and chunk
+    t_ops = (flops * G * (Q * (Q + 1) // 2 * N) / _peak(dtype)
+             + flops * H * (Q * (Q + 1) // 2 * P + 2 * Q * P * N)
              / FP32_FLOP_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def scan_timing(torch) -> dict:
+    """The scan kernel's time per call at every timed case of phase 9
+    (all but "ref"), float32 and bfloat16, through whichever
+    ``repro_torch`` is first on the path: CUDA events over back-to-back
+    calls after warm-up (``ms``, ``_time_ms``; at the short prompts the
+    host's time per call), and on the card alone (``graph_ms``, 20 calls
+    in one CUDA graph, ``_graph_ms``). Phase 9 and ``tools/scan_ab.py``
+    both time with it, so every tree is measured by the same code."""
+    from repro_torch.kernels import mamba_scan as MS
+    g = torch.Generator(device=DEV)
+    g.manual_seed(31)
+    rows = []
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for name, (b, S, H, P, G, N, chunk) in scan_cases():
+            if name == "ref":
+                continue
+            args = scan_inputs(torch, b, S, H, P, G, N, dtype, g)
+            call = lambda: MS.mamba_scan(*args, chunk=chunk)
+            rows.append({"model": name, "dtype": dt, "B": b, "S": S, "H": H,
+                         "P": P, "G": G, "N": N, "chunk": chunk,
+                         "ms": _time_ms(torch, call),
+                         "graph_ms": _graph_ms(torch, call)})
+            del args
+    return {"rows": rows}
+
+
 def scan_kernel_phase(torch) -> dict:
     """The scan kernel against its plain version (y and the final state, bit
-    for bit) at the reference test's shapes and the models' prefill shapes,
-    both dtypes; against the reference-form ``ssd_chunked`` in float32;
-    then times beside the bound and the plain version. The prefill shapes
-    are S = 256 and 512 at B = 1 and 4, and, at B = 1, every prompt length
-    of the recurrent serve path that ends inside a row tile (Q = S there,
-    so the kernel's masked rows run)."""
+    for bit) at every case of ``scan_cases``, both dtypes; against the
+    reference-form ``ssd_chunked`` in float32; then ``scan_timing``'s times
+    beside the bound and the plain version's time."""
     from repro_torch.kernels import mamba_scan as MS
     from repro_torch.models import ssm
     g = torch.Generator(device=DEV)
     g.manual_seed(29)
-
-    def prefills(name):
-        _, lengths, late, _, _ = REC_SERVE[SCAN_ARCH[name]]
-        ragged = sorted({n for n in [*lengths, late] if n % MS.TILE})
-        return SCAN_PREFILL + [(1, S) for S in ragged]
-
-    cases = [("ref", sh) for sh in SCAN_REF_SHAPES] + [
-        (name, (B, S, H, P, 1, N, 256))
-        for name, (H, P, N) in SCAN_MODELS.items() for B, S in prefills(name)]
-    worst, worst_oracle, rows = 0.0, 0.0, []
+    worst, worst_oracle, plain = 0.0, 0.0, {}
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
-        for name, (b, S, H, P, G, N, chunk) in cases:
+        for name, (b, S, H, P, G, N, chunk) in scan_cases():
             args = scan_inputs(torch, b, S, H, P, G, N, dtype, g)
             y, st = MS.mamba_scan(*args, chunk=chunk)
             y_p, st_p = MS.mamba_scan_ref(*args, chunk=chunk)
@@ -3102,25 +3142,26 @@ def scan_kernel_phase(torch) -> dict:
                          f"{float((st - st_o).abs().max()):.3e} (state), "
                          f"|d| / (atol + rtol|ref|) {rel:.3f}")
             print(line)
-            if name == "ref":
-                continue
-            k_ms = _time_ms(torch, lambda: MS.mamba_scan(*args, chunk=chunk))
-            p_ms = _time_once_ms(torch, lambda: MS.mamba_scan_ref(
-                *args, chunk=chunk))
-            bound, by = scan_bound(b, S, H, P, G, N, chunk, dt,
-                                   args[0].element_size())
-            rows.append({"model": name, "dtype": dt, "B": b, "S": S, "H": H,
-                         "P": P, "N": N, "chunk": chunk, "ms": k_ms,
-                         "plain_ms": p_ms, "bound_ms": bound,
-                         "bound_by": by, "library_ms": None})
-            print(f"time scan {name} {dt} B={b} S={S}: kernel {k_ms:.5f} ms,"
-                  f" plain {p_ms:.5f} ms, bound {bound:.7f} ms ({by})")
-    print("library: no single PyTorch call computes the chunked SSD scan; "
-          "library_ms is null")
+            if name != "ref":
+                plain[(dt, b, S, H, G)] = _time_once_ms(
+                    torch, lambda: MS.mamba_scan_ref(*args, chunk=chunk))
+            del args, y, st, y_p, st_p
     # tolerance 0: the plain version repeats the kernel's order of sums
     check(worst == 0.0, f"scan kernel equals plain bit for bit (max {worst})")
     check(worst_oracle <= 1.0, f"scan kernel within {SCAN_ORACLE_TOL} of "
                                f"ssd_chunked in float32 ({worst_oracle:.3f})")
+    rows = scan_timing(torch)["rows"]
+    for r in rows:
+        b, S, H, P, G, N = (r[k] for k in ("B", "S", "H", "P", "G", "N"))
+        bound, by = scan_bound(b, S, H, P, G, N, r["chunk"], r["dtype"],
+                               2 if r["dtype"] == "bfloat16" else 4)
+        r.update(plain_ms=plain[(r["dtype"], b, S, H, G)], bound_ms=bound,
+                 bound_by=by, library_ms=None)
+        print(f"time scan {r['model']} {r['dtype']} B={b} S={S} G={G}: "
+              f"kernel {r['ms']:.5f} ms (alone {r['graph_ms']:.5f}), plain "
+              f"{r['plain_ms']:.5f} ms, bound {bound:.7f} ms ({by})")
+    print("library: no single PyTorch call computes the chunked SSD scan; "
+          "library_ms is null")
     return {"max_abs_err": worst, "rows": rows}
 
 
@@ -3341,8 +3382,8 @@ def main() -> int:
                      == ("bfloat16", FLASH_S[-1], True))
     # the recurrent serve path's working type: mamba2's 512-token prefill
     rep_scan = next(r for r in scan["rows"]
-                    if (r["model"], r["dtype"], r["B"], r["S"])
-                    == ("mamba2", "bfloat16", 1, 512))
+                    if (r["model"], r["dtype"], r["B"], r["S"], r["G"])
+                    == ("mamba2", "bfloat16", 1, 512, 1))
     print(json.dumps({"kernels": [
         # the smoother of the per-step form: launched on the main path by
         # the large-grid solve

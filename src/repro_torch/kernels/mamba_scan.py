@@ -16,39 +16,57 @@ reading group ``h // (H / G)`` inside the kernel, so the model hands over
 its (b, S, G, N) projections without the reference's ``repeat`` over heads
 (G = H takes per-head B and C, the reference's layout). The result is
 ``(y, state)``: y (b, S, H, P) in xh's dtype and the final state
-(b, H, P, N) in float32, both written by one launch; the TPU kernel kept the
+(b, H, P, N) in float32, both written by the kernel; the TPU kernel kept the
 state in scratch and dropped it, but a prefill seeds decode with it. As in
 the TPU kernel, Q = min(chunk, S) and S must be a multiple of Q: any other
 length raises (the reference's scan fails on it too).
 
 The kernel (``csrc/mamba_scan.cu``) is bound by operations at the models'
-shapes: per chunk and head Q(Q+1)/2 (N + P) multiply-adds for the
-lower-triangular term and 2 Q P N for the read-out and the state update,
-against a few bytes per element of x, B, C and y. One block of 256 threads
-per (b, h, 16 columns of P) runs the chunks in sequence with the carried
-(16, N) state and the chunk's running sums in shared memory; the (Q, Q)
-term is taken in 32 x 32 tiles of (i, j <= i), its exponentials only where
-j <= i (the masked entries would overflow), and never stored whole. Its
-math is on the CUDA cores in float32 (tensor-core tiles are later work).
+shapes: per chunk and head Q(Q+1)/2 P multiply-adds for the weighted sum
+and 2 Q P N for the read-out and the state update, and per chunk and B/C
+group Q(Q+1)/2 N for the lower triangle of C B^T, against a few bytes per
+element of x, B, C and y. A call enqueues two CUDA launches (``plan`` gives
+their grids and shared memory): the first forms C B^T once per (b, group,
+chunk) in 32 x 32 tiles into a float32 scratch kept per (device, stream);
+the second, one block of 256 threads per (b, h, 32 columns of P), runs the
+chunks in sequence with the carried (N, 32) state and the chunk's running
+sums in shared memory, reads its group's C B^T for the weights (their
+exponentials only where j <= i: the masked entries would overflow), and
+sums 4 x 4 register blocks of outputs. Its math is on the CUDA cores in
+float32 (tensor-core tiles are later work).
 
 ``mamba_scan`` dispatches on xh's device: the plain version for a CPU
 tensor, the kernel for a CUDA tensor (or an error).
-``mamba_scan.launches`` counts kernel launches.
+``mamba_scan.launches`` counts calls that launched the kernel (each call is
+two CUDA launches).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 _KERNEL = "mamba_scan"
-P_TILE = 16  # columns of P per block
-TILE = 32  # chunk rows per tile
+# csrc/mamba_scan.cu's tiles: columns of P per scan block, output rows and
+# input rows (or state entries) per tile of the scan block, and the C B^T
+# tile of i and of j
+P_TILE, ROWS, IN_ROWS, GRAM_TILE = 32, 128, 64, 32
 MAX_STATE = 128  # largest N the kernel takes
-THREADS = 256
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
+GRID_LIMIT = 65535  # blocks along the grid's y and z
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class Plan(NamedTuple):
+    """The two CUDA launches of one call (csrc/mamba_scan.cu's layout)."""
+    gram_grid: Tuple[int, int, int]  # (lower-triangular tiles, chunks, b G)
+    gram_smem: int  # bytes of shared memory per block
+    scan_grid: Tuple[int, int, int]  # (P tiles, H, b)
+    scan_smem: int
+    scratch_bytes: int  # C B^T, float32 (b, G, chunks, Q, Q)
 
 
 def chunk_len(S: int, chunk: int) -> int:
@@ -62,9 +80,13 @@ def chunk_len(S: int, chunk: int) -> int:
     return Q
 
 
-def _heads(H: int, G: int, device) -> torch.Tensor:
+def _check_groups(H: int, G: int) -> None:
     if G < 1 or H % G:
         raise ValueError(f"{H} heads do not group over {G} B/C groups")
+
+
+def _heads(H: int, G: int, device) -> torch.Tensor:
+    _check_groups(H, G)
     return torch.arange(H, device=device) // (H // G)
 
 
@@ -131,16 +153,46 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
     lib = _build.load(_KERNEL)
     lib.mamba_scan_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.mamba_scan_launch.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(Q: int, N: int) -> int:
-    """Dynamic shared memory of one block (csrc/mamba_scan.cu's layout)."""
-    ld = N + 1
-    return 4 * (3 * Q + 2 * TILE * ld + P_TILE * ld + TILE * P_TILE
-                + TILE * (TILE + 1))
+_SCRATCH: dict = {}
+
+
+def _scratch(device, stream: int, nbytes: int) -> torch.Tensor:
+    """The C B^T scratch of one (device, stream): a float32 buffer of at
+    least ``nbytes``, grown as needed and kept (one entry per stream that
+    ever ran the scan). Each call's first launch writes the part its second
+    reads, and calls on one stream run in order, so no two calls in flight
+    share a buffer. Under a CUDA graph capture the buffer comes from the
+    graph's own memory pool, fresh for each call: the graph keeps it for
+    its replays, and no other graph or stream can hold it."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.empty(-(-nbytes // 4), dtype=torch.float32,
+                           device=device)
+    key = (device, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or 4 * buf.numel() < nbytes:
+        buf = torch.empty(-(-nbytes // 4), dtype=torch.float32, device=device)
+        _SCRATCH[key] = buf
+    return buf
+
+
+def plan(b: int, S: int, H: int, P: int, G: int, N: int, Q: int) -> Plan:
+    """The grids, shared memory and scratch of one call; raises on a group
+    count that does not divide the heads."""
+    _check_groups(H, G)
+    n_pad = -(-N // 8) * 8  # rows of B and C in shared memory
+    t = -(-Q // GRAM_TILE)
+    return Plan(
+        gram_grid=(t * (t + 1) // 2, S // Q, b * G),
+        gram_smem=4 * 2 * n_pad * GRAM_TILE,
+        scan_grid=(-(-P // P_TILE), H, b),
+        scan_smem=4 * (IN_ROWS * ROWS + IN_ROWS * P_TILE + n_pad * P_TILE
+                       + 3 * Q),
+        scratch_bytes=4 * b * G * (S // Q) * Q * Q)
 
 
 def check_inputs(xh, dt, A, B, C, chunk):
@@ -162,17 +214,19 @@ def check_inputs(xh, dt, A, B, C, chunk):
             raise ValueError(f"{name} must be contiguous")
     if xh.dtype not in _DTYPES:
         raise ValueError(f"xh must be float32 or bfloat16, got {xh.dtype}")
-    _heads(H, G, "cpu")
     if not 1 <= N <= MAX_STATE:
         raise ValueError(f"the kernel takes a state of 1..{MAX_STATE}, got "
                          f"{N}")
     Q = chunk_len(S, chunk)
-    if smem_bytes(Q, N) > SMEM_LIMIT:
+    p = plan(b, S, H, P, G, N, Q)
+    if max(p.gram_smem, p.scan_smem) > SMEM_LIMIT:
         raise ValueError(f"a chunk of {Q} steps does not fit the kernel's "
                          f"shared memory")
-    if xh.numel() >= 2 ** 31 or B.numel() >= 2 ** 31 or H > 65535 \
-            or b > 65535:
+    if xh.numel() >= 2 ** 31 or B.numel() >= 2 ** 31:
         raise ValueError("each tensor must hold fewer than 2^31 elements")
+    if max(*p.gram_grid[1:], *p.scan_grid[1:]) > GRID_LIMIT:
+        raise ValueError(f"b * G, H, b and the chunks must each be at most "
+                         f"{GRID_LIMIT}")
     return b, S, H, P, G, N, Q
 
 
@@ -190,12 +244,16 @@ def mamba_scan(xh, dt, A, B, C, *, chunk: int = 256):
     state = torch.empty((b, H, P, N), dtype=torch.float32, device=xh.device)
     if y.numel() == 0:
         return y, state.zero_()
-    with torch.cuda.device(xh.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    dev = xh.device.index
+    with (contextlib.nullcontext() if dev == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        stream = torch._C._cuda_getCurrentRawStream(dev)
+        gram = _scratch(xh.device, stream,
+                        plan(b, S, H, P, G, N, Q).scratch_bytes)
         err = _lib().mamba_scan_launch(
             xh.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), state.data_ptr(), b, S, H, P, G, N, Q,
-            _DTYPES[xh.dtype], stream)
+            C.data_ptr(), y.data_ptr(), state.data_ptr(), gram.data_ptr(), b,
+            S, H, P, G, N, Q, _DTYPES[xh.dtype], stream)
     if err != 0:
         raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
     mamba_scan.launches += 1

@@ -810,8 +810,8 @@ def _scan_inputs(b, S, H, P, G, N, dtype, device, seed):
         (0.3 * r(b, S, G, N)).to(dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,S,H,P,G,N,chunk", [
+# (b, S, H, P, G, N, chunk) of the scan's card tests
+SCAN_SHAPES = [
     (2, 128, 4, 16, 4, 32, 32), (2, 256, 8, 32, 8, 64, 64),
     (2, 64, 2, 8, 2, 16, 64),  # the reference test shapes (G = H)
     (1, 32, 2, 4, 2, 8, 8),  # the sequential-oracle shape
@@ -820,7 +820,15 @@ def _scan_inputs(b, S, H, P, G, N, dtype, device, seed):
     (1, 40, 3, 24, 1, 16, 64),  # Q = 40 rows, P = 24: ragged tiles
     (1, 100, 48, 64, 1, 128, 256),  # mamba2's widths at a ragged prompt
     (3, 96, 4, 20, 2, 48, 32),  # P-tile edge, groups of 2 heads
-])
+    (4, 512, 48, 64, 1, 128, 256),  # mamba2's widths at B = 4
+    # C B^T shared by 12 heads, by one, and by 32 at zamba2's widths
+    (2, 512, 48, 64, 4, 128, 256), (2, 512, 48, 64, 48, 128, 256),
+    (2, 256, 64, 64, 2, 64, 256),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,S,H,P,G,N,chunk", SCAN_SHAPES)
 def test_mamba_scan_equals_plain(cuda, dtype, b, S, H, P, G, N, chunk):
     from repro_torch.kernels import mamba_scan as MS
     args = _scan_inputs(b, S, H, P, G, N, dtype, cuda, seed=S + P + N)
@@ -831,6 +839,42 @@ def test_mamba_scan_equals_plain(cuda, dtype, b, S, H, P, G, N, chunk):
     assert MS.mamba_scan.launches == before + 1
     assert y.dtype == dtype and state.dtype == torch.float32
     assert torch.equal(y, y_p) and torch.equal(state, s_p)
+
+
+def test_mamba_scan_on_a_side_stream_and_in_a_graph(cuda):
+    """After a call on the default stream, a call on a side stream and a
+    CUDA graph of two calls (another shape between them) each equal the
+    plain version: every stream, and the graph, has a C B^T scratch of its
+    own."""
+    from repro_torch.kernels import mamba_scan as MS
+    small = _scan_inputs(1, 256, 8, 64, 2, 128, torch.bfloat16, cuda, seed=3)
+    big = _scan_inputs(2, 512, 8, 64, 1, 128, torch.bfloat16, cuda, seed=4)
+    want = {id(a): MS.mamba_scan_ref(*a, chunk=256) for a in (small, big)}
+
+    def held(args, got):
+        y_p, s_p = want[id(args)]
+        assert torch.equal(got[0], y_p) and torch.equal(got[1], s_p)
+
+    held(big, MS.mamba_scan(*big, chunk=256))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = MS.mamba_scan(*small, chunk=256)
+        MS.mamba_scan(*big, chunk=256)  # a warm-up off the default stream
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    held(small, on_side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        first = MS.mamba_scan(*big, chunk=256)
+        second = MS.mamba_scan(*small, chunk=256)
+    for out in (first, second):
+        out[0].zero_()
+    graph.replay()
+    held(big, MS.mamba_scan(*big, chunk=256))  # the default stream between
+    torch.cuda.synchronize()
+    held(big, first)
+    held(small, second)
 
 
 def test_mamba_scan_refuses_bad_input(cuda):

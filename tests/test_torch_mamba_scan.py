@@ -17,16 +17,22 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import ssm as jssm
 from repro_torch.kernels import mamba_scan as MS
 from repro_torch.kernels import ops
 from repro_torch.models import ssm
+from test_torch_gpu import SCAN_SHAPES as CARD_SHAPES
 
 TOL = 2e-5
 REF_TOL = 2e-4
 SHAPES = [(128, 4, 16, 32, 32), (256, 8, 32, 64, 64), (64, 2, 8, 16, 64)]
+# (b, S, H, P, G, N, chunk) the kernel runs at: chip_smoke.py phase 9 and
+# the card tests
+KERNEL_SHAPES = sorted({sh for _, sh in chip_smoke.scan_cases()}
+                       | set(CARD_SHAPES))
 
 
 def _inputs(b, S, H, P, N, seed=0, G=None):
@@ -47,12 +53,25 @@ def _t(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
 
+def _differs(name, a, b) -> str:
+    """A failure message: how many entries of a and b differ, the first
+    differing index and both values there."""
+    ne = (a != b).nonzero()
+    if not len(ne):
+        return (f"{name}: torch.equal is False with no differing entry "
+                f"({a.dtype} {tuple(a.shape)} vs {b.dtype} {tuple(b.shape)})")
+    i = tuple(ne[0].tolist())
+    return (f"{name}: {len(ne)} of {a.numel()} entries differ, the first at "
+            f"{i}: {a[i].item()!r} vs {b[i].item()!r}")
+
+
 @pytest.mark.parametrize("S,H,P,N,chunk", SHAPES)
 def test_matches_the_jax_kernel_and_oracle(S, H, P, N, chunk):
     xh, dt, A, B, C = _inputs(2, S, H, P, N, seed=S + N)
     y, state = ops.mamba_scan_b(*_t(xh, dt, A, B, C), chunk=chunk)
     y_plain, s_plain = MS.mamba_scan_ref(*_t(xh, dt, A, B, C), chunk=chunk)
-    assert torch.equal(y, y_plain) and torch.equal(state, s_plain)
+    assert torch.equal(y, y_plain), _differs("y", y, y_plain)
+    assert torch.equal(state, s_plain), _differs("state", state, s_plain)
     assert y.shape == xh.shape and state.shape == (2, H, P, N)
     y_k = jops.mamba_scan_b(*(jnp.asarray(a) for a in (xh, dt, A, B, C)),
                             chunk=chunk)
@@ -153,3 +172,27 @@ def test_check_inputs_refuses_what_the_kernel_does_not_take():
         MS.check_inputs(xh, dt, A, big, big, 32)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         MS.mamba_scan(*(t.to("meta") for t in (xh, dt, A, B, C)), chunk=32)
+
+
+@pytest.mark.parametrize("b,S,H,P,G,N,chunk", KERNEL_SHAPES)
+def test_launch_plan(b, S, H, P, G, N, chunk):
+    """The two launches of a call at every shape the kernel runs at: each
+    block's shared memory within what its launch may take, C B^T's scratch
+    b G chunks Q Q float32, the grids, and a group count that does not
+    divide the heads refused."""
+    meta = lambda *shape: torch.empty(shape, device="meta")
+    args = (meta(b, S, H, P), meta(b, S, H), meta(H), meta(b, S, G, N),
+            meta(b, S, G, N))
+    Q = MS.chunk_len(S, chunk)
+    assert MS.check_inputs(*args, chunk) == (b, S, H, P, G, N, Q)
+    plan = MS.plan(b, S, H, P, G, N, Q)
+    # the C B^T launch takes no more than the 48 KB any launch may take
+    assert plan.gram_smem <= 48 * 1024
+    assert plan.scan_smem <= MS.SMEM_LIMIT
+    assert plan.scratch_bytes == b * G * (S // Q) * Q * Q * 4
+    tiles = -(-Q // MS.GRAM_TILE)
+    assert plan.gram_grid == (tiles * (tiles + 1) // 2, S // Q, b * G)
+    assert plan.scan_grid == (-(-P // MS.P_TILE), H, b)
+    for bad in (H + 1, 0):
+        with pytest.raises(ValueError, match="group"):
+            MS.plan(b, S, H, P, bad, N, Q)

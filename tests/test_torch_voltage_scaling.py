@@ -144,6 +144,7 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "tools").glob("*.py"))
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):
