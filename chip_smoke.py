@@ -70,6 +70,11 @@ Phases, each of which exits non-zero on failure:
    tail, an empty ring, a decode row mid-page, an idle slot), and the
    flash-attention kernel at
    B = 4, H = 32 / 8 kv heads, S = T in {128, 1000, 2048}, causal and not,
+   and at the multimodal paths' non-causal shapes (S in {1, 64, 256}
+   against T = 1601 with 32 / 8 heads of 128, the vlm's cross steps, and
+   against T = 1500 with 12 / 12 heads of 64, whisper's; whisper's encoder,
+   1500 x 1500), those bit for bit and also timed on the card alone (a
+   CUDA graph of 20 calls), all
    held to their plain versions (1e-5 in float32, 5e-2 in bfloat16) and,
    in bfloat16, both set beside a float64 softmax attention over the same
    inputs, and the speculative chunk equal bit for bit to the decode of its
@@ -173,6 +178,45 @@ Phases, each of which exits non-zero on failure:
    (reported); one warm 256-row extend step past the wrap and one warm
    decode step profiled (the experts' products, the dispatch scatter and
    gather, the paged kernel as shares of device time);
+10e. deepseek serve path: ``Engine`` on deepseek-v2-236b at full width
+   (d_model 5120, 128 MLA heads, q_lora 1536, kv_lora 512, 160 experts
+   top-6 of 1536 plus 2 shared, vocab 102400) with random weights from a
+   seed, the depth cut (an MoE layer is ~3.97 B parameters): 1 dense + 5
+   MoE layers in bf16, 1 + 1 in float32. MLA's prefill and absorbed decode
+   run in plain PyTorch (no kernel takes its heads; the reference computes
+   it outside any Pallas kernel), its compressed rows in the contiguous
+   cache or in the page pool. The reduced model in a paged engine on the
+   card and on the CPU port (routes equal, logits within 1e-4 step by
+   step); the float32 gate: the serve path's traffic and settings, paged
+   against contiguous, routes compared step by step as in 10d; bf16 with
+   its times, peak memory and routes dropped by capacity;
+   ``speculate=3`` on the two repeating prompts against greedy: with a
+   capacity that drops nothing, every stream equal, and the row probe
+   (as in phase 10) at that capacity: the verify rows' logits equal their
+   decode rows' bit for bit; at the config's capacity a stream departs
+   only after the capacity dropped routes of that request's own real
+   tokens (the reference's engine departs there too: a verify chunk's
+   rows share the capacity); an extend and a decode step profiled;
+10f. multimodal paths: llama-3.2-vision-11b (40 self + 8 gated cross
+   blocks over 1601 image tokens) and whisper-small (12 encoder + 12
+   decoder layers over 1500 frames) at full width and depth with random
+   weights from a seed, served through ``serve/step``: 4 requests of 37 to
+   256 tokens with 0.1 N(0, 1) embeddings, a prefill step each, then 32
+   greedy decode steps of all four. The reduced model's logits on the card
+   equal the CPU port's (1e-4); the float32 gate (depth cut: 5 + 1 and
+   1 + 1 layers): the streams through the kernels equal those under
+   ``plain_kernels()`` or part at a top-2 margin under 1e-4, flash
+   launches counted; bf16: flash launches per prefill (48, 36) and per
+   decode step (8, 12), times, peak memory, a decode step profiled, and
+   each prefill's logits within 0.06 of the plain path with top-1 above
+   0.95;
+10g. the §V study: the reference's ``accuracy_vs_rail`` on llama3.2-1b at
+   full width (16 layers, bf16), 2 x 24 tokens, its MLP products through
+   ``AbftMatmul`` inside ``tolerance.routed_matmuls`` at the study's rails
+   (nominal, 0.730 V down to 0.700 V, 65 C): 48 ABFT launches a forward,
+   per rail the overshoot, the ledger, top-1 agreement with the clean
+   forward and the wall; the plain version gives equal ledgers and logits
+   bit for bit, guard-band rails inject nothing;
 11. recurrent serve path: the stateful ``Engine`` on mamba2-780m (8 slots,
    max_len 1024, prompts of 37 to 256 tokens and one of 512, one more
    after 4 ticks, 32 new tokens each) and zamba2-1.2b (4 slots, four
@@ -1213,6 +1257,14 @@ PAGED_N_PAGES = 128  # 2048 positions of 16
 EXTEND_S = 256  # the serve path's prefill chunk, 8 slots
 SPEC_S = 4  # a speculative chunk: the last token and 3 drafts
 FLASH_B, FLASH_S = 4, [128, 1000, 2048]
+# the multimodal paths' flash shapes (phase 10f), all non-causal:
+# (label, S, T, H, Hkv, D) at B = FLASH_B: the vlm's cross steps over 1601
+# image tokens (decode S = 1, prefill chunks), whisper's over 1500 frames,
+# and whisper's encoder, 1500 x 1500
+FLASH_CROSS = ([("vlm cross", S, 1601, 32, 8, 128) for S in (1, 64, 256)]
+               + [("whisper cross", S, 1500, 12, 12, 64)
+                  for S in (1, 64, 256)]
+               + [("whisper encoder", 1500, 1500, 12, 12, 64)])
 ATT_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 
 
@@ -1402,9 +1454,9 @@ def paged64(torch, q, k, v, ids, bt, pos, window=0):
     return out[:, 0] if q.dim() == 3 else out
 
 
-def flash_bound(dtype, B, S, T, causal, elem):
-    ops = 4.0 * B * ATT_H * S * T * ATT_D * (0.5 if causal else 1.0)
-    nbytes = elem * ATT_D * (2 * B * S * ATT_H + 2 * B * T * ATT_HKV)
+def flash_bound(dtype, B, S, T, causal, elem, H=ATT_H, Hkv=ATT_HKV, D=ATT_D):
+    ops = 4.0 * B * H * S * T * D * (0.5 if causal else 1.0)
+    nbytes = elem * D * (2 * B * S * H + 2 * B * T * Hkv)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / _peak(dtype)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -1413,7 +1465,9 @@ def flash_bound(dtype, B, S, T, causal, elem):
 def attention_kernel_phase(torch) -> dict:
     """Both attention kernels against their plain versions at the serving
     path's shapes (the paged kernel also at the mixtral path's: wrapped
-    4096-entry rings, scratch pages, window 4096, heads of 128), both
+    4096-entry rings, scratch pages, window 4096, heads of 128; the flash
+    kernel also at the multimodal paths' non-causal S != T shapes, bit for
+    bit, and timed on the card alone too), both
     dtypes, and in bf16 both against a float64
     softmax attention over the same inputs; then times beside the bound,
     the plain version and the library call."""
@@ -1524,6 +1578,37 @@ def attention_kernel_phase(torch) -> dict:
                 print(f"time flash {dt} S=T={S} causal={causal}: kernel "
                       f"{k_ms:.5f} ms, plain {p_ms:.5f} ms, bound "
                       f"{bound:.7f} ms ({by}), sdpa {l_ms:.5f} ms")
+        for label, S, T, H, Hkv, D in FLASH_CROSS:
+            q = torch.randn((FLASH_B, S, H, D), generator=g,
+                            device=DEV).to(tdt[dt])
+            k = torch.randn((FLASH_B, T, Hkv, D), generator=g,
+                            device=DEV).to(tdt[dt])
+            v = torch.randn((FLASH_B, T, Hkv, D), generator=g,
+                            device=DEV).to(tdt[dt])
+            run = lambda: FA.flash_attention(q, k, v, causal=False)
+            got = run()
+            want = FA.flash_attention_ref(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"flash {label} {dt} S={S} T={T}: "
+                                          f"kernel == plain bit for bit")
+            k_ms, alone = _time_ms(torch, run), _graph_ms(torch, run)
+            p_ms = _time_once_ms(torch, lambda: FA.flash_attention_ref(
+                q, k, v, causal=False))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            l_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True))
+            bound, by = flash_bound(dt, FLASH_B, S, T, False,
+                                    q.element_size(), H, Hkv, D)
+            rows["flash_attention"].append(dict(
+                case=label, dtype=dt, B=FLASH_B, S=S, T=T, H=H, Hkv=Hkv,
+                D=D, causal=False, ms=k_ms, alone_ms=alone, plain_ms=p_ms,
+                bound_ms=bound, bound_by=by, library_ms=l_ms,
+                max_abs_err=0.0))
+            print(f"time flash {label} {dt} S={S} T={T} {H}/{Hkv} heads of "
+                  f"{D} (bit for bit): kernel {k_ms:.5f} ms, alone "
+                  f"{alone:.5f} ms ({k_ms / bound:.1f}x the bound), plain "
+                  f"{p_ms:.5f} ms, bound {bound:.7f} ms ({by}), sdpa "
+                  f"{l_ms:.5f} ms")
     for kern, by_dt in worst.items():
         for dt, e in by_dt.items():
             check(e <= ATT_TOL[dt], f"{kern} {dt}: kernel == plain within "
@@ -1734,7 +1819,7 @@ def bf16_gate(torch, label, got, want) -> dict:
     return {"max_abs_diff": d, "top1_agreement": agree, "rows": a.numel()}
 
 
-def row_probe(torch, model, prompts, whole, k=3) -> dict:
+def row_probe(torch, model, prompts, whole, k=3, title="") -> dict:
     """One verify tick (width k + 1, the drafts set to greedy's next k
     tokens) against the k + 1 greedy decode ticks it stands for, from one
     paged slot state past prefill (the pool restored between the runs),
@@ -1792,7 +1877,7 @@ def row_probe(torch, model, prompts, whole, k=3) -> dict:
                     first = {"layer": layer, "name": name, "row": j,
                              "max_abs_diff": float((got - want).abs().max())}
     how = "every op whole" if whole else "as shipped"
-    print(f"row probe bf16 ({how}, {len(live)} slots, {k + 1} rows, "
+    print(f"{title}row probe bf16 ({how}, {len(live)} slots, {k + 1} rows, "
           f"{len(verify)} intermediates): "
           + ("every verify row equals its decode row" if first is None else
              f"first differs at layer {first['layer']} {first['name']} (row "
@@ -2634,13 +2719,16 @@ class _MixMeter:
     routes of every layer (the experts chosen, the kept routes and each
     token's router margin, :func:`moe.route_margin`), and the routes and
     drops of decode and extend steps (all rows, and the rows of real
-    tokens); and which step and slot produced each (request, token). It
-    wraps the engine's ``step_logits`` and ``_append``."""
+    tokens); each step's dropped routes of each slot's real tokens over
+    all layers, and the request each slot served; and which step and slot
+    produced each (request, token). It wraps the engine's
+    ``step_logits`` and ``_append``."""
 
     def __init__(self, torch, engine, keep_routes=False):
         from repro_torch.models import moe
         self.margins, self.made, self.plans = {}, {}, {}
         self.tokens, self.layers = {}, {}
+        self.slot_drops, self.slot_rids = {}, {}
         z = lambda: torch.zeros(4, dtype=torch.long, device=DEV)
         self.routes = {"decode": z(), "extend": z()}
         step_logits, append = engine.step_logits, engine._append
@@ -2670,6 +2758,10 @@ class _MixMeter:
             self.routes["decode" if S == 1 else "extend"] += torch.stack([
                 torch.ones_like(keep).sum(), (~keep).sum(),
                 real.sum() * keep.shape[0], (~keep & real).sum()])
+            self.slot_drops[tick] = (~keep & real).reshape(
+                len(routes), B, S * k).sum((0, 2))
+            self.slot_rids[tick] = [None if q is None else q.rid
+                                    for q in engine.slot_req]
             return logits
 
         def appended(req, slot, tok):
@@ -2677,6 +2769,16 @@ class _MixMeter:
             append(req, slot, tok)
 
         engine.step_logits, engine._append = metered, appended
+
+    def own_drops(self, rid, i) -> int:
+        """The routes of request ``rid``'s real tokens that the capacity
+        dropped, in any layer, at the steps after the one that made its
+        first token (its prompt's last chunk) up to the one that made its
+        token i: the steps at which two runs of one schedule can differ."""
+        first, last = self.made[(rid, 0)][0], self.made[(rid, i)][0]
+        return sum(int(self.slot_drops[t][s]) for t in self.slot_drops
+                   if first < t <= last
+                   for s, r in enumerate(self.slot_rids[t]) if r == rid)
 
     def margin(self, rid, i) -> float:
         """The top-2 logit margin of the row that made token i."""
@@ -2795,69 +2897,19 @@ def hold_mix(label, got, want, meters) -> dict:
 
 def mix_card_vs_cpu(torch) -> dict:
     """The reduced mixtral (a 32-entry ring, float32) in a paged engine on
-    the card and on the CPU port, the same weights and traffic: each model
-    step's routes (the experts chosen and the capacity's kept routes, every
-    layer) equal and its logits within 1e-4, step by step while the
-    sampled streams agree; the steps compared include extends past the
-    ring's wrap."""
+    the card and on the CPU port (:func:`card_vs_cpu`); the steps compared
+    include extends past the ring's wrap."""
     from repro_torch.configs import registry
-    from repro_torch.models import moe
-    from repro_torch.models.model import Model
-    from repro_torch.serve import Engine, Request
     r = MIX_REDUCED
     cfg = registry.get(MIX_ARCH).reduced().replace(
         dtype="float32", sliding_window=r["window"])
-    cpu = Model(cfg, device="cpu").init(MIX_SEED)
-    models = {"card": Model(cfg).load_reference(cpu.weights()), "cpu": cpu}
     rng = np.random.default_rng(MIX_SEED + 3)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in r["prompts"]]
-    seen = {}
-    for name, model in models.items():
-        eng = Engine(model, paged=True, batch_slots=len(prompts), max_len=64,
-                     page_size=16, prefill_chunk=r["chunk"], eos_id=-1)
-        for rid, p in enumerate(prompts):
-            eng.submit(Request(rid, p, max_new=8))
-        steps = seen[name] = []
-
-        def capture(tokens, pos, n_valid, _step=eng.step_logits, _s=steps):
-            with moe.capture_routes() as routes:
-                logits = _step(tokens, pos, n_valid)
-            _s.append({"end": int((pos + n_valid).max()), "routes": routes,
-                       "logits": logits.cpu()})
-            return logits
-
-        eng.step_logits = capture
-        for _ in range(r["ticks"]):
-            eng.step()
-            steps[-1]["streams"] = [None if q is None else list(q.out)
-                                    for q in eng.slot_req]
-    worst, compared, wrapped = 0.0, 0, False
-    for t, (a, b) in enumerate(zip(seen["card"], seen["cpu"])):
-        for la, lb in zip(a["routes"], b["routes"]):
-            idx_a, idx_b = la["idx"].cpu(), lb["idx"]
-            if torch.equal(idx_a, idx_b):
-                check(torch.equal(la["keep"].cpu(), lb["keep"]),
-                      f"mixtral card vs CPU, step {t}: the kept routes")
-                continue
-            bad = (idx_a != idx_b).any(-1)
-            m = float(moe.route_margin(lb["logits"], 2)[bad].max())
-            print(f"mixtral card vs CPU, step {t}: {int(bad.sum())} routes "
-                  f"differ, largest margin {m:.3e}")
-            check(m < ROUTE_TIE, "mixtral card vs CPU: routes differ only "
-                                 "at near-ties")
-        worst = max(worst, float((a["logits"] - b["logits"]).abs().max()))
-        compared += 1
-        wrapped |= a["end"] > r["window"]
-        if a["streams"] != b["streams"]:
-            print(f"mixtral card vs CPU: the streams part after step {t}")
-            break
-    print(f"mixtral card vs CPU (reduced, window {r['window']}, chunks of "
-          f"{r['chunk']}): {compared} steps compared (past the wrap: "
-          f"{wrapped}), logits within {worst:.3e}")
-    check(compared >= 3 and wrapped, "mixtral card vs CPU: steps past the "
-                                     "ring's wrap compared")
-    check(worst <= 1e-4, "mixtral card vs CPU: logits within 1e-4")
+    compared, worst, end = card_vs_cpu(torch, "mixtral", cfg, prompts,
+                                       r["chunk"], r["ticks"], MIX_SEED)
+    check(end > r["window"], "mixtral card vs CPU: steps past the ring's "
+                             "wrap compared")
     return {"steps_compared": compared, "logits_max_abs_err": worst}
 
 
@@ -3014,6 +3066,617 @@ def mixtral_path(torch) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# --- the deepseek-v2 serve path: MLA through the engine (phase 10e) -----------
+DS_ARCH = "deepseek-v2-236b"
+DS_SEED = 0
+# the depth cut: an MoE layer is ~3.97 B parameters (its 160 experts 3.77
+# B), the dense first layer ~0.34 B, the embedding and unembedding ~1.05 B,
+# so the 60 layers (~236 B) are far past the card's 85 GB. The bf16 run
+# takes the deepest stack that fits with headroom: the init draws each
+# stacked expert leaf in float32 beside the bf16 weights (5.03 GB a MoE
+# layer at its peak), so 1 dense + 5 MoE layers peak near 68 GB (6 would
+# reach ~81 GB). The float32 gate serves the traffic twice: 1 dense + 1
+# MoE layer (~5.4 B parameters, ~21.6 GB).
+DS_LAYERS = {"float32": 2, "bfloat16": 6}
+DS_REDUCED = dict(chunk=12, ticks=6, prompts=[60, 45, 12, 3, 33, 50, 27, 8])
+# a capacity factor at which no route can be dropped (reported, not
+# gated): each expert's capacity is the dispatch group's token count
+DS_DROPLESS = 160 / 6 * (1 + 1e-6)
+
+
+def card_vs_cpu(torch, label, cfg, prompts, chunk, ticks, seed):
+    """A reduced model (float32) in a paged engine on the card and on the
+    CPU port, the same weights and traffic, ticks compared in turn: each
+    model step's routes (the experts chosen and the capacity's kept
+    routes, every MoE layer) equal, or differing only at router near-ties,
+    and its logits within 1e-4, step by step while the sampled streams
+    agree. Returns (steps compared, worst logit difference, the largest
+    position written)."""
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.serve import Engine, Request
+    cpu = Model(cfg, device="cpu").init(seed)
+    models = {"card": Model(cfg).load_reference(cpu.weights()), "cpu": cpu}
+    seen = {}
+    for name, model in models.items():
+        eng = Engine(model, paged=True, batch_slots=len(prompts), max_len=64,
+                     page_size=16, prefill_chunk=chunk, eos_id=-1)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid, p, max_new=8))
+        steps = seen[name] = []
+
+        def capture(tokens, pos, n_valid, _step=eng.step_logits, _s=steps):
+            with moe.capture_routes() as routes:
+                logits = _step(tokens, pos, n_valid)
+            _s.append({"end": int((pos + n_valid).max()), "routes": routes,
+                       "logits": logits.cpu()})
+            return logits
+
+        eng.step_logits = capture
+        for _ in range(ticks):
+            eng.step()
+            steps[-1]["streams"] = [None if q is None else list(q.out)
+                                    for q in eng.slot_req]
+    worst, compared, end = 0.0, 0, 0
+    k = cfg.num_experts_per_tok
+    for t, (a, b) in enumerate(zip(seen["card"], seen["cpu"])):
+        for la, lb in zip(a["routes"], b["routes"]):
+            idx_a, idx_b = la["idx"].cpu(), lb["idx"]
+            if torch.equal(idx_a, idx_b):
+                check(torch.equal(la["keep"].cpu(), lb["keep"]),
+                      f"{label} card vs CPU, step {t}: the kept routes")
+                continue
+            bad = (idx_a != idx_b).any(-1)
+            m = float(moe.route_margin(lb["logits"], k)[bad].max())
+            print(f"{label} card vs CPU, step {t}: {int(bad.sum())} routes "
+                  f"differ, largest margin {m:.3e}")
+            check(m < ROUTE_TIE, f"{label} card vs CPU: routes differ only "
+                                 f"at near-ties")
+        worst = max(worst, float((a["logits"] - b["logits"]).abs().max()))
+        compared += 1
+        end = max(end, a["end"])
+        if a["streams"] != b["streams"]:
+            print(f"{label} card vs CPU: the streams part after step {t}")
+            break
+    print(f"{label} card vs CPU (reduced, chunks of {chunk}): {compared} "
+          f"steps compared, positions up to {end}, logits within "
+          f"{worst:.3e}")
+    check(compared >= 3, f"{label} card vs CPU: steps compared")
+    check(worst <= 1e-4, f"{label} card vs CPU: logits within 1e-4")
+    return compared, worst, end
+
+
+@contextlib.contextmanager
+def _capacity(model, cf):
+    """The model's MoE capacity factor set to ``cf`` inside the block
+    (None: the config's)."""
+    cfg = model.cfg
+    if cf is not None:
+        model.cfg = cfg.replace(moe_capacity_factor=cf)
+    try:
+        yield
+    finally:
+        model.cfg = cfg
+
+
+def ds_spec(torch, model, prompts, cf) -> dict:
+    """bf16 ``speculate=3`` against greedy on ``prompts`` (paged), the
+    model's capacity factor set to ``cf`` for the two runs (None: the
+    config's). At the dropless ``cf`` no real route is dropped in either
+    run, and every stream equals greedy's: each verify row takes its decode
+    row's arithmetic (:func:`row_probe`). At the config's capacity a verify
+    chunk's rows share the dispatch group's capacity, so the reference's
+    own engine departs from greedy where the chunk's routes overflow an
+    expert (``tests/test_torch_mla.py``, ROADMAP queue 3): a stream may
+    depart only at a token before which, past its prompt, the capacity
+    dropped routes of that request's own real tokens in one run or the
+    other (:meth:`_MixMeter.own_drops`)."""
+    from repro_torch.serve import Engine
+    label = "dropless" if cf is not None else "capacity"
+    with _capacity(model, cf):
+        eng = Engine(model, paged=True, **SERVE_KW)
+        meters = {"greedy": _MixMeter(torch, eng)}
+        greedy, _, _ = drive(eng, prompts, late=False)
+        eng = Engine(model, paged=True, speculate=3, **SERVE_KW)
+        meters["speculative"] = _MixMeter(torch, eng)
+        spec, _, wall = drive(eng, prompts, late=False)
+    drops = {name: m.drop_shares() for name, m in meters.items()}
+    real_dropped = sum(kind["real_dropped"] for d in drops.values()
+                       for kind in d.values())
+    same, departures = 0, {}
+    for rid in greedy:
+        i = _first_diff(spec[rid], greedy[rid])
+        if i is None:
+            same += 1
+            continue
+        own = {name: m.own_drops(rid, i) for name, m in meters.items()}
+        departures[str(rid)] = dict(token=i, own_drops=own)
+        print(f"deepseek bf16 {label} speculate=3: request {rid} departs "
+              f"from greedy at token {i} ({spec[rid][i:i + 3]} vs "
+              f"{greedy[rid][i:i + 3]}); the routes of its own real tokens "
+              f"dropped by the capacity up to there: {own}")
+        if cf is None:
+            check(sum(own.values()) > 0,
+                  f"deepseek bf16 capacity: request {rid} departs from "
+                  f"greedy only after the capacity dropped routes of its "
+                  f"own real tokens")
+    print(f"deepseek bf16 {label} speculate=3 vs greedy (two repeating "
+          f"prompts): {same} of {len(greedy)} streams equal, "
+          f"{eng.spec_accepted} of {eng.spec_proposed} drafts accepted, "
+          f"real routes dropped {real_dropped}, wall {wall:.3f} s")
+    check(eng.spec_accepted > 0, f"deepseek bf16 {label}: drafts accepted")
+    if cf is not None:
+        check(real_dropped == 0, "deepseek bf16 dropless: no real token's "
+                                 "route dropped in either run")
+        check(same == len(greedy), "deepseek bf16 dropless: speculate=3 "
+                                   "serves greedy's streams")
+    return {"streams_equal": same, "streams": len(greedy),
+            "departures": departures, "real_routes_dropped": real_dropped,
+            "drops": drops, "accepted": eng.spec_accepted,
+            "proposed": eng.spec_proposed, "wall_s": wall}
+
+
+def ds_profile(torch, model) -> dict:
+    """One warm 256-row extend step (8 slots, positions 256-511) and one
+    warm decode step of the bf16 paged engine: MLA's einsums, the batched
+    products (the experts' and the einsums'), the dispatch scatter and the
+    combine gather as shares of the device time."""
+    from repro_torch.serve import Engine, Request
+    rng = np.random.default_rng(DS_SEED + 4)
+    eng = Engine(model, paged=True, **SERVE_KW)
+    for rid in range(SERVE_KW["batch_slots"]):
+        eng.submit(Request(rid, rng.integers(0, model.cfg.vocab_size, 600)
+                           .astype(np.int32), max_new=8))
+    eng.step()
+    out = {}
+    for label, extra in (("extend", 0), ("decode", 2)):
+        for _ in range(extra):
+            eng.step()
+        plan, _ = eng._compose()
+        prof = _profile(torch, f"deepseek bf16 {label} step ({plan.width} "
+                               f"rows x {plan.tokens.shape[0]} slots, pos "
+                               f"{int(plan.pos.min())})", eng.step)
+        busy = prof["busy_ms"]
+        parts = {"mla_einsums": _op_ms(prof, ("aten::einsum",)),
+                 "batched_products": _op_ms(prof, ("aten::bmm",)),
+                 "dispatch_scatter": _op_ms(prof, ("aten::scatter_",)),
+                 "combine_gather": _op_ms(prof, ("aten::gather",))}
+        shares = {k: v / busy if busy else 0.0 for k, v in parts.items()}
+        print(f"deepseek bf16 {label} step: shares of device time "
+              + ", ".join(f"{k} {v:.4f}" for k, v in shares.items()))
+        out[label] = dict(busy_ms=busy, wall_ms=prof["wall_ms"], ms=parts,
+                          shares=shares)
+    return out
+
+
+def deepseek_path(torch) -> dict:
+    """deepseek-v2-236b at full width (depth cut): MLA's compressed cache
+    through the engine, paged and contiguous, in plain PyTorch (no kernel:
+    its heads do not fit the flash or paged kernel, and the reference
+    computes it outside any Pallas kernel). The card against the CPU port
+    at reduced width, the float32 gate (paged against contiguous, routes
+    compared step by step), the bf16 run with its drops, bf16
+    ``speculate=3`` against greedy on the two repeating prompts
+    (:func:`ds_spec`: with a capacity that drops nothing, greedy's
+    streams; at the config's, departures only after the capacity dropped
+    the request's own routes), the row probe at the dropless capacity, and
+    the step profiles."""
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+    from repro_torch.serve import Engine
+    cfg = registry.get(DS_ARCH)
+    prompts = serve_prompts(cfg.vocab_size)
+    n_par = lambda n: Model(cfg.replace(num_layers=n),
+                            device="cpu").n_params()
+    moe_layer, outer = n_par(3) - n_par(2), n_par(1)
+    full_gb = n_par(cfg.num_layers) * 2 / 1e9
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    print(f"deepseek: {DS_ARCH} at full width (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} MLA heads, q_lora {cfg.q_lora_rank}, kv_lora "
+          f"{cfg.kv_lora_rank}, {cfg.num_experts} experts top-"
+          f"{cfg.num_experts_per_tok} of {cfg.moe_d_ff} + "
+          f"{cfg.num_shared_experts} shared, vocab {cfg.vocab_size}); an MoE "
+          f"layer {moe_layer} parameters, the dense layer with the embeddings "
+          f"{outer}, the {cfg.num_layers} layers {full_gb:.1f} GB in bf16 "
+          f"against the card's {card_gb:.1f} GB: depth cut to "
+          f"{DS_LAYERS['bfloat16']} layers in bf16 and "
+          f"{DS_LAYERS['float32']} in float32")
+    r = DS_REDUCED
+    rcfg = registry.get(DS_ARCH).reduced().replace(dtype="float32")
+    rng = np.random.default_rng(DS_SEED + 3)
+    steps, worst, _ = card_vs_cpu(
+        torch, "deepseek", rcfg,
+        [rng.integers(0, rcfg.vocab_size, n).astype(np.int32)
+         for n in r["prompts"]], r["chunk"], r["ticks"], DS_SEED)
+    out = {"depth": dict(DS_LAYERS), "moe_layer_params": moe_layer,
+           "dense_and_embeddings_params": outer, "full_bf16_gb": full_gb,
+           "card_vs_cpu": {"steps_compared": steps,
+                           "logits_max_abs_err": worst}}
+
+    # 1. the float32 gate: paged (the compressed rows in pages) against
+    # contiguous, one schedule, routes compared step by step
+    n32 = DS_LAYERS["float32"]
+    m32 = Model(cfg.replace(dtype="float32", param_dtype="float32",
+                            num_layers=n32)).init(DS_SEED)
+    eng = Engine(m32, paged=True, **SERVE_KW)
+    check(set(eng.mgr.pool["stack"]) == {"c_kv", "k_rope", "pos_ids"},
+          "deepseek: the page pool holds MLA's compressed rows")
+    meters = [_MixMeter(torch, eng, keep_routes=True)]
+    reset_counts()
+    paged, ticks, wall = drive(eng, prompts)
+    counts = read_counts()
+    n_steps = sum(1 for w, _, _, _ in ticks if w > 0)
+    print(f"deepseek gate float32 paged: wall {wall:.3f} s, {n_steps} model "
+          f"steps, launches {counts} (MLA runs no kernel)")
+    out["gate_counts"] = counts
+    out["gate"] = dict(_tick_times(ticks), wall_s=wall,
+                       drops=meters[0].drop_shares())
+    del eng
+    eng = Engine(m32, **SERVE_KW)
+    meters.append(_MixMeter(torch, eng, keep_routes=True))
+    cont, _, wall_c = drive(eng, prompts)
+    print(f"deepseek gate float32 contiguous: wall {wall_c:.3f} s")
+    out["gate_hold"] = hold_mix(
+        "deepseek float32 paged vs contiguous", paged, cont, meters)
+    for rid in sorted(paged):
+        print(f"  request {rid} ({len(prompts[rid])} prompt tokens): "
+              f"{paged[rid][:8]}...")
+    del eng, meters, m32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. bf16: times, peak memory, drops; speculate=3 against greedy
+    n16 = DS_LAYERS["bfloat16"]
+    torch.cuda.reset_peak_memory_stats()
+    m16 = Model(cfg.replace(param_dtype="bfloat16",
+                            num_layers=n16)).init(DS_SEED)
+    init_peak = torch.cuda.max_memory_allocated()
+    print(f"deepseek bf16 ({n16} layers): weights "
+          f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB, the init's "
+          f"peak {init_peak / 2 ** 20:.1f} MiB")
+    eng = Engine(m16, paged=True, **SERVE_KW)
+    meter = _MixMeter(torch, eng)
+    torch.cuda.reset_peak_memory_stats()
+    got16, tt = serve_bf16_run(torch, eng, prompts)
+    peak = torch.cuda.max_memory_allocated()
+    drops = meter.drop_shares()
+    print(f"deepseek bf16 paged ({n16} layers): wall {tt['wall_s']:.3f} s, "
+          f"{tt['tokens']} tokens, {tt['tokens_per_s']:.1f} tokens/s, decode "
+          f"tick {tt['decode_tick_s']:.5f} s ({tt['decode_ticks']}), prefill "
+          f"tick {tt['prefill_tick_s']:.5f} s ({tt['prefill_ticks']}), peak "
+          f"memory {peak / 2 ** 20:.1f} MiB; routes dropped by capacity "
+          f"{drops}")
+    out["bf16"] = dict(tt, peak_memory_bytes=peak,
+                       init_peak_memory_bytes=init_peak, drops=drops)
+    del eng, meter
+    out["spec"] = {label: ds_spec(torch, m16, prompts[:2], cf) for label, cf
+                   in (("dropless", DS_DROPLESS), ("capacity", None))}
+    with _capacity(m16, DS_DROPLESS):
+        out["row_probe"] = {
+            label: row_probe(torch, m16, prompts[:2], whole,
+                             title="deepseek ")
+            for label, whole in (("one product", True), ("by column", False))}
+    check(out["row_probe"]["by column"]["logits_equal"],
+          "deepseek bf16 (dropless): verify rows equal their decode rows bit "
+          "for bit (logits)")
+    out["profile"] = ds_profile(torch, m16)
+    del m16
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card"] = smi_line()
+    print(f"deepseek path on {out['card']}")
+    return out
+
+
+# --- the multimodal serve path: llama-3.2-vision and whisper (phase 10f) -----
+MM_ARCHS = {"vlm": "llama-3.2-vision-11b", "whisper": "whisper-small"}
+MM_SEED = 0
+MM_PROMPTS = [37, 100, 200, 256]  # 4 requests
+MM_NEW = 32
+MM_MAX_LEN = MM_PROMPTS[-1] + MM_NEW
+# the float32 gate runs the traffic twice, once through the plain versions:
+# the float32 flash plain version takes ~0.3 s a call at these cross
+# shapes (one launch per head dim per 16 keys), so the gate's depth is cut
+# (vlm: 1 group of 5 self + 1 cross block; whisper: 1 encoder + 1 decoder
+# layer); the bf16 runs take the full depth
+MM_F32_DEPTH = {"vlm": dict(num_layers=5),
+                "whisper": dict(num_layers=1, encoder_layers=1)}
+
+
+def mm_inputs(torch, cfg):
+    """The 4 requests' prompts (numpy, from the seed) and their frontend
+    embeddings, 0.1 N(0, 1) of (4, n, d_model) as the reference's tests
+    draw them, from a ``torch.Generator`` on the card."""
+    rng = np.random.default_rng(MM_SEED + 5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in MM_PROMPTS]
+    g = torch.Generator(device=DEV)
+    g.manual_seed(MM_SEED)
+    key, n = (("image_embeds", cfg.num_image_tokens) if cfg.family == "vlm"
+              else ("audio_frames", cfg.encoder_frames))
+    emb = 0.1 * torch.randn((len(prompts), n, cfg.d_model), generator=g,
+                            device=DEV)
+    return prompts, key, emb
+
+
+def mm_serve(torch, model, prompts, key, emb, new=MM_NEW,
+             profile=None) -> dict:
+    """The requests through ``serve/step``: each one's prefill step at its
+    exact length (batch 1, its own embeddings), the four caches joined on
+    their slot axes, then ``new`` greedy decode steps of all four at their
+    own positions. Returns the streams, every step's top-2 logit margin
+    per row, the launches and times of the prefills and of the decode;
+    with ``profile`` (a label) one more decode step profiled."""
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    from repro_torch.serve.cache import slot_axes, tree_map
+    prefill = make_prefill_step(model, MM_MAX_LEN)
+    decode = make_decode_step(model)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lasts, caches = [], []
+    for i, p in enumerate(prompts):
+        last, cache = prefill({"tokens": torch.as_tensor(p, device=DEV)[None],
+                               key: emb[i:i + 1]})
+        lasts.append(last)
+        caches.append(cache)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    pre_counts = read_counts()
+    cache = tree_map(lambda path, ax, *leaves: torch.cat(leaves, dim=ax),
+                     slot_axes(model, MM_MAX_LEN), *caches)
+    del caches
+    last = torch.cat(lasts)
+    pos = torch.as_tensor([len(p) for p in prompts], device=DEV)
+    toks, margins = [], []
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(new):
+        top = torch.topk(last.float(), 2).values
+        margins.append(top[:, 0] - top[:, 1])
+        toks.append(torch.argmax(last, -1))
+        last, cache = decode(cache, toks[-1][:, None], pos + t)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    counts = read_counts()
+    prof = None if profile is None else _profile(
+        torch, profile, lambda: decode(cache, toks[-1][:, None], pos + new))
+    streams = torch.stack(toks, 1).cpu().numpy()
+    return {"streams": {i: streams[i].tolist() for i in range(len(prompts))},
+            "margins": torch.stack(margins, 1).cpu().numpy(),
+            "prefill_counts": pre_counts, "decode_counts": counts,
+            "prefill_s": t_pre, "decode_s": t_dec, "profile": prof}
+
+
+def _mm_card_vs_cpu(torch, name, cfg) -> float:
+    """The reduced model (float32) on the card and on the CPU port, the
+    same weights and inputs: the forward, a prefill of 24 tokens and 4
+    decode steps; the largest logit difference."""
+    from repro_torch.models.model import Model
+    cpu = Model(cfg, device="cpu").init(MM_SEED)
+    card = Model(cfg).load_reference(cpu.weights())
+    prompts, key, emb = mm_inputs(torch, cfg)
+    toks = np.stack([p[:32] for p in prompts])
+
+    def run(m, dev):
+        batch = {"tokens": torch.as_tensor(toks, device=dev),
+                 key: emb.to(dev)}
+        got = [m.apply(batch)[0]]
+        lg, c = m.prefill({**batch, "tokens": batch["tokens"][:, :24]},
+                          max_len=32)
+        got.append(lg)
+        for t in range(24, 28):
+            lg, c = m.decode(batch["tokens"][:, t:t + 1], c, t)
+            got.append(lg)
+        return [x.cpu() for x in got]
+
+    worst = max(float((a - b).abs().max())
+                for a, b in zip(run(card, DEV), run(cpu, "cpu")))
+    print(f"{name} card vs CPU (reduced): forward, prefill and 4 decode "
+          f"steps, logits within {worst:.3e}")
+    check(worst <= 1e-4, f"{name} card vs CPU: logits within 1e-4")
+    return worst
+
+
+def _mm_flash(cfg):
+    """(flash calls a prefill, a decode step): every self-attention layer,
+    cross block and encoder layer of a prefill; every cross step of a
+    decode step."""
+    if cfg.family == "vlm":
+        n_cross = cfg.num_layers // cfg.cross_attn_every
+        return n_cross * (cfg.cross_attn_every + 1), n_cross
+    return 2 * cfg.num_layers + cfg.encoder_layers, cfg.num_layers
+
+
+def mm_path(torch, name: str) -> dict:
+    """One multimodal model at full width through ``serve/step``: the card
+    against the CPU port at reduced width, the float32 gate (the kernels
+    against their plain versions, depth cut), and the bf16 run at full
+    depth with the flash launches per prefill and decode step and the
+    prefill held to the plain path (|d logits| <= 0.06, top-1 > 0.95)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import Model
+    cfg = registry.get(MM_ARCHS[name])
+    vlm = cfg.family == "vlm"
+    per_prefill, n_cross = _mm_flash(cfg)
+    out = {"arch": cfg.name, "flash_per_prefill": per_prefill,
+           "flash_per_decode_step": n_cross}
+
+    out["card_vs_cpu_logits_max_abs_err"] = _mm_card_vs_cpu(
+        torch, name, cfg.reduced().replace(dtype="float32"))
+
+    # 1. the float32 gate: kernels against plain versions, depth cut
+    c32 = cfg.replace(dtype="float32", param_dtype="float32",
+                      **MM_F32_DEPTH[name])
+    m32 = Model(c32).init(MM_SEED)
+    prompts, key, emb = mm_inputs(torch, c32)
+    k32 = mm_serve(torch, m32, prompts, key, emb)
+    with attn.plain_kernels():
+        p32 = mm_serve(torch, m32, prompts, key, emb)
+    pre32, n_c32 = _mm_flash(c32)
+    want_pre = len(prompts) * pre32
+    check(k32["prefill_counts"]["flash_attention"] == want_pre,
+          f"{name} float32: flash launches == {want_pre} over the prefills")
+    check(k32["decode_counts"]["flash_attention"] == MM_NEW * n_c32,
+          f"{name} float32: flash launches == {n_c32} per decode step")
+    check(p32["prefill_counts"]["flash_attention"] == 0,
+          f"{name} float32 plain: no kernel launched")
+    same = 0
+    for rid, w in p32["streams"].items():
+        i = _first_diff(k32["streams"][rid], w)
+        if i is None:
+            same += 1
+            continue
+        m = float(min(k32["margins"][rid, i], p32["margins"][rid, i]))
+        print(f"{name} float32 kernels vs plain: request {rid} first differs "
+              f"at token {i}; top-2 margin {m:.3e}")
+        check(m < NEAR_TIE, f"{name} float32: request {rid} differs only at "
+                            f"a near-tie ({m:.3e} < {NEAR_TIE})")
+    print(f"{name} float32 gate ({c32.num_layers} layers"
+          f"{', ' + str(c32.encoder_layers) + ' encoder' if not vlm else ''}"
+          f"): {same} of {len(prompts)} streams equal; prefills "
+          f"{k32['prefill_s']:.3f} s through the kernels, "
+          f"{p32['prefill_s']:.3f} s plain; decode {k32['decode_s']:.3f} / "
+          f"{p32['decode_s']:.3f} s")
+    out["gate"] = {"depth": MM_F32_DEPTH[name], "streams_equal": same,
+                   "streams": len(prompts),
+                   "prefill_counts": k32["prefill_counts"],
+                   "decode_counts": k32["decode_counts"]}
+    del m32, k32, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. bf16 at full depth: launches, times, peak memory; the prefills
+    # held to the plain path
+    torch.cuda.reset_peak_memory_stats()
+    m16 = Model(cfg.replace(param_dtype="bfloat16")).init(MM_SEED)
+    prompts, key, emb = mm_inputs(torch, cfg)
+    mm_serve(torch, m16, prompts[:1], key, emb, new=2)  # warm-up
+    k16 = mm_serve(torch, m16, prompts, key, emb,
+                   profile=f"{name} bf16 decode step (4 rows)")
+    peak = torch.cuda.max_memory_allocated()
+    pre, dec = k16["prefill_counts"], k16["decode_counts"]
+    check(pre["flash_attention"] == len(prompts) * per_prefill,
+          f"{name} bf16: flash launches == {per_prefill} per prefill")
+    check(dec["flash_attention"] == MM_NEW * n_cross,
+          f"{name} bf16: flash launches == {n_cross} per decode step")
+    tokens = len(prompts) * MM_NEW
+    print(f"{name} bf16 ({m16.n_params()} parameters): {len(prompts)} "
+          f"prefills {k16['prefill_s']:.3f} s, {MM_NEW} decode steps "
+          f"{k16['decode_s']:.3f} s ({k16['decode_s'] / MM_NEW * 1e3:.3f} ms "
+          f"a step, {tokens / k16['decode_s']:.1f} tokens/s), flash "
+          f"{per_prefill} a prefill and {n_cross} a decode step, peak memory "
+          f"{peak / 2 ** 20:.1f} MiB")
+    gates = []
+    for i, p in enumerate(prompts):
+        batch = {"tokens": torch.as_tensor(p, device=DEV)[None],
+                 key: emb[i:i + 1]}
+        got = m16.prefill(batch, max_len=MM_MAX_LEN)[0]
+        with attn.plain_kernels():
+            want = m16.prefill(batch, max_len=MM_MAX_LEN)[0]
+        gates.append(bf16_gate(torch, f"{name} bf16 prefill {i} ({len(p)} "
+                                      f"tokens)", got, want))
+    out["bf16"] = {"prefill_s": k16["prefill_s"],
+                   "decode_s": k16["decode_s"],
+                   "decode_step_ms": k16["decode_s"] / MM_NEW * 1e3,
+                   "tokens_per_s": tokens / k16["decode_s"],
+                   "prefill_counts": pre, "decode_counts": dec,
+                   "peak_memory_bytes": peak, "prefill_gates": gates,
+                   "n_params": m16.n_params(),
+                   "decode_profile": {k: k16["profile"][k] for k in
+                                      ("wall_ms", "busy_ms")}}
+    out["launches"] = {"prefill": pre["flash_attention"],
+                       "decode": dec["flash_attention"]}
+    del m16, k16
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card"] = smi_line()
+    print(f"{name} path on {out['card']}")
+    return out
+
+
+# --- the §V accuracy-vs-rail study: llama3.2-1b through the ABFT kernel ------
+STUDY_ARCH = "llama3.2-1b"
+STUDY_SEED = 0
+STUDY_TOKENS = (2, 24)  # examples/overscaling_study.py's accuracy_vs_rail
+
+
+def routed_study(torch) -> dict:
+    """The reference's ``accuracy_vs_rail`` at full width: llama3.2-1b (16
+    layers, bf16, random weights from the seed) with its MLP products
+    (``wg``, ``wu``, ``wd``) routed through ``AbftMatmul``
+    (``tolerance.routed_matmuls``) at the study's rails (nominal, then
+    0.730 V down to 0.700 V at 65 C): per rail the overshoot, the ledger,
+    top-1 agreement with the clean forward and the forward's wall; each
+    rail again through the plain version (``use_kernel=False``): equal
+    ledgers and logits bit for bit."""
+    from repro_torch.configs import registry
+    from repro_torch.core import tpu_fleet as TF
+    from repro_torch.models.model import Model
+    from repro_torch.tolerance import (AbftMatmul, TimingFaultModel,
+                                       routed_matmuls, topk_agreement)
+    cfg = registry.get(STUDY_ARCH)
+    model = Model(cfg).init(STUDY_SEED)
+    n, s = STUDY_TOKENS
+    tokens = torch.as_tensor(np.arange(n * s).reshape(n, s) % cfg.vocab_size,
+                             device=DEV)
+    clean = model.apply({"tokens": tokens})[0]
+    fm = TimingFaultModel()
+    rails = [TF.V_CORE_NOM] + [round(0.730 - 0.005 * i, 3) for i in range(7)]
+    per_forward = 3 * cfg.num_layers
+    rows, total = [], 0
+    print(f"§V study: {STUDY_ARCH} ({cfg.num_layers} layers, "
+          f"{cfg.d_model} -> {cfg.d_ff}), {n} x {s} tokens, 65 C")
+    print(f"{'v_core':7s} {'overshoot':10s} {'checked':>8s} {'inj':>6s} "
+          f"{'det':>6s} {'corr':>6s} {'esc':>6s} {'top1':>6s} {'wall ms':>9s}")
+    for vc in rails:
+        probs = fm.bit_probs(vc, TF.V_SRAM_NOM, SEC5_T)
+        runs = {}
+        for use_kernel in (True, False):
+            mm = AbftMatmul(probs, 9, use_kernel=use_kernel, device=DEV)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with routed_matmuls(mm):
+                logits = model.apply({"tokens": tokens})[0]
+            torch.cuda.synchronize()
+            runs[use_kernel] = (mm, logits, time.perf_counter() - t0,
+                                read_counts()["abft_matmul"])
+        (mk, lk, wall, launches), (mp, lp, wall_p, lp_n) = runs[True], \
+            runs[False]
+        check(launches == per_forward and lp_n == 0,
+              f"§V study {vc}: {per_forward} ABFT launches a forward "
+              f"({launches})")
+        total += launches
+        check(mk.counters == mp.counters, f"§V study {vc}: ledger, kernel "
+                                          f"== plain")
+        check(torch.equal(lk, lp), f"§V study {vc}: logits, kernel == plain "
+                                   f"bit for bit")
+        c = mk.counters
+        x_over = float(fm.overshoot(vc, TF.V_SRAM_NOM, SEC5_T))
+        top1 = topk_agreement(lk, clean, k=1)
+        print(f"{vc:<7.3f} {x_over:<10.4f} {c.checked:>8d} {c.injected:>6d} "
+              f"{c.detected:>6d} {c.corrected:>6d} {c.escaped:>6d} "
+              f"{top1:>6.3f} {wall * 1e3:>9.3f}")
+        if x_over == 0.0:
+            check(c.injected == 0 and c.escaped == 0,
+                  f"§V study: guard-band rail {vc} injects nothing")
+        rows.append(dict(v_core=vc, overshoot=x_over, ledger=vars(c),
+                         top1=top1, wall_s=wall, plain_wall_s=wall_p))
+    check(rows[0]["overshoot"] == 0.0 and rows[-1]["ledger"]["injected"] > 0,
+          "§V study: the sweep spans the guard band and rails that inject")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = smi_line()
+    print(f"§V study on {card}: {total} ABFT launches ({per_forward} a "
+          f"forward)")
+    return {"launches": total, "per_forward": per_forward, "rails": rows,
+            "card": card}
 
 
 # --- the Mamba2 SSD-scan kernel ---------------------------------------------------
@@ -3351,6 +4014,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mix = timed("mixtral serve path", mixtral_path, torch)
+    ds = timed("deepseek serve path", deepseek_path, torch)
+    mmp = {name: timed(f"{name} path", mm_path, torch, name)
+           for name in MM_ARCHS}
+    study = timed("§V study", routed_study, torch)
     rec = {arch: timed(f"serve {arch}", recurrent_serve, torch, arch,
                        arch == "mamba2-780m") for arch in REC_SERVE}
     timed("profile", profile_phase, torch,
@@ -3360,6 +4027,9 @@ def main() -> int:
     print(f"control loop: {json.dumps(control)}")
     print(f"fleet tier: {json.dumps(fleet)}")
     print(f"mixtral serve path: {json.dumps(mix)}")
+    print(f"deepseek serve path: {json.dumps(ds)}")
+    print(f"multimodal paths: {json.dumps(mmp)}")
+    print(f"§V study: {json.dumps(study)}")
     print(f"recurrent serve path: {json.dumps(rec)}")
     print(f"phase times (s): {json.dumps(took)}")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
@@ -3402,11 +4072,14 @@ def main() -> int:
                       osp["counts"]["overscale_matmul"],
                       mm["max_abs_err"]["overscale_matmul"], rep_os,
                       mm["rows"]["overscale_matmul"]),
-        _kernel_entry("abft_matmul", src + "int8_error_matmul.cu",
-                      "src/repro/kernels/abft_matmul.py:98",
-                      sec5["counts"]["abft_matmul"],
-                      mm["max_abs_err"]["abft_matmul"], rep_abft,
-                      mm["rows"]["abft_matmul"]),
+        dict(_kernel_entry("abft_matmul", src + "int8_error_matmul.cu",
+                           "src/repro/kernels/abft_matmul.py:98",
+                           sec5["counts"]["abft_matmul"] + study["launches"],
+                           mm["max_abs_err"]["abft_matmul"], rep_abft,
+                           mm["rows"]["abft_matmul"]),
+             launches_by_path={"sec5": sec5["counts"]["abft_matmul"],
+                               "routed_study": study["launches"]},
+             routed_per_forward=study["per_forward"]),
         dict(_kernel_entry("paged_attention", src + "paged_attention.cu",
                            "src/repro/kernels/paged_attention.py:118",
                            serve["gate_counts"]["paged_attention"]
@@ -3422,11 +4095,23 @@ def main() -> int:
              max_abs_err_ring=att["max_abs_err"]["paged_ring"],
              mixtral_rows=[r for r in att["rows"]["paged_attention"]
                            if r["case"].startswith("ring")]),
-        _kernel_entry("flash_attention", src + "flash_attention.cu",
-                      "src/repro/kernels/flash_attention.py:76",
-                      serve["prefill_counts"]["flash_attention"],
-                      att["max_abs_err"]["flash_attention"], rep_flash,
-                      att["rows"]["flash_attention"]),
+        dict(_kernel_entry("flash_attention", src + "flash_attention.cu",
+                           "src/repro/kernels/flash_attention.py:76",
+                           serve["prefill_counts"]["flash_attention"]
+                           + sum(p["launches"]["prefill"]
+                                 + p["launches"]["decode"]
+                                 for p in mmp.values()),
+                           att["max_abs_err"]["flash_attention"], rep_flash,
+                           att["rows"]["flash_attention"]),
+             launches_by_path={
+                 "serve_prefill_step":
+                     serve["prefill_counts"]["flash_attention"],
+                 **{f"{name}_{kind}": p["launches"][kind]
+                    for name, p in mmp.items()
+                    for kind in ("prefill", "decode")}},
+             per_prefill={n: p["flash_per_prefill"] for n, p in mmp.items()},
+             per_decode_step={n: p["flash_per_decode_step"]
+                              for n, p in mmp.items()}),
         _kernel_entry("mamba_scan", src + "mamba_scan.cu",
                       "src/repro/kernels/mamba_scan.py:70",
                       rec["mamba2-780m"]["gate_counts"]["mamba_scan"],

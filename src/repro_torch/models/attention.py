@@ -1,4 +1,5 @@
-"""Attention, GQA (the counterpart of the reference's ``models/attention.py``).
+"""Attention: GQA, MLA with its absorbed decode, cross-attention (the
+counterpart of the reference's ``models/attention.py``).
 
 KV caches are dicts of tensors with an explicit per-slot ``pos_ids`` table
 (``(B, T)``), so full and ring-buffer (sliding-window) caches share one
@@ -15,14 +16,25 @@ Two caches take the decode: the contiguous one (``(B, T, Hkv, D)`` rows,
 attention by :func:`_sdpa`) and the paged pool of the serving tier
 (``(P, page_size, Hkv, D)`` pages behind a block table, attention by the
 paged-attention kernel). Both are updated in place, where the reference
-returns new arrays. Causal self-attention without a window (``gqa_apply``:
-``Model.apply`` and ``Model.prefill``) runs on the flash-attention kernel.
+returns new arrays. In ``gqa_apply`` (``Model.apply`` and ``Model.prefill``)
+causal self-attention without a window, non-causal attention (whisper's
+encoder) and cross-attention run on the flash-attention kernel, the last
+two with ``causal=False``, as does the decode's cross step over the frozen
+cross K/V (:func:`cross_attend`); the route is decided by shape before the
+call: q, k and v of one head dim in ``flash_attention.HEAD_DIMS``.
 
 A sliding-window model (mixtral) keeps a ring of ``T = min(max_len,
 window)`` entries per slot: position p lives at ring index ``p % T``, a
 chunk's entries wrap index-wise and its padded tails never overwrite live
-entries (:func:`_ring_scatter`). MLA (deepseek-v2) waits for its slice of
-the port.
+entries (:func:`_ring_scatter`).
+
+MLA (deepseek-v2) keeps a compressed cache, ``c_kv`` (B, T, kv_lora_rank)
+and ``k_rope`` (B, T, rope_dim) rows or their pages, and decodes absorbed:
+``k_up`` folded into the query, scores against ``c_kv`` and ``k_rope``,
+``v_up`` after the weighted sum. Its prefill (q/k heads of nope + rope =
+192, v heads of 128 at full width) and its decode run in plain PyTorch, as
+the reference computes them outside any Pallas kernel: the flash kernel
+takes one head dim for q, k and v, the paged kernel (P, ps, Hkv, D) pages.
 """
 from __future__ import annotations
 
@@ -38,7 +50,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import layers as L
 from repro_torch.models.layers import apply_rope, rms_norm
-from repro_torch.models.params import ParamMeta
+from repro_torch.models.params import ParamMeta, dense
 
 NEG_INF = -1e30
 
@@ -64,12 +76,6 @@ def plain_kernels():
         yield
     finally:
         KERNELS.update(saved)
-
-
-def _not_ported(what: str, slice_name: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: it waits for the {slice_name} slice of "
-        f"the port")
 
 
 def decode_positions(pos, B: int, S: int, device) -> torch.Tensor:
@@ -195,10 +201,14 @@ def _qkv(p, x, kv_x, cfg: ModelConfig, cols: bool = False):
     return L.tap("q", q), L.tap("k", k), L.tap("v", v)
 
 
-def _out(o, wo):
+def _o_proj(o, wo):
     """o (B, S, H, D) @ wo (H, D, d) -> (B, S, d)."""
-    return L.tap("o",
-                 o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1]))
+    return o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _out(o, wo):
+    """:func:`_o_proj`, recorded on the tape."""
+    return L.tap("o", _o_proj(o, wo))
 
 
 def _sdpa(q, k, v, mask):
@@ -229,12 +239,31 @@ def causal_mask(S: int, T: int, q_offset, window: int = 0, device=None):
     return m[None, None, None]
 
 
+def flash_fits(q, k, v) -> bool:
+    """Whether the flash kernel takes these shapes: q, k and v of one head
+    dim, and that dim in ``flash_attention.HEAD_DIMS``."""
+    return q.shape[-1] == k.shape[-1] == v.shape[-1] and \
+        q.shape[-1] in FA.HEAD_DIMS
+
+
+def cross_attend(q, k, v):
+    """Attention with no mask: q (B, S, H, D) over k, v (B, T, Hkv, D) (a
+    cross step, or an encoder's self-attention): the flash kernel with
+    ``causal=False`` where it takes the shapes, else :func:`_sdpa`."""
+    if flash_fits(q, k, v):
+        return KERNELS["flash"](q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=False)
+    return _sdpa(q, k, v, None)
+
+
 def gqa_apply(p, x, cfg: ModelConfig, positions=None, kv_x=None,
               cross: bool = False, causal: bool = True):
     """Train/prefill path. x (B,S,D). Returns (out, (k, v)) — k, v for
-    cache seeding. Causal self-attention without a window runs on the
-    flash-attention kernel (its plain version on the CPU); cross and
-    non-causal attention, and windows, keep :func:`_sdpa`."""
+    cache seeding. On the flash-attention kernel (its plain version on the
+    CPU), where the head dim fits it (:func:`flash_fits`): causal
+    self-attention without a window (S == T), and, with ``causal=False``,
+    non-causal and cross-attention (no mask, any S and T). Windows keep
+    :func:`_sdpa`."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, x if kv_x is None else kv_x, cfg)
     if positions is None:
@@ -242,13 +271,14 @@ def gqa_apply(p, x, cfg: ModelConfig, positions=None, kv_x=None,
     if not cross:
         q = apply_rope(q, positions, cfg)
         k = apply_rope(k, positions, cfg)
-    if not cross and causal and not cfg.sliding_window and S == k.shape[1]:
+    if cross or not causal:
+        o = cross_attend(q, k, v)
+    elif not cfg.sliding_window and S == k.shape[1] and flash_fits(q, k, v):
         o = KERNELS["flash"](q.contiguous(), k.contiguous(), v.contiguous(),
                              causal=True)
     else:
-        mask = (causal_mask(S, k.shape[1], 0, cfg.sliding_window, x.device)
-                if causal and not cross else None)
-        o = _sdpa(q, k, v, mask)
+        o = _sdpa(q, k, v, causal_mask(S, k.shape[1], 0, cfg.sliding_window,
+                                       x.device))
     o = _out(o, p["wo"])
     if cross:
         o = o * torch.tanh(p["gate"])
@@ -287,7 +317,7 @@ def _paged_write(cache, block_table, t, news, keep=None):
     """Write a chunk's entries ``news`` ({name: (B, S, ...)}) at the logical
     indices ``t`` (B, S) of each slot's table, in place, where ``keep``
     (everywhere when None)."""
-    ps = cache["k"].shape[1]
+    ps = cache["pos_ids"].shape[1]
     page = torch.gather(block_table.long(), 1, t // ps)
     for name, new in news.items():
         _masked_put(cache[name], (page, t % ps), new, keep)
@@ -415,5 +445,175 @@ def gqa_seed_cache(cache, kv, prefill_len: int, lengths=None):
         pos2 = torch.where(pos2 < ln[:, None], pos2, torch.full_like(pos2, -1))
     cache["k"][:, :S] = k.to(cache["k"].dtype)
     cache["v"][:, :S] = v.to(cache["v"].dtype)
+    cache["pos_ids"][:, :S] = pos2
+    return cache
+
+
+# =============================================================================
+# MLA (deepseek-v2): low-rank compressed KV, absorbed decode
+# =============================================================================
+
+def mla_params(cfg: ModelConfig):
+    d, h = cfg.d_model, cfg.num_heads
+    nope, rope_d, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                        cfg.v_head_dim)
+    r = cfg.kv_lora_rank
+    p = {
+        "kv_down": dense(d, r + rope_d, "embed", None),
+        "kv_norm": ParamMeta((r,), (None,), init="ones"),
+        "k_up": ParamMeta((r, h, nope), (None, "heads", None), fan_in=r),
+        "v_up": ParamMeta((r, h, vd), (None, "heads", None), fan_in=r),
+        "wo": ParamMeta((h, vd, d), ("heads", None, "embed"), fan_in=h * vd),
+    }
+    if cfg.q_lora_rank:
+        p["q_down"] = dense(d, cfg.q_lora_rank, "embed", None)
+        p["q_norm"] = ParamMeta((cfg.q_lora_rank,), (None,), init="ones")
+        p["q_up"] = ParamMeta((cfg.q_lora_rank, h, nope + rope_d),
+                              (None, "heads", None), fan_in=cfg.q_lora_rank)
+    else:
+        p["q_up"] = ParamMeta((d, h, nope + rope_d), ("embed", "heads", None),
+                              fan_in=d)
+    return p
+
+
+def _mla_q(p, x, cfg: ModelConfig, positions):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope)), the rope part rotated."""
+    nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    if cfg.q_lora_rank:
+        cq = rms_norm(x @ p["q_down"], p["q_norm"], cfg.norm_eps)
+        q = _proj(cq, p["q_up"])
+    else:
+        q = _proj(x, p["q_up"])
+    return q[..., :nope], apply_rope(q[..., nope:], positions, cfg,
+                                     dim=rope_d)
+
+
+def _mla_ckv(p, x, cfg: ModelConfig, positions):
+    """(c_kv (B,T,r) normed, k_rope (B,T,rope) rotated)."""
+    r, rope_d = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    kvd = x @ p["kv_down"]
+    c_kv = rms_norm(kvd[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kvd[..., r:][:, :, None, :], positions, cfg,
+                        dim=rope_d)[:, :, 0]
+    return c_kv, k_rope
+
+
+def mla_apply(p, x, cfg: ModelConfig, positions=None):
+    """Train/prefill: the compressed KV expanded per head, causal
+    :func:`_sdpa` (q/k heads of nope + rope, v heads of v_head_dim); returns
+    (out, (c_kv, k_rope)) for cache seeding."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_ckv(p, x, cfg, positions)
+    k_nope = _proj(c_kv, p["k_up"])
+    v = _proj(c_kv, p["v_up"])
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        *k_nope.shape[:3], k_rope.shape[-1])], -1)
+    o = _sdpa(q, k, v, causal_mask(S, S, 0, device=x.device))
+    return _out(o, p["wo"]), (c_kv, k_rope)
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device=None):
+    return {
+        "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+        "pos_ids": torch.full((batch, max_len), -1, dtype=torch.int32,
+                              device=device),
+    }
+
+
+def _mla_attend(p, q_nope, q_rope, positions, c_kv, k_rope, pos_ids,
+                cfg: ModelConfig):
+    """The absorbed attention of queries at ``positions`` (B, S) over a
+    slot's compressed cache rows c_kv (B, T, r), k_rope (B, T, rope) with
+    ids ``pos_ids`` (B, T) -> (B, S, H, v_head_dim), before the output
+    projection. Scores in float32 (the inputs
+    widened, as :func:`_sdpa` does), weights cast to the compute dtype."""
+    dt = q_nope.dtype
+    q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["k_up"])
+    scores = (torch.einsum("bshr,btr->bhst", q_c.float(), c_kv.float())
+              + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             k_rope.float()))
+    scores = scores / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    valid = (pos_ids >= 0)[:, None, :] & \
+        (pos_ids[:, None, :] <= positions[..., None])  # (B,S,T)
+    scores = torch.where(valid[:, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1).to(dt)
+    ctx_c = torch.einsum("bhst,btr->bshr", w, c_kv.to(dt))
+    return torch.einsum("bshr,rhk->bshk", ctx_c, p["v_up"])
+
+
+def mla_decode(p, x, cache, pos, cfg: ModelConfig, n_valid=None,
+               block_table=None, null_page=None, cols: bool = False):
+    """Absorbed decode, ragged like :func:`gqa_decode`: ``pos`` scalar or
+    (B,), S >= 1, each row's chunk written at its own offset (the start
+    clamped as the reference's ``_row_update`` clamps it; a full-length
+    cache, no ring), in place; padded tails record ``pos_id = -1``.
+
+    With ``block_table`` (B, n_pages), ``cache`` is one layer of the page
+    pool, ``c_kv`` (P, ps, r), ``k_rope`` (P, ps, rope), ``pos_ids``
+    (P, ps), and the cache's owner names its ``null_page``, the target of
+    every unallocated table entry. As the reference's paged step does, the
+    attention reads each slot's rows through its table (a copy), with the
+    chunk written into them, and the chunk then lands in the pages at
+    ``(bt[b, t // ps], t % ps)`` except on the null page, which stays zero
+    and invalid: an unallocated entry reads as the reference's refilled
+    null page, which a row that sees nothing (an idle slot) averages.
+
+    ``cols`` (a chunk of 2..16 rows, ``L.by_column``): the projections and
+    the attention run a column at a time, so that each row of a
+    speculative verify takes its decode row's arithmetic (the later rows
+    of the chunk are in the cache, masked)."""
+    B, S, _ = x.shape
+    positions = decode_positions(pos, B, S, x.device)  # (B,S)
+    xs = L.columns(x, cols)
+    ps_ = [positions[:, j:j + 1] for j in range(S)] if cols else [positions]
+    qs = [_mla_q(p, xj, cfg, pj) for xj, pj in zip(xs, ps_)]
+    kvs = [_mla_ckv(p, xj, cfg, pj) for xj, pj in zip(xs, ps_)]
+    news = {"c_kv": L.join([c for c, _ in kvs]),
+            "k_rope": L.join([k for _, k in kvs]),
+            "pos_ids": _new_pos_ids(positions, n_valid)}
+    if block_table is None:
+        for name, new in news.items():
+            _row_update(cache[name], new, positions[:, 0])
+        rows = cache
+    else:
+        ps = cache["pos_ids"].shape[1]
+        T = block_table.shape[1] * ps
+        bt = block_table.long()
+        rows = {name: leaf[bt].reshape(B, T, *leaf.shape[2:])
+                for name, leaf in cache.items()}
+        for name, new in news.items():
+            _row_update(rows[name], new, positions[:, 0])
+        t = _chunk_index(positions[:, 0], S, T)
+        if null_page is None:
+            raise ValueError("a paged MLA step needs the pool's null page")
+        owned = torch.gather(bt, 1, t // ps) != null_page
+        _paged_write(cache, block_table, t, news, owned)
+    os_ = [_mla_attend(p, qn, qr, pj, rows["c_kv"], rows["k_rope"],
+                       rows["pos_ids"], cfg) for (qn, qr), pj in zip(qs, ps_)]
+    L.tap("attn", L.join(os_))
+    return L.tap("o", L.join([_o_proj(o, p["wo"]) for o in os_])), cache
+
+
+def mla_seed_cache(cache, kv, prefill_len: int, lengths=None):
+    """Write prefill-time (c_kv, k_rope) into a zero decode cache, in
+    place; ``lengths`` (B,) as in :func:`gqa_seed_cache`."""
+    c_kv, k_rope = kv
+    B, S = c_kv.shape[:2]
+    pos2 = torch.arange(S, dtype=torch.int32, device=c_kv.device)[None] \
+        .expand(B, S)
+    if lengths is not None:
+        ln = torch.as_tensor(lengths, dtype=torch.int32, device=c_kv.device)
+        pos2 = torch.where(pos2 < ln[:, None], pos2, torch.full_like(pos2, -1))
+    cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
+    cache["k_rope"][:, :S] = k_rope.to(cache["k_rope"].dtype)
     cache["pos_ids"][:, :S] = pos2
     return cache

@@ -49,8 +49,11 @@ def by_column(S: int) -> bool:
     decode tick makes, with the same shape, strides and alignment, so that
     cuBLAS and PyTorch's reductions pick the same algorithm and every row of
     the chunk takes its decode row's arithmetic. Those ops are the MLP's
-    down product and the norms' float32 means (on an H100 the other
-    products of llama3.2-1b round a row alike at 8 and 32 rows). The width
+    products, the norms' float32 means, MLA's projections and attention,
+    and the MoE layer's router and experts (the capacity stays the
+    chunk's); on an H100 the GQA projections of llama3.2-1b round a row
+    alike at 8 and 32 rows, while the shared experts' gate product of
+    deepseek-v2 does not. The width
     is the paged kernel's, which scores a chunk of at most
     ``PA.CHUNK_ROWS`` rows so by itself; wider chunks (prefill) take every
     op whole."""
@@ -155,9 +158,9 @@ def mlp_params(cfg: ModelConfig, d_ff: Optional[int] = None,
 
 
 def mlp_apply(p, x, cfg: ModelConfig, cols: bool = False):
-    """``p`` holds the weights in x's dtype; ``cols``: the down product one
+    """``p`` holds the weights in x's dtype; ``cols``: each product one
     column at a time (:func:`by_column`)."""
-    mm = lambda t, w, name: tap(name, matmul(t, w))
+    mm = lambda t, w, name: tap(name, matmul(t, w, cols))
     if cfg.mlp_type == "swiglu":
         h = F.silu(mm(x, p["wg"], "gate")) * mm(x, p["wu"], "up")
     elif cfg.mlp_type == "relu2":

@@ -1,11 +1,17 @@
-"""The model facade (the counterpart of the reference's ``models/model.py``),
-for the dense, moe, ssm and hybrid families.
+"""The model facade (the counterpart of the reference's ``models/model.py``):
+one API over every family of the registry (dense, moe with GQA or MLA, ssm,
+hybrid, vlm, audio).
 
     model = Model(cfg).init(seed)              # random weights, on the card
     model = Model(cfg, device="cpu").load_reference(ref_params)
     logits, aux = model.apply({"tokens": tokens})  # aux: moe_aux, moe_z
     logits, cache = model.prefill({"tokens": tokens}, max_len=...)
     logits, cache = model.decode(tokens, cache, pos, n_valid=...)
+
+``batch`` is a dict: ``tokens`` (B, S), and the stubbed frontends' inputs
+at model width, ``image_embeds`` (B, num_image_tokens, d_model) for the vlm
+family and ``audio_frames`` (B, encoder_frames, d_model) for audio
+(``models/multimodal.py``).
 
 ``Model`` is an ``nn.Module`` that holds the stacked parameters under the
 reference's tree paths (``blocks.stack.attn.wq``, ``blocks.groups.ssm.wB``,
@@ -17,13 +23,14 @@ takes no sharding plan: one card has none.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import multimodal as mm
 from repro_torch.models import params as pm
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import cdt
@@ -33,7 +40,8 @@ from repro_torch.models.layers import cdt
 # reads in float32
 CAST_KEYS = frozenset({"wq", "wk", "wv", "wo", "wg", "wu", "wd", "router",
                        "embedding", "unembed", "gate", "wz", "wx", "wB",
-                       "wC", "wdt", "conv_w", "conv_b", "D", "dt_bias"})
+                       "wC", "wdt", "conv_w", "conv_b", "D", "dt_bias",
+                       "q_down", "q_up", "kv_down", "k_up", "v_up"})
 
 
 class _Tree(nn.Module):
@@ -65,6 +73,28 @@ def _tokens(x, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device).long()
 
 
+class _Family(NamedTuple):
+    """A family's functions, and the batch key of its frontend's
+    embeddings, which its apply and prefill take after the tokens (None:
+    tokens only)."""
+    params: Callable
+    apply: Callable
+    prefill: Callable
+    decode: Callable
+    cache: Callable
+    frontend: Optional[str]
+
+
+_LM = _Family(tf.lm_params, tf.lm_apply, tf.lm_prefill, tf.lm_decode,
+              tf.lm_cache, None)
+_MULTIMODAL = {
+    "vlm": _Family(mm.vlm_params, mm.vlm_apply, mm.vlm_prefill,
+                   mm.vlm_decode, mm.vlm_cache, "image_embeds"),
+    "audio": _Family(mm.whisper_params, mm.whisper_apply, mm.whisper_prefill,
+                     mm.whisper_decode, mm.whisper_cache, "audio_frames"),
+}
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -73,9 +103,22 @@ class Model(nn.Module):
         self.device = resolve_device(device)
         self._compute: Optional[Dict[str, Any]] = None
 
+    @property
+    def _family(self) -> _Family:
+        return _MULTIMODAL.get(self.cfg.family, _LM)
+
+    def _inputs(self, batch: Dict[str, Any]) -> tuple:
+        """The batch as the family's apply and prefill take it: the tokens,
+        then the frontend's embeddings where the family reads them."""
+        toks = _tokens(batch["tokens"], self.device)
+        key = self._family.frontend
+        if key is None:
+            return (toks,)
+        return toks, torch.as_tensor(batch[key], device=self.device)
+
     # --- params -----------------------------------------------------------
     def param_meta(self):
-        return tf.lm_params(self.cfg)
+        return self._family.params(self.cfg)
 
     def n_params(self) -> int:
         return pm.n_params(self.param_meta())
@@ -122,32 +165,40 @@ class Model(nn.Module):
     # --- forward ------------------------------------------------------------
     @torch.no_grad()
     def apply(self, batch: Dict[str, Any]):
-        return tf.lm_apply(self.params, _tokens(batch["tokens"], self.device),
-                           self.cfg)
+        return self._family.apply(self.params, *self._inputs(batch),
+                                  self.cfg)
 
     # --- serving ------------------------------------------------------------
     @torch.no_grad()
     def prefill(self, batch: Dict[str, Any], max_len: Optional[int] = None,
                 lengths=None):
-        return tf.lm_prefill(self.params,
-                             _tokens(batch["tokens"], self.device), self.cfg,
-                             max_len, lengths=lengths)
+        return self._family.prefill(self.params, *self._inputs(batch),
+                                    self.cfg, max_len, lengths=lengths)
 
     @torch.no_grad()
     def decode(self, tokens, cache, pos, n_valid=None, block_table=None,
-               scratch_table=None):
+               scratch_table=None, null_page=None):
         """Ragged decode: ``pos`` scalar or (B,) per-slot; tokens (B,S),
         S >= 1 for attention stacks and S = 1 for the recurrent families;
         ``n_valid`` (B,) marks real tokens per row. The cache (or, with
         ``block_table``, the page pool; ``scratch_table``: each slot's
-        scratch pages for a wrapping ring) is updated in place."""
-        return tf.lm_decode(self.params, _tokens(tokens, self.device), cache,
-                            pos, self.cfg, n_valid=n_valid,
-                            block_table=block_table,
-                            scratch_table=scratch_table)
+        scratch pages for a wrapping ring; ``null_page``: the pool's page
+        that unallocated table entries name) is updated in place. The vlm
+        and audio families take the contiguous cache only, as the
+        reference's do."""
+        toks = _tokens(tokens, self.device)
+        if self._family.frontend is not None:
+            if block_table is not None:
+                raise ValueError(f"the {self.cfg.family} family decodes on "
+                                 f"the contiguous cache only")
+            return self._family.decode(self.params, toks, cache, pos,
+                                       self.cfg, n_valid=n_valid)
+        return tf.lm_decode(self.params, toks, cache, pos, self.cfg,
+                            n_valid=n_valid, block_table=block_table,
+                            scratch_table=scratch_table, null_page=null_page)
 
     def cache(self, batch_size: int, max_len: int, device=None):
         """The zero decode cache, on the model's device unless ``device``
         is given (``"meta"`` gives its layout without allocating)."""
-        return tf.lm_cache(self.cfg, batch_size, max_len, cdt(self.cfg),
-                           device or self.device)
+        return self._family.cache(self.cfg, batch_size, max_len,
+                                  cdt(self.cfg), device or self.device)

@@ -105,25 +105,25 @@ def route_margin(logits, k: int):
     return srt[..., k - 1] - srt[..., k]
 
 
-def _dispatch_batched(p, x, cfg: ModelConfig, cap: int):
-    """x (n, T, D): n dispatch groups -> (out (n, T, D), aux, z)."""
+def _positions(idx, E: int):
+    """(flat_e, pos), each (n, T * k): the routes' experts flattened
+    token-major, then by rank, and each route's position among the
+    group's routes to its expert."""
+    flat_e = idx.reshape(idx.shape[0], -1)
+    onehot = F.one_hot(flat_e, E)  # (n, T*k, E)
+    pos_in_e = torch.cumsum(onehot, dim=1) - onehot
+    return flat_e, torch.gather(pos_in_e, 2, flat_e[..., None])[..., 0]
+
+
+def _experts(p, x, w, flat_e, pos, keep, cap: int, cfg: ModelConfig):
+    """The kept routes of x (n, T, D) through their experts' SwiGLU, route
+    (e, pos) in slot ``e * cap + pos`` of (E, cap) buffers, combined with
+    the router's weights w (n, T, k) -> (n, T, D)."""
     n, T, D = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     dt = x.dtype
-    logits = x @ p["router"]
-    w, idx, aux, z = router_topk(logits, k)  # (n, T, k)
-
-    flat_e = idx.reshape(n, T * k)
-    onehot = F.one_hot(flat_e, E)  # (n, T*k, E)
-    pos_in_e = torch.cumsum(onehot, dim=1) - onehot
-    pos = torch.gather(pos_in_e, 2, flat_e[..., None])[..., 0]
-    keep = pos < cap
     slot = torch.where(keep, flat_e * cap + pos,
                        torch.full_like(pos, E * cap))  # (n, T*k)
-    sink = _SINK.get()
-    if sink is not None:
-        sink.append({"idx": idx, "keep": keep, "logits": logits})
-
     # each kept route's token into its slot; the dropped ones (zeros) all
     # land in the overflow row, which is cut off
     xs = x.repeat_interleave(k, dim=1) * keep[..., None].to(dt)
@@ -140,16 +140,67 @@ def _dispatch_batched(p, x, cfg: ModelConfig, cap: int):
     gathered = torch.gather(flat, 1, safe[..., None].expand(n, T * k, D))
     gathered = gathered * (keep[..., None]
                            * w.reshape(n, T * k)[..., None]).to(dt)
-    return gathered.reshape(n, T, k, D).sum(2), aux, z
+    return gathered.reshape(n, T, k, D).sum(2)
 
 
-def moe_apply(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+def _record(idx, keep, logits):
+    sink = _SINK.get()
+    if sink is not None:
+        sink.append({"idx": idx, "keep": keep, "logits": logits})
+
+
+def _dispatch_batched(p, x, cfg: ModelConfig, cap: int):
+    """x (n, T, D): n dispatch groups -> (out (n, T, D), aux, z)."""
+    logits = x @ p["router"]
+    w, idx, aux, z = router_topk(logits, cfg.num_experts_per_tok)
+    flat_e, pos = _positions(idx, cfg.num_experts)
+    keep = pos < cap
+    _record(idx, keep, logits)
+    return _experts(p, x, w, flat_e, pos, keep, cap, cfg), aux, z
+
+
+def _dispatch_cols(p, x, cfg: ModelConfig, cap: int):
+    """x (B, S, D), the B * S tokens of a speculative verify in one
+    dispatch group (``L.by_column``) -> (out (B, S, D), aux, z). The capacity is the group's, as in
+    :func:`_dispatch_batched`: the routes compete for it token-major over
+    (slot, column). The rest runs a column at a time on the column's
+    (1, B, D) slab, as a decode tick of those B tokens runs it: the
+    router's product and top-k, and the experts' products over
+    (E, cap_col) buffers that hold the column's kept routes at their
+    positions among the column's routes. ``cap_col`` is the decode tick's
+    capacity wherever that holds every kept route: wherever it is at least
+    min(B, cap), as at the configs' capacities and at a dropless one. So a
+    row whose routes the group keeps as the decode tick keeps them takes
+    its decode row's arithmetic."""
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    xs = [t.reshape(1, B, D) for t in L.columns(x, True)]
+    logits = [t @ p["router"] for t in xs]
+    routed = [router_topk(lg, k) for lg in logits]
+    idx = torch.stack([r[1][0] for r in routed], 1).reshape(1, B * S, k)
+    keep = (_positions(idx, E)[1] < cap).reshape(B, S * k)
+    joined = torch.stack([lg[0] for lg in logits], 1).reshape(1, B * S, E)
+    _, _, aux, z = router_topk(joined, k)
+    _record(idx, keep.reshape(1, B * S * k), joined)
+    # a kept route's place among its column's routes to its expert is at
+    # most its place in the group, and under B (a token's experts differ)
+    cap_col = max(capacity(cfg, B), min(B, cap))
+    outs = [_experts(p, t, w, *_positions(ix, E),
+                     keep[:, j * k:(j + 1) * k].reshape(1, B * k),
+                     cap_col, cfg)[0]
+            for j, (t, (w, ix, _, _)) in enumerate(zip(xs, routed))]
+    return torch.stack(outs, 1), aux, z
+
+
+def moe_apply(p, x, cfg: ModelConfig, cols: bool = False
+              ) -> Tuple[torch.Tensor, Dict]:
     """x (B, S, D) -> (out, {moe_aux, moe_z}) with shared experts added.
     The B * S tokens are dispatched in groups of ``cfg.moe_group_size``
-    (one group when 0 or larger than B * S). A row's output depends on the
-    other rows of its group (they share the capacity), so a decode chunk's
-    rows do not take their decode rows' arithmetic here (``L.by_column``
-    has nothing to keep)."""
+    (one group when 0 or larger than B * S). A row's routes depend on the
+    other rows of its group (they share the capacity). ``cols`` (a decode
+    chunk of 2..16 rows, ``L.by_column``) in one group: the group's
+    routes, the rest a column at a time (:func:`_dispatch_cols`), and the
+    shared experts as the MLP (:func:`L.mlp_apply`)."""
     B, S, D = x.shape
     T = B * S
     gs = min(cfg.moe_group_size or T, T)
@@ -157,16 +208,20 @@ def moe_apply(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
         raise ValueError(f"{T} tokens do not split into dispatch groups of "
                          f"{gs}")
     cap = capacity(cfg, gs)
-    xf = x.reshape(T // gs, 1, gs, D)
-    outs, auxs, zs = [], [], []
-    for xg in xf:  # the reference's scan over dispatch groups
-        o, aux, z = _dispatch_batched(p, xg, cfg, cap)
-        outs.append(o)
-        auxs.append(aux)
-        zs.append(z)
-    out = torch.cat(outs, dim=0).reshape(B, S, D)
+    if cols and gs == T:
+        out, aux, z = _dispatch_cols(p, x, cfg, cap)
+        auxs, zs = [aux], [z]
+    else:
+        outs, auxs, zs = [], [], []
+        for xg in x.reshape(T // gs, 1, gs, D):  # the reference's scan
+            o, aux, z = _dispatch_batched(p, xg, cfg, cap)
+            outs.append(o)
+            auxs.append(aux)
+            zs.append(z)
+        out = torch.cat(outs, dim=0).reshape(B, S, D)
+    out = L.tap("experts", out)
     if cfg.num_shared_experts:
-        out = out + L.mlp_apply(p["shared"], x, cfg)
+        out = out + L.mlp_apply(p["shared"], x, cfg, cols)
     losses = {"moe_aux": torch.stack(auxs).mean(),
               "moe_z": torch.stack(zs).mean()}
     return out, losses

@@ -1,0 +1,315 @@
+"""The VLM (llama-3.2-vision backbone) and Whisper (encoder-decoder) models
+(the counterpart of the reference's ``models/multimodal.py``).
+
+The modality frontends are stubs, as in the reference: the caller hands in
+precomputed image-patch embeddings ``image_embeds`` (B, num_image_tokens,
+d_model) or audio frames ``audio_frames`` (B, encoder_frames, d_model) at
+model width; only the transformer backbone is real.
+
+- **VLM**: ``n_groups = num_layers // cross_attn_every`` groups, each
+  ``cross_attn_every`` stacked self-attention blocks followed by one gated
+  cross-attention block over the image embeddings. Parameters
+  ``blocks.groups`` (n_groups, k, ...) and ``blocks.cross`` (n_groups, ...);
+  the cache ``self`` (n_groups, k, B, T, ...) and the frozen cross K/V
+  ``cross`` (n_groups, B, num_image_tokens, Hkv, D).
+- **Whisper**: ``encoder_layers`` bidirectional blocks over the frames with
+  sinusoidal positions, then ``num_layers`` decoder blocks (causal self,
+  gated cross over the encoder's output, MLP). The cache ``self``
+  (L, B, T, ...) and ``cross`` (L, B, encoder_frames, Hkv, D).
+
+The reference's ``lax.scan`` over stacked layers is a Python loop here. The
+attention is ``models/attention``'s: causal self-attention, the encoder's
+non-causal attention and every cross step (prefill and decode) run on the
+flash-attention kernel where the head dim fits it (vlm 128, whisper 64);
+the decode's self-attention is ``gqa_decode`` on the contiguous cache. The
+serving engine does not take these families (it feeds its model tokens
+only); ``serve/step``'s prefill and decode steps over a batch dict serve
+them, as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+from repro_torch.models.params import stack_tree
+from repro_torch.models.transformer import (_stack, attn_block_apply,
+                                            attn_block_decode,
+                                            attn_block_params, depth, layer,
+                                            zero_aux)
+
+
+def _seeded(cfg, kv, batch, max_len, dtype, lengths):
+    """One self-attention block's decode cache seeded from its prefill K/V."""
+    cache = attn.gqa_cache_init(cfg, batch, max_len, dtype, kv[0].device)
+    return attn.gqa_seed_cache(cache, kv, kv[0].shape[1], lengths=lengths)
+
+
+def _cross_kv(ks, vs):
+    return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def _cross_step(p, h, kv, cfg: ModelConfig, qk_norm: bool):
+    """The gated cross-attention of a decode step over the frozen cross K/V
+    (``kv``: {"k", "v"} (B, T, Hkv, D)), without the residual."""
+    q = attn._proj(h, p["wq"])
+    if qk_norm and cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
+    o = attn._out(attn.cross_attend(q, kv["k"], kv["v"]), p["wo"])
+    return o * torch.tanh(p["gate"])
+
+
+# =============================================================================
+# VLM: self-attention groups + gated cross-attention blocks
+# =============================================================================
+
+def cross_block_params(cfg: ModelConfig):
+    return {
+        "ln1": L.norm_params(cfg),
+        "attn": attn.gqa_params(cfg, cross=True),
+        "ln2": L.norm_params(cfg),
+        "mlp": L.mlp_params(cfg),
+    }
+
+
+def cross_block_apply(p, x, img, cfg: ModelConfig):
+    """-> (x, (k, v)): the cross K/V over ``img`` for the decode cache."""
+    h = L.norm_apply(p["ln1"], x, cfg)
+    a, kv = attn.gqa_apply(p["attn"], h, cfg, kv_x=img, cross=True)
+    x = x + a
+    h = L.norm_apply(p["ln2"], x, cfg)
+    return x + L.mlp_apply(p["mlp"], h, cfg), kv
+
+
+def cross_block_decode(p, x, kv_cache, cfg: ModelConfig):
+    """Decode with the frozen (prefill-computed) cross K/V."""
+    h = L.norm_apply(p["ln1"], x, cfg)
+    x = x + _cross_step(p["attn"], h, kv_cache, cfg, qk_norm=True)
+    h = L.norm_apply(p["ln2"], x, cfg)
+    return x + L.mlp_apply(p["mlp"], h, cfg)
+
+
+def vlm_params(cfg: ModelConfig):
+    k = cfg.cross_attn_every
+    n_groups = cfg.num_layers // k
+    return {
+        "embed": L.embed_params(cfg),
+        "final_ln": L.norm_params(cfg),
+        "blocks": {
+            "groups": stack_tree(stack_tree(attn_block_params(cfg), k),
+                                 n_groups),
+            "cross": stack_tree(cross_block_params(cfg), n_groups),
+        },
+    }
+
+
+def _vlm_forward(params, tokens, image_embeds, cfg, max_len=None,
+                 lengths=None):
+    """The forward; with ``max_len`` also the seeded decode cache."""
+    x = L.embed_apply(params["embed"], tokens, cfg)
+    img = image_embeds.to(x.dtype)
+    B, S = tokens.shape
+    bp = params["blocks"]
+    selfs, cks, cvs = [], [], []
+    for g in range(depth(bp["cross"])):
+        group = []
+        sp = layer(bp["groups"], g)
+        for i in range(depth(sp)):
+            x, _, kv = attn_block_apply(layer(sp, i), x, cfg,
+                                        collect_kv=True)
+            if max_len:
+                group.append(_seeded(cfg, kv, B, max_len, L.cdt(cfg),
+                                     lengths))
+        x, (ck, cv) = cross_block_apply(layer(bp["cross"], g), x, img, cfg)
+        if max_len:
+            selfs.append(_stack(group))
+            cks.append(ck)
+            cvs.append(cv)
+    x = L.norm_apply(params["final_ln"], x, cfg)
+    logits = L.unembed_apply(params["embed"], x, cfg)
+    if not max_len:
+        return logits, None
+    return logits, {"self": _stack(selfs), "cross": _cross_kv(cks, cvs)}
+
+
+def vlm_apply(params, tokens, image_embeds, cfg: ModelConfig):
+    return _vlm_forward(params, tokens, image_embeds, cfg)[0], \
+        zero_aux(tokens.device)
+
+
+def vlm_prefill(params, tokens, image_embeds, cfg: ModelConfig,
+                max_len: Optional[int] = None, lengths=None):
+    return _vlm_forward(params, tokens, image_embeds, cfg,
+                        max_len or tokens.shape[1], lengths)
+
+
+def vlm_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+              device=None):
+    k = cfg.cross_attn_every
+    n_groups = cfg.num_layers // k
+    kv = attn.gqa_cache_init(cfg, batch, max_len, dtype, device)
+    shape = (n_groups, batch, cfg.num_image_tokens, cfg.num_kv_heads,
+             cfg.head_dim)
+    return {
+        "self": _stack([_stack([kv] * k)] * n_groups),
+        "cross": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                  "v": torch.zeros(shape, dtype=dtype, device=device)},
+    }
+
+
+def vlm_decode(params, tokens, cache, pos, cfg: ModelConfig, n_valid=None):
+    """tokens (B, S) -> logits; the self caches are updated in place."""
+    x = L.embed_apply(params["embed"], tokens, cfg)
+    bp = params["blocks"]
+    for g in range(depth(bp["cross"])):
+        sp, sc = layer(bp["groups"], g), layer(cache["self"], g)
+        for i in range(depth(sp)):
+            x, _ = attn_block_decode(layer(sp, i), x, layer(sc, i), pos, cfg,
+                                     n_valid=n_valid)
+        x = cross_block_decode(layer(bp["cross"], g), x,
+                               layer(cache["cross"], g), cfg)
+    x = L.norm_apply(params["final_ln"], x, cfg)
+    return L.unembed_apply(params["embed"], x, cfg), cache
+
+
+# =============================================================================
+# Whisper: encoder-decoder
+# =============================================================================
+
+def _sin(pos, d: int, dtype):
+    """Sinusoidal embedding of float32 positions ``pos`` (...,) ->
+    (..., d): sin then cos of ``pos / 10000^(2i/d)``."""
+    i = torch.arange(d // 2, dtype=torch.float32, device=pos.device)
+    ang = pos[..., None] / torch.pow(
+        torch.tensor(10000.0, device=pos.device), 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
+
+
+def sinusoidal(S: int, d: int, dtype, device=None):
+    return _sin(torch.arange(S, dtype=torch.float32, device=device), d,
+                dtype)
+
+
+def _sin_at(positions, cfg: ModelConfig, dtype):
+    """Sinusoidal embedding at absolute ``positions`` (B, S) -> (B, S, d)."""
+    return _sin(positions.float(), cfg.d_model, dtype)
+
+
+def dec_block_params(cfg: ModelConfig):
+    return {
+        "ln1": L.norm_params(cfg),
+        "self_attn": attn.gqa_params(cfg),
+        "ln_x": L.norm_params(cfg),
+        "cross_attn": attn.gqa_params(cfg, cross=True),
+        "ln2": L.norm_params(cfg),
+        "mlp": L.mlp_params(cfg),
+    }
+
+
+def whisper_params(cfg: ModelConfig):
+    enc_block = {"ln1": L.norm_params(cfg), "attn": attn.gqa_params(cfg),
+                 "ln2": L.norm_params(cfg), "mlp": L.mlp_params(cfg)}
+    return {
+        "embed": L.embed_params(cfg),
+        "enc": stack_tree(enc_block, cfg.encoder_layers),
+        "enc_ln": L.norm_params(cfg),
+        "dec": stack_tree(dec_block_params(cfg), cfg.num_layers),
+        "final_ln": L.norm_params(cfg),
+    }
+
+
+def whisper_encode(params, frames, cfg: ModelConfig):
+    """frames (B, F, d_model), precomputed (the conv frontend's stub)."""
+    x = frames.to(L.cdt(cfg))
+    x = x + sinusoidal(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+    for i in range(depth(params["enc"])):
+        lp = layer(params["enc"], i)
+        h = L.norm_apply(lp["ln1"], x, cfg)
+        a, _ = attn.gqa_apply(lp["attn"], h, cfg, causal=False)
+        x = x + a
+        h = L.norm_apply(lp["ln2"], x, cfg)
+        x = x + L.mlp_apply(lp["mlp"], h, cfg)
+    return L.norm_apply(params["enc_ln"], x, cfg)
+
+
+def _dec_block(lp, x, enc_out, cfg: ModelConfig):
+    """-> (x, self K/V, cross K/V)."""
+    h = L.norm_apply(lp["ln1"], x, cfg)
+    a, kv = attn.gqa_apply(lp["self_attn"], h, cfg)
+    x = x + a
+    h = L.norm_apply(lp["ln_x"], x, cfg)
+    a, ckv = attn.gqa_apply(lp["cross_attn"], h, cfg, kv_x=enc_out,
+                            cross=True)
+    x = x + a
+    h = L.norm_apply(lp["ln2"], x, cfg)
+    return x + L.mlp_apply(lp["mlp"], h, cfg), kv, ckv
+
+
+def _whisper_forward(params, tokens, frames, cfg, max_len=None,
+                     lengths=None):
+    enc_out = whisper_encode(params, frames, cfg)
+    x = L.embed_apply(params["embed"], tokens, cfg)
+    B, S = tokens.shape
+    x = x + sinusoidal(S, cfg.d_model, x.dtype, x.device)[None]
+    selfs, cks, cvs = [], [], []
+    for i in range(depth(params["dec"])):
+        x, kv, (ck, cv) = _dec_block(layer(params["dec"], i), x, enc_out,
+                                     cfg)
+        if max_len:
+            selfs.append(_seeded(cfg, kv, B, max_len, L.cdt(cfg), lengths))
+            cks.append(ck)
+            cvs.append(cv)
+    x = L.norm_apply(params["final_ln"], x, cfg)
+    logits = L.unembed_apply(params["embed"], x, cfg)
+    if not max_len:
+        return logits, None
+    return logits, {"self": _stack(selfs), "cross": _cross_kv(cks, cvs)}
+
+
+def whisper_apply(params, tokens, frames, cfg: ModelConfig):
+    return _whisper_forward(params, tokens, frames, cfg)[0], \
+        zero_aux(tokens.device)
+
+
+def whisper_prefill(params, tokens, frames, cfg: ModelConfig,
+                    max_len: Optional[int] = None, lengths=None):
+    return _whisper_forward(params, tokens, frames, cfg,
+                            max_len or tokens.shape[1], lengths)
+
+
+def whisper_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                  device=None):
+    nl = cfg.num_layers
+    kv = attn.gqa_cache_init(cfg, batch, max_len, dtype, device)
+    shape = (nl, batch, cfg.encoder_frames, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "self": _stack([kv] * nl),
+        "cross": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                  "v": torch.zeros(shape, dtype=dtype, device=device)},
+    }
+
+
+def whisper_decode(params, tokens, cache, pos, cfg: ModelConfig,
+                   n_valid=None):
+    """tokens (B, S) -> logits; the self caches are updated in place. The
+    cross step takes no qk-norm, as the reference's takes none."""
+    B, S = tokens.shape
+    x = L.embed_apply(params["embed"], tokens, cfg)
+    x = x + _sin_at(attn.decode_positions(pos, B, S, x.device), cfg, x.dtype)
+    for i in range(depth(params["dec"])):
+        lp = layer(params["dec"], i)
+        h = L.norm_apply(lp["ln1"], x, cfg)
+        a, _ = attn.gqa_decode(lp["self_attn"], h,
+                               layer(cache["self"], i), pos, cfg,
+                               n_valid=n_valid)
+        x = x + a
+        h = L.norm_apply(lp["ln_x"], x, cfg)
+        x = x + _cross_step(lp["cross_attn"], h, layer(cache["cross"], i),
+                            cfg, qk_norm=False)
+        h = L.norm_apply(lp["ln2"], x, cfg)
+        x = x + L.mlp_apply(lp["mlp"], h, cfg)
+    x = L.norm_apply(params["final_ln"], x, cfg)
+    return L.unembed_apply(params["embed"], x, cfg), cache

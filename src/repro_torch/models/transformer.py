@@ -11,10 +11,12 @@ attention block, then a ``tail`` of the ``num_layers % k`` leftover mamba
 layers (``{}`` when there are none). The moe stack (mixtral) is the
 reference's too: ``first_k_dense`` leading dense blocks under ``dense{i}``,
 then the stacked MoE blocks, whose ``moe_aux`` and ``moe_z`` sum over the
-stack as the reference's scan sums them. ``params`` are the parameters in
-the compute dtype, as ``Model`` hands them over (norm scales stay in
-float32). MLA and the multimodal families wait for their slices of the
-port.
+stack as the reference's scan sums them. With ``attn_type == "mla"``
+(deepseek-v2) every attention block is MLA (``attention.mla_*``) and its
+cache the compressed rows. ``params`` are the parameters in the compute
+dtype, as ``Model`` hands them over (norm scales stay in float32). The
+multimodal families (vlm, audio) are assembled in ``models/multimodal.py``
+from the blocks here.
 """
 from __future__ import annotations
 
@@ -29,15 +31,19 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.params import stack_tree, tree_leaves
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise for a family or attention the port does not run yet."""
-    if cfg.attn_type == "mla":
-        attn._not_ported("MLA attention", "deepseek-v2")
+    """Raise for a family that neither the port nor the reference knows
+    (the reference's ``lm_cache`` raises ``ValueError(family)``)."""
     if cfg.family not in FAMILIES:
-        attn._not_ported(f"the {cfg.family} family", "multimodal")
+        raise ValueError(f"unknown model family {cfg.family!r}; the port "
+                         f"runs {FAMILIES}")
+
+
+def _mla(cfg: ModelConfig) -> bool:
+    return cfg.attn_type == "mla"
 
 
 def zero_aux(device=None):
@@ -73,7 +79,7 @@ def attn_block_params(cfg: ModelConfig, use_moe: bool = False, d_ff=None):
     p = {
         "ln1": L.norm_params(cfg),
         "ln2": L.norm_params(cfg),
-        "attn": attn.gqa_params(cfg),
+        "attn": attn.mla_params(cfg) if _mla(cfg) else attn.gqa_params(cfg),
     }
     if use_moe:
         p["moe"] = moe_lib.moe_params(cfg)
@@ -85,14 +91,17 @@ def attn_block_params(cfg: ModelConfig, use_moe: bool = False, d_ff=None):
 def _ffn(p, h, cfg, cols=False):
     """The block's MLP or MoE layer: (out, {moe_aux, moe_z})."""
     if "moe" in p:
-        return moe_lib.moe_apply(p["moe"], h, cfg)
+        return moe_lib.moe_apply(p["moe"], h, cfg, cols)
     return L.mlp_apply(p["mlp"], h, cfg, cols), zero_aux(h.device)
 
 
 def attn_block_apply(p, x, cfg, positions=None, collect_kv=False):
     """-> (x, aux), or (x, aux, (k, v)) with ``collect_kv``."""
     h = L.norm_apply(p["ln1"], x, cfg)
-    a, kv = attn.gqa_apply(p["attn"], h, cfg, positions)
+    if _mla(cfg):
+        a, kv = attn.mla_apply(p["attn"], h, cfg, positions)
+    else:
+        a, kv = attn.gqa_apply(p["attn"], h, cfg, positions)
     x = x + a
     m, aux = _ffn(p, L.norm_apply(p["ln2"], x, cfg), cfg)
     x = x + m
@@ -100,13 +109,18 @@ def attn_block_apply(p, x, cfg, positions=None, collect_kv=False):
 
 
 def attn_block_decode(p, x, cache, pos, cfg, n_valid=None, block_table=None,
-                      scratch_table=None, cols=False):
+                      scratch_table=None, null_page=None, cols=False):
     """``cols``: the ops whose rounding depends on the row count a column
     at a time (``L.by_column``)."""
     h = L.tap("ln1", L.norm_apply(p["ln1"], x, cfg, cols))
-    a, cache = attn.gqa_decode(p["attn"], h, cache, pos, cfg,
-                               n_valid=n_valid, block_table=block_table,
-                               scratch_table=scratch_table, cols=cols)
+    if _mla(cfg):
+        a, cache = attn.mla_decode(p["attn"], h, cache, pos, cfg,
+                                   n_valid=n_valid, block_table=block_table,
+                                   null_page=null_page, cols=cols)
+    else:
+        a, cache = attn.gqa_decode(p["attn"], h, cache, pos, cfg,
+                                   n_valid=n_valid, block_table=block_table,
+                                   scratch_table=scratch_table, cols=cols)
     x = x + a
     h = L.tap("ln2", L.norm_apply(p["ln2"], x, cfg, cols))
     return x + _ffn(p, h, cfg, cols)[0], cache
@@ -158,6 +172,21 @@ def _blocks(tree, cfg: ModelConfig):
     order: the ``dense{i}`` blocks, then the stacked layers."""
     return ([tree[f"dense{i}"] for i in range(_n_dense(cfg))]
             + [layer(tree["stack"], i) for i in range(depth(tree["stack"]))])
+
+
+def attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+               device=None):
+    """One attention block's zero decode cache: MLA's compressed rows, or
+    GQA's K/V (a ring for a sliding window)."""
+    init = attn.mla_cache_init if _mla(cfg) else attn.gqa_cache_init
+    return init(cfg, batch, max_len, dtype, device)
+
+
+def seed_attn_cache(cfg: ModelConfig, cache, kv, lengths=None):
+    """Write one attention block's prefill K/V (MLA: c_kv, k_rope) into its
+    zero decode cache, in place."""
+    seed = attn.mla_seed_cache if _mla(cfg) else attn.gqa_seed_cache
+    return seed(cache, kv, kv[0].shape[1], lengths=lengths)
 
 
 def lm_params(cfg: ModelConfig):
@@ -224,24 +253,25 @@ def lm_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     layer axes: dense and moe ``{"stack": {"k", "v": (L, B, T, Hkv, D),
     "pos_ids": (L, B, T)}}`` (T the ring ``min(max_len, window)`` for a
     sliding window), with the moe stack's ``dense{i}`` blocks beside it,
-    ``(B, T, ...)`` each; ssm ``{"stack": {"ssm": (L, B, H, P, N), "conv":
-    (L, B, d_inner, K - 1)}}``; hybrid ``{"groups": (n_groups, k, B, ...) states,
-    "shared_attn": (n_groups, B, T, ...) K/V, "tail": (r, B, ...) states or
-    {}}``."""
+    ``(B, T, ...)`` each (MLA: ``c_kv`` (L, B, T, r), ``k_rope``
+    (L, B, T, rope) and ``pos_ids``); ssm ``{"stack": {"ssm": (L, B, H,
+    P, N), "conv": (L, B, d_inner, K - 1)}}``; hybrid ``{"groups":
+    (n_groups, k, B, ...) states, "shared_attn": (n_groups, B, T, ...)
+    K/V, "tail": (r, B, ...) states or {}}``."""
     check_supported(cfg)
     if cfg.family in ("dense", "moe"):
         n_dense = _n_dense(cfg)
-        kv = attn.gqa_cache_init(cfg, batch, max_len, dtype, device)
+        kv = attn_cache(cfg, batch, max_len, dtype, device)
         return {"stack": _stack([kv] * (cfg.num_layers - n_dense)),
-                **{f"dense{i}": attn.gqa_cache_init(cfg, batch, max_len,
-                                                    dtype, device)
+                **{f"dense{i}": attn_cache(cfg, batch, max_len, dtype,
+                                           device)
                    for i in range(n_dense)}}
     state = ssm_lib.ssm_state_init(cfg, batch, dtype, device)
     if cfg.family == "ssm":
         return {"stack": _stack([state] * cfg.num_layers)}
     k = cfg.hybrid_attn_every
     n_groups, rem = divmod(cfg.num_layers, k)
-    kv = attn.gqa_cache_init(cfg, batch, max_len, dtype, device)
+    kv = attn_cache(cfg, batch, max_len, dtype, device)
     return {
         "groups": _stack([_stack([state] * k)] * n_groups),
         "shared_attn": _stack([kv] * n_groups),
@@ -271,8 +301,8 @@ def lm_prefill(params, tokens, cfg: ModelConfig,
         cache: Dict[str, Any] = {"stack": _stack(states)}
     elif cfg.family == "hybrid":
         n_groups = depth(bp["groups"])
-        shared = _stack([attn.gqa_cache_init(cfg, B, max_len, dtype,
-                                             x.device)] * n_groups)
+        shared = _stack([attn_cache(cfg, B, max_len, dtype, x.device)]
+                        * n_groups)
         g_states, tail = [], []
         for g in range(n_groups):
             states = []
@@ -280,7 +310,7 @@ def lm_prefill(params, tokens, cfg: ModelConfig,
             g_states.append(_stack(states))
             x, _, kv = attn_block_apply(bp["shared_attn"], x, cfg,
                                         collect_kv=True)
-            attn.gqa_seed_cache(layer(shared, g), kv, S, lengths=lengths)
+            seed_attn_cache(cfg, layer(shared, g), kv, lengths=lengths)
         x = _ssm_stack_apply(bp["tail"], x, cfg, tail)
         cache = {"groups": _stack(g_states), "shared_attn": shared,
                  "tail": _stack(tail) if tail else {}}
@@ -288,13 +318,13 @@ def lm_prefill(params, tokens, cfg: ModelConfig,
         cache = lm_cache(cfg, B, max_len, dtype, x.device)
         for lp, lc in zip(_blocks(bp, cfg), _blocks(cache, cfg)):
             x, _, kv = attn_block_apply(lp, x, cfg, collect_kv=True)
-            attn.gqa_seed_cache(lc, kv, S, lengths=lengths)
+            seed_attn_cache(cfg, lc, kv, lengths=lengths)
     x = L.norm_apply(params["final_ln"], x, cfg)
     return L.unembed_apply(params["embed"], x, cfg), cache
 
 
 def lm_decode(params, tokens, cache, pos, cfg: ModelConfig, n_valid=None,
-              block_table=None, scratch_table=None):
+              block_table=None, scratch_table=None, null_page=None):
     """tokens (B,S) -> logits (B,S,V); the cache is updated in place (and
     returned). ``pos`` is a scalar or a (B,) vector of per-slot positions.
     Attention stacks take S > 1 (a chunked-prefill extend) with ``n_valid``
@@ -302,8 +332,9 @@ def lm_decode(params, tokens, cache, pos, cfg: ModelConfig, n_valid=None,
     int32 the serving tier's page pool (``lm_cache(cfg, pages, page_size,
     ...)``) as the cache; ``scratch_table`` (B, n_scratch) int32 names
     each slot's scratch pages of the pool, which a chunk on a wrapping
-    sliding-window ring passes through (``attention.gqa_decode``). A
-    recurrent state advances one token per step, so
+    sliding-window ring passes through (``attention.gqa_decode``), and
+    ``null_page`` the page that its unallocated entries name, which MLA's
+    decode leaves unwritten (``attention.mla_decode``). A recurrent state advances one token per step, so
     the ssm and hybrid families take S = 1 and the contiguous cache only;
     ``pos`` and ``n_valid`` reach the hybrid's shared attention. A chunk of
     2..16 tokens (a speculative verify, ``L.by_column``) runs the ops whose
@@ -333,6 +364,7 @@ def lm_decode(params, tokens, cache, pos, cfg: ModelConfig, n_valid=None,
         for lp, lc in zip(_blocks(bp, cfg), _blocks(cache, cfg)):
             x, _ = attn_block_decode(lp, x, lc, pos, cfg, n_valid=n_valid,
                                      block_table=block_table,
-                                     scratch_table=scratch_table, cols=cols)
+                                     scratch_table=scratch_table,
+                                     null_page=null_page, cols=cols)
     x = L.tap("final_ln", L.norm_apply(params["final_ln"], x, cfg, cols))
     return L.tap("logits", L.unembed_apply(params["embed"], x, cfg)), cache

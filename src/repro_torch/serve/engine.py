@@ -50,7 +50,14 @@ column at a time (``models.layers.by_column``), so the accepted prefix is
 bit for bit what greedy decoding of the same traffic produces. With k > 15
 that guarantee lapses: the chunk takes every op whole. A bf16 stream can
 also depend on what else shares its tick: a decode row that rides a
-prefill chunk wider than 16 goes through that chunk's products.
+prefill chunk wider than 16 goes through that chunk's products. In an MoE
+layer the verify chunk's routes share one dispatch group's capacity, as in
+the reference, so where the capacity drops a route otherwise than a
+decode tick would, the streams part (ROADMAP queue 3).
+
+The vlm and audio families are refused (``ValueError``): the engine feeds
+its model tokens only, as the reference's does, and they are served through
+``serve/step``'s prefill and decode steps over a batch dict.
 
 Paged mode and speculation take the ragged path only, as in the reference,
 and speculation refuses a window shorter than ``max_len`` (a wrapped ring
@@ -105,6 +112,13 @@ class Engine:
             raise NotImplementedError(
                 "the expandable cache managers are not ported yet: they wait "
                 "for a later slice of the port")
+        if model.cfg.family in ("vlm", "audio"):
+            raise ValueError(
+                f"the engine feeds its model tokens only, so it cannot serve "
+                f"the {model.cfg.family} family (its model also takes the "
+                f"frontend's embeddings); serve it with serve/step's "
+                f"make_prefill_step and make_decode_step over a batch dict, "
+                f"as the reference does")
         self.model = model
         self.B = batch_slots
         self.max_len = max_len
@@ -180,7 +194,8 @@ class Engine:
             logits, _ = self.model.decode(toks, self.mgr.pool, pos,
                                           n_valid=nv,
                                           block_table=self._bt_device(),
-                                          scratch_table=self._scratch_dev)
+                                          scratch_table=self._scratch_dev,
+                                          null_page=self.mgr.null_page)
         else:
             logits, _ = self.model.decode(toks, self.mgr.cache, pos,
                                           n_valid=nv)

@@ -12,19 +12,18 @@ repaired and counted.
 - :mod:`~repro_torch.tolerance.abft` — the ABFT row/column-checksummed int8
   matmul (the CUDA kernel in ``kernels/abft_matmul`` beside its plain
   version): detects SDCs, corrects single flips and keeps
-  detect/correct/escape counters.
-
-``routed_matmuls`` (the model layers' matmul hook) comes with a later
-slice.
+  detect/correct/escape counters; ``routed_matmuls`` installs it on the
+  model layers' matmul hook, so a full model runs its MLP products through
+  the kernel.
 """
 from repro_torch.tolerance.abft import (AbftCounters, AbftMatmul,
                                         checksum_refs, detect_and_correct,
-                                        topk_agreement)
+                                        routed_matmuls, topk_agreement)
 from repro_torch.tolerance.faults import (FaultInjector, SdcCounts,
                                           SdcTelemetry, TimingFaultModel)
 
 __all__ = [
     "TimingFaultModel", "FaultInjector", "SdcCounts", "SdcTelemetry",
     "AbftCounters", "AbftMatmul", "checksum_refs", "detect_and_correct",
-    "topk_agreement",
+    "routed_matmuls", "topk_agreement",
 ]

@@ -1,9 +1,8 @@
 """ABFT detect/correct over the checksummed over-scaled matmul (§V).
 
-The port of ``repro.tolerance.abft`` (without ``routed_matmuls``, which
-needs the model layers). The kernel (``kernels/abft_matmul``) produces the
-corrupted product C' and its row/column sums; this module compares them
-with the protected references (``row_ref = A @ colsum(B)``,
+The port of ``repro.tolerance.abft``. The kernel (``kernels/abft_matmul``)
+produces the corrupted product C' and its row/column sums; this module
+compares them with the protected references (``row_ref = A @ colsum(B)``,
 ``col_ref = rowsum(A) @ B``) and repairs what the syndromes localize:
 
 - an XOR flip of bit b in element (i, j) shifts ``rowsum[i]`` and
@@ -20,10 +19,16 @@ in different rows and columns, and the "repair" then breaks a healthy cell.
 :class:`AbftMatmul` is the app-facing drop-in (mirrors
 ``kernels.overscale_matmul.make_int8_error_matmul``): quantise -> inject ->
 detect/correct -> requantise, accumulating detect/correct/escape counters.
-Everything runs on the device of its operands.
+:func:`routed_matmuls` installs it on the model layers' matmul hook
+(``models.layers.MATMUL``), so that a full model (e.g.
+``configs/llama3_2_1b``) runs its MLP products (``wg``, ``wu``, ``wd``)
+through the checksummed kernel: the accuracy-vs-rail study of
+``examples/overscaling_study.py``. Everything runs on the device of its
+operands.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -128,6 +133,21 @@ class AbftMatmul:
         self.counters.escaped += int(torch.count_nonzero(fixed != clean))
         lim = quantile_linear(clean.to(torch.float32).abs(), CLIP_QUANTILE)
         return torch.clamp(fixed.to(torch.float32), -lim, lim) * sa * sb
+
+
+@contextmanager
+def routed_matmuls(mm):
+    """Route the model layers' dense MLP products (``models.layers.matmul``)
+    through ``mm`` (a ``(x_2d_f32, w_2d_f32) -> y_2d_f32`` callable, e.g.
+    an :class:`AbftMatmul`) for the duration of the block; the previous
+    hook is restored on exit, an exception included."""
+    from repro_torch.models import layers
+    prev = layers.MATMUL
+    layers.MATMUL = mm
+    try:
+        yield mm
+    finally:
+        layers.MATMUL = prev
 
 
 def topk_agreement(logits, ref_logits, k: int = 1) -> float:

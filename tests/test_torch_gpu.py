@@ -586,6 +586,84 @@ def test_flash_attention_equals_plain(cuda, dtype, causal, B, S, H, Hkv, D):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,T,H,Hkv,D", [(1, 1601, 32, 8, 128),
+                                         (64, 1601, 32, 8, 128),
+                                         (256, 1601, 32, 8, 128),
+                                         (1, 1500, 12, 12, 64),
+                                         (256, 1500, 12, 12, 64),
+                                         (37, 300, 4, 2, 16)])
+def test_flash_attention_cross_shapes_equal_plain(cuda, dtype, S, T, H, Hkv,
+                                                  D):
+    """The multimodal paths' non-causal calls, S != T (the vlm's cross
+    steps over 1601 image tokens, whisper's over 1500 frames, an odd edge):
+    bit for bit with the plain version."""
+    from repro_torch.kernels import flash_attention as FA
+    g = torch.Generator(device=cuda)
+    g.manual_seed(S + T)
+    q = torch.randn((2, S, H, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((2, T, Hkv, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((2, T, Hkv, D), generator=g, device=cuda).to(dtype)
+    got = FA.flash_attention(q, k, v, causal=False)
+    want = FA.flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_mla_paged_engine_equals_contiguous_on_the_card(cuda):
+    """The reduced deepseek-v2 in float32 on the card: the paged engine
+    (MLA's compressed rows in pages) serves the contiguous engine's greedy
+    tokens, a preemption and its resume included."""
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+    from repro_torch.serve import Engine, Request
+    cfg = registry.get("deepseek-v2-236b").reduced().replace(dtype="float32")
+    model = Model(cfg, device=cuda).init(0)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (5, 30, 9)]
+    outs = {}
+    for paged in (False, True):
+        eng = Engine(model, batch_slots=2, max_len=64, eos_id=-1,
+                     paged=paged)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid, p, max_new=10))
+        ticks = 0
+        while eng.step():
+            ticks += 1
+            if ticks == 4:
+                assert eng.preempt_to(1) == 1
+        outs[paged] = {r.rid: tuple(r.out) for r in eng.finished}
+    assert outs[True] == outs[False]
+
+
+def test_routed_forward_through_the_abft_kernel_equals_plain(cuda):
+    """A reduced llama forward with its MLP products routed through
+    ``AbftMatmul`` at a rail below the guard band: through the kernel, the
+    ledger and the logits bit for bit those of ``use_kernel=False``."""
+    from repro_torch.configs import registry
+    from repro_torch.core import tpu_fleet as TF
+    from repro_torch.kernels import abft_matmul as AB
+    from repro_torch.models.model import Model
+    from repro_torch.tolerance import (AbftMatmul, TimingFaultModel,
+                                       routed_matmuls)
+    cfg = registry.get("llama3.2-1b").reduced()
+    model = Model(cfg, device=cuda).init(0)
+    toks = torch.arange(48, device=cuda).reshape(2, 24) % cfg.vocab_size
+    probs = TimingFaultModel().bit_probs(0.700, TF.V_SRAM_NOM, 65.0)
+    runs = []
+    for use_kernel in (True, False):
+        mm = AbftMatmul(probs, 9, use_kernel=use_kernel, device=cuda)
+        before = AB.abft_matmul.launches
+        with routed_matmuls(mm):
+            logits = model.apply({"tokens": toks})[0]
+        torch.cuda.synchronize()
+        assert AB.abft_matmul.launches - before == (
+            3 * cfg.num_layers if use_kernel else 0)
+        runs.append((mm.counters, logits))
+    assert runs[0][0] == runs[1][0] and runs[0][0].injected > 0
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
 def test_model_and_engine_on_the_card(cuda):
     """The reduced llama in float32 on the card: the model through the
     kernels equals the model through the plain versions bit for bit, and

@@ -15,7 +15,10 @@ and 16, where none are; with several dispatch groups
 (``tests/test_models.py``: decode equals the forward, the router's
 weights sum to 1 and its balance loss is at least 1, a no-drop layer is
 permutation invariant) hold for the port too, and a paged engine over the
-stack with its dense block serves the contiguous engine's tokens.
+stack with its dense block serves the contiguous engine's tokens. A
+speculative verify's chunk run a column at a time keeps the whole chunk's
+routes, and its rows equal their decode ticks' rows where the routes are
+kept alike.
 """
 import jax
 import jax.numpy as jnp
@@ -169,6 +172,48 @@ def test_moe_apply_equals_reference(cf, group, shared):
     for key in ("moe_aux", "moe_z"):
         np.testing.assert_allclose(float(tl[key]), float(losses[key]),
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cf", [1.25, 16.0])
+def test_verify_chunk_by_column(cf, dtype):
+    """A speculative verify's chunk (``cols``, 4 slots x 4 rows): the
+    group's routes and the capacity's kept routes are the whole chunk's
+    (the reference's), and in float32 the output is within 1e-5 of it.
+    Each row whose routes the group keeps as a decode tick of its column
+    keeps them equals that tick's row bit for bit, in both dtypes: at
+    capacity factor 1.25, where the group drops routes (asserted), and at
+    16, where every row is such a row."""
+    _, cfg = _cfgs(moe_capacity_factor=cf, num_shared_experts=1)
+    cfg = cfg.replace(dtype=dtype)
+    dt = getattr(torch, dtype)
+    tp = pm.tree_map(lambda t: t.to(dt), pm.materialize(
+        moe.moe_params(cfg), torch.Generator().manual_seed(5), "float32"))
+    B, S, k = 4, 4, cfg.num_experts_per_tok
+    x = torch.from_numpy(_x((B, S, cfg.d_model), seed=6)
+                         + 2 * _x((1, 1, cfg.d_model), 9)).to(dt)
+    with moe.capture_routes() as whole_r:
+        whole, _ = moe.moe_apply(tp, x, cfg)
+    with moe.capture_routes() as col_r:
+        by_col, _ = moe.moe_apply(tp, x, cfg, cols=True)
+    (w,), (c,) = whole_r, col_r
+    if dtype == "float32":
+        assert torch.equal(w["idx"], c["idx"])
+        assert torch.equal(w["keep"], c["keep"])
+        np.testing.assert_allclose(by_col.numpy(), whole.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    keep = c["keep"].reshape(B, S, k)
+    assert bool((~keep).any()) == (cf < 2)
+    same = 0
+    for j in range(S):
+        with moe.capture_routes() as tick_r:
+            tick, _ = moe.moe_apply(tp, x[:, j:j + 1].contiguous(), cfg)
+        assert torch.equal(tick_r[0]["idx"][0], c["idx"][0, j::S])
+        rows = (tick_r[0]["keep"].reshape(B, k) == keep[:, j]).all(-1)
+        for b in torch.nonzero(rows)[:, 0].tolist():
+            assert torch.equal(by_col[b, j], tick[b, 0]), (b, j)
+            same += 1
+    assert same == B * S if cf > 2 else 0 < same < B * S
 
 
 def test_group_that_does_not_divide_raises():

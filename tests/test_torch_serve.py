@@ -266,7 +266,7 @@ def test_verify_rows_take_their_decode_rows_arithmetic(dense_bf16, paged):
 
 
 def test_short_chunks_run_by_column(dense, monkeypatch):
-    """A decode chunk of 2..16 rows takes its down products and norm means
+    """A decode chunk of 2..16 rows takes its MLP products and norm means
     a column at a time; one token and a wider chunk take them whole."""
     from repro_torch.models import layers as L
     cfg, _, _, model = dense
@@ -278,8 +278,10 @@ def test_short_chunks_run_by_column(dense, monkeypatch):
         cache = model.cache(2, 64)
         model.decode(torch.zeros((2, S), dtype=torch.long), cache, 0)
     split = [w for w, c in seen if c]
-    # per layer: ln1's and ln2's means and the down product; the final norm
-    assert split == [S for S in (2, 16) for _ in range(3 * cfg.num_layers + 1)]
+    # per layer: ln1's and ln2's means and the gate, up and down products;
+    # the final norm
+    assert cfg.mlp_type == "swiglu"
+    assert split == [S for S in (2, 16) for _ in range(5 * cfg.num_layers + 1)]
 
 
 @pytest.mark.parametrize("paged", [False, True])
