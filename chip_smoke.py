@@ -229,6 +229,30 @@ Phases, each of which exits non-zero on failure:
    memory, and a ``preempt_to`` mid-run whose resumed streams equal the
    uninterrupted bf16 run's; one bf16 mamba2 decode tick and one 512-token
    prefill profiled;
+11b. training (``repro_torch.train``): the flash Function at llama's
+   causal B 4, S 4096 (32/8 heads of 64), the vlm's cross step (S 256, T
+   1601, 32/8 of 128) and whisper's encoder (1500 x 1500, 12/12 of 64),
+   bf16 and float32: its forward (the kernel) equal to the plain version
+   bit for bit, its dq, dk, dv (the plain backward) against float64
+   autograd (``GRAD_TOL``), each backward timed;
+   the scan Function against autograd through its plain version at a
+   mamba2 shape; the gradient gate: llama3.2-1b at full width with 2
+   layers, float32, B 1, S 2048, every leaf's gradient through the
+   kernels against the same step through ``_sdpa`` and every leaf's norm
+   above 0; the full-width run: llama3.2-1b, 16 layers, bf16 over float32
+   masters, remat, AdamW (warmup 5), 6 steps of global batch 8 as 2
+   microbatches of 4 at 4096 tokens, per step loss, grad norm, wall,
+   tokens/s, peak memory and flash launches (gated: 64), the losses finite
+   and falling, the last step profiled; an async checkpoint after step 3
+   (its write overlapping the next steps), restored after the run (no
+   second sha256 pass) by a fresh model and optimizer on the card equal
+   to a host copy of the
+   saved state bit for bit, whose first resumed step's loss equals the
+   uninterrupted run's bit for bit (later steps reported); then the CLI
+   (``launch.train.main``) at full width for 3 short steps with
+   ``--energy-policy power_save`` and a checkpoint directory (its
+   interval past the run: the 14.8 GB save and restore are the run's),
+   flash launches gated (3 steps x 16 layers x 2);
 12. profile: one warm Table II run, one warm 86-ambient LUT and one warm
    LeNet inference at gamma = 1.35 under ``torch.profiler``: device time
    by kernel, the card's busy time and idle share of the wall time (the
@@ -3970,6 +3994,438 @@ def recurrent_serve(torch, arch: str, profile: bool) -> dict:
     return out
 
 
+# --- training on the card: llama3.2-1b at full width (phase 13) -------------
+TRAIN_ARCH, TRAIN_SEED = "llama3.2-1b", 0
+# the Functions' shapes, (label, B, S, T, H, Hkv, D, causal): llama's
+# causal self-attention at train_4k's length, the vlm's cross step over
+# 1601 image tokens, whisper's encoder
+GRAD_SHAPES = [("llama causal", 4, 4096, 4096, 32, 8, 64, True),
+               ("vlm cross", 4, 256, 1601, 32, 8, 128, False),
+               ("whisper encoder", 4, 1500, 1500, 12, 12, 64, False)]
+# dq, dk and dv against float64 autograd, as a share of each gradient's
+# largest magnitude. float32: sums over up to 4096 keys and 64 dims in
+# float32 (2^-24 a rounding, a few hundred roundings deep at worst);
+# bfloat16: the inputs are exact in float64, but the forward's output and
+# the gradients are rounded to bfloat16 (2^-9 relative each), and the
+# output enters rowsum(dO o)
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the scan Function at mamba2's prefill shape (b, S, H, P, G, N, chunk),
+# against autograd through its plain version: the same computation, but
+# the B and C gradients sum the 48 heads' shares of each group with
+# atomics (the index's backward), in no fixed order
+SCAN_GRAD_SHAPE = (1, 512, 48, 64, 1, 128, 256)
+SCAN_GRAD_TOL = 1e-5
+# the gradient gate: full width, 2 layers, float32, B 1, S 2048; each
+# leaf's gradient through the kernels against the same step with the
+# attention as plain autograd (``_sdpa``), within this share of its
+# largest magnitude: two float32 orders of the attention's sums (the
+# kernel's online softmax and the blockwise backward against one softmax
+# and autograd's backward)
+TRAIN_GATE_LAYERS, TRAIN_GATE_B, TRAIN_GATE_S = 2, 1, 2048
+TRAIN_GATE_TOL = 1e-4
+# the full-width run: train_4k's length, global batch 8 as 2 microbatches
+# of 4, AdamW warming up over 5 steps; the checkpoint after step 3
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4096, 8, 2, 6
+TRAIN_WARMUP, TRAIN_SAVE_AT = 5, 3
+TRAIN_PROFILED = 2  # a warm step before the save
+TRAIN_DIR = ROOT / "build" / "train_ckpt"
+# the CLI at full width: a few short steps with the energy loop
+# (its checkpoint interval past its last step: the full-width save and
+# restore are train_run's, ~15 GB each way; the CLI's save, resume and
+# retry run in tests/test_torch_train.py)
+TRAIN_CLI = ["--arch", TRAIN_ARCH, "--no-smoke", "--steps", "3", "--batch",
+             "4", "--seq", "1024", "--log-every", "1", "--energy-policy",
+             "power_save", "--checkpoint-every", "10"]
+
+
+def attention64_grads(torch, q, k, v, do, causal):
+    """(dq, dk, dv) of softmax(q k^T / sqrt(D)) v in float64, materialised,
+    by autograd: one (b, kv head) at a time, so the (g, S, T) scores of
+    its g query heads fit (dk and dv of a kv head are its group's alone)."""
+    import math
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    grads = [torch.empty(t.shape, dtype=torch.float64, device=t.device)
+             for t in (q, k, v)]
+    for b in range(B):
+        for h in range(Hkv):
+            heads = slice(h * g, (h + 1) * g)
+            qs = q[b, :, heads].double().requires_grad_()
+            ks = k[b, :, h].double().requires_grad_()
+            vs = v[b, :, h].double().requires_grad_()
+            s = torch.einsum("sgd,td->gst", qs, ks) / math.sqrt(D)
+            if causal:
+                hide = torch.arange(T, device=q.device)[None] > \
+                    torch.arange(S, device=q.device)[:, None]
+                s = s.masked_fill(hide, float("-inf"))
+            o = torch.einsum("gst,td->sgd", torch.softmax(s, -1), vs)
+            dq, dk, dv = torch.autograd.grad(o, (qs, ks, vs),
+                                             do[b, :, heads].double())
+            grads[0][b, :, heads], grads[1][b, :, h], grads[2][b, :, h] = \
+                dq, dk, dv
+    return grads
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over the largest magnitude of want."""
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def flash_grad_check(torch, card: str) -> dict:
+    """The flash Function at the training paths' shapes: its forward (the
+    kernel) equal to the plain version bit for bit, as phase 8 holds the
+    kernel at the serving shapes, and its dq, dk, dv (the plain PyTorch
+    backward) against float64 autograd; the backward timed once per shape
+    (CUDA events)."""
+    from repro_torch.kernels import flash_attention as FA
+    rows, worst = [], {}
+    for label, B, S, T, H, Hkv, D, causal in GRAD_SHAPES:
+        # bf16 values, taken as they are in float32 too: one float64
+        # reference holds both dtypes
+        g = torch.Generator(device=DEV).manual_seed(13)
+        mk = lambda *shape: torch.randn(shape, generator=g,
+                                        device=DEV).bfloat16()
+        ins = [mk(B, S, H, D), mk(B, T, Hkv, D), mk(B, T, Hkv, D),
+               mk(B, S, H, D)]
+        want = attention64_grads(torch, *ins, causal)
+        for dt in ("bfloat16", "float32"):
+            q, k, v, do = (t.to(getattr(torch, dt)) for t in ins)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = FA.flash_attention(*leaves, causal=causal)
+            check(o.grad_fn is not None, f"flash {label} {dt}: a grad_fn")
+            fwd_err = float((o.detach().float() - FA.flash_attention_ref(
+                q, k, v, causal=causal).float()).abs().max())
+            check(fwd_err == 0.0, f"flash {label} {dt}: the Function's "
+                                  f"forward == plain bit for bit "
+                                  f"(max {fwd_err:.3e})")
+            got = torch.autograd.grad(o, leaves, do)
+            errs = [_rel_err(a, b) for a, b in zip(got, want)]
+            ok = all(gr.dtype == q.dtype for gr in got) and \
+                max(errs) <= GRAD_TOL[dt]
+            od = o.detach()
+            bwd_ms = _time_once_ms(torch, lambda: FA.flash_attention_backward(
+                q, k, v, od, do, causal=causal))
+            print(f"[{card}] flash grad {label} B={B} S={S} T={T} "
+                  f"H={H}/{Hkv} D={D} {dt}: forward max|kernel-plain| "
+                  f"{fwd_err:.3e}, dq/dk/dv rel err "
+                  f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol "
+                  f"{GRAD_TOL[dt]:g}), backward {bwd_ms:.3f} ms")
+            check(ok, f"flash Function gradients, {label} {dt}")
+            worst[dt] = max(worst.get(dt, 0.0), max(errs))
+            rows.append({"case": label, "dtype": dt, "B": B, "S": S,
+                         "T": T, "H": H, "Hkv": Hkv, "D": D,
+                         "causal": causal, "forward_max_abs_err": fwd_err,
+                         "rel_err": errs, "backward_ms": bwd_ms})
+            del q, k, v, do, o, got, leaves, od
+        del ins, want
+        torch.cuda.empty_cache()
+    return {"rows": rows, "worst": worst}
+
+
+def scan_grad_check(torch, card: str) -> dict:
+    """The scan Function's gradients (the kernel's forward, the plain
+    version recomputed under autograd) at mamba2's prefill shape against
+    autograd through ``mamba_scan_ref``."""
+    from repro_torch.kernels import mamba_scan as MS
+    b, S, H, P, G, N, chunk = SCAN_GRAD_SHAPE
+    g = torch.Generator(device=DEV).manual_seed(17)
+    mk = lambda *sh: torch.randn(sh, generator=g, device=DEV)
+    ins = [mk(b, S, H, P), torch.nn.functional.softplus(mk(b, S, H)),
+           -torch.exp(mk(H) * 0.5), mk(b, S, G, N), mk(b, S, G, N)]
+    leaves = [t.requires_grad_() for t in ins]
+    y, state = MS.mamba_scan(*leaves, chunk=chunk)
+    check(y.grad_fn is not None and not state.requires_grad,
+          "scan Function: y differentiable, the state not")
+    dy = mk(*y.shape)
+    got = torch.autograd.grad(y, leaves, dy)
+    ref, _ = MS.mamba_scan_ref(*leaves, chunk=chunk)
+    want = torch.autograd.grad(ref, leaves, dy)
+    errs = [_rel_err(a, w.double()) for a, w in zip(got, want)]
+    print(f"[{card}] scan grad b={b} S={S} H={H} P={P} G={G} N={N} chunk "
+          f"{chunk}: rel err x/dt/A/B/C " + "/".join(f"{e:.2e}" for e in errs)
+          + f" (tol {SCAN_GRAD_TOL:g})")
+    check(max(errs) <= SCAN_GRAD_TOL, "scan Function gradients")
+    return {"rel_err": errs, "shape": SCAN_GRAD_SHAPE}
+
+
+@contextlib.contextmanager
+def sdpa_attention():
+    """Within the block the model's flash attention is ``_sdpa`` (plain
+    autograd through a materialised softmax): the gradient gate's
+    reference."""
+    from repro_torch.models import attention as attn
+
+    def sdpa(q, k, v, *, causal=True):
+        mask = attn.causal_mask(q.shape[1], k.shape[1], 0, 0, q.device) \
+            if causal else None
+        return attn._sdpa(q, k, v, mask)
+
+    saved = attn.KERNELS["flash"]
+    attn.KERNELS["flash"] = sdpa
+    try:
+        yield
+    finally:
+        attn.KERNELS["flash"] = saved
+
+
+def _leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def train_gate(torch, card: str) -> dict:
+    """llama3.2-1b at full width and cut depth, float32: every leaf's
+    gradient through the flash Function against the same step through
+    ``_sdpa``, and every leaf's gradient norm above 0 (a gradient that
+    stopped at a kernel would leave wq, wk and wv at 0)."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import params as pm
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import make_grad_fn
+    layers, B, S = TRAIN_GATE_LAYERS, TRAIN_GATE_B, TRAIN_GATE_S
+    cfg = registry.get(TRAIN_ARCH).replace(num_layers=layers,
+                                           dtype="float32")
+    model = Model(cfg).init(TRAIN_SEED)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(5))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    grad_fn = make_grad_fn(model)
+    n0 = FA.flash_attention.launches
+    loss, _, grads = grad_fn(model.weights(), batch)
+    launches = FA.flash_attention.launches - n0
+    with sdpa_attention():
+        loss_ref, _, ref = grad_fn(model.weights(), batch)
+    names = _leaf_names(grads)
+    errs = {n: _rel_err(a, b.double()) for n, a, b in
+            zip(names, pm.tree_leaves(grads), pm.tree_leaves(ref))}
+    norms = {n: float(a.norm()) for n, a in
+             zip(names, pm.tree_leaves(grads))}
+    worst = max(errs, key=errs.get)
+    print(f"[{card}] train gate {TRAIN_ARCH} {layers} layers float32 B={B} "
+          f"S={S}: loss {float(loss):.6f} (sdpa {float(loss_ref):.6f}), "
+          f"{len(errs)} leaves, worst rel err {errs[worst]:.3e} at {worst} "
+          f"(tol {TRAIN_GATE_TOL:g}), smallest grad norm "
+          f"{min(norms.values()):.3e} at {min(norms, key=norms.get)}, "
+          f"flash launches {launches}")
+    check(launches == 2 * layers, "gate: flash twice a layer (remat)")
+    check(errs[worst] <= TRAIN_GATE_TOL, "gate: gradients through the "
+          "kernel equal the plain path's")
+    check(min(norms.values()) > 0, "gate: every leaf has a gradient")
+    out = {"worst_rel_err": errs[worst], "worst_leaf": worst,
+           "min_grad_norm": min(norms.values()), "launches": launches}
+    del model, grads, ref
+    return out
+
+
+def _state_trees_equal(torch, restored, saved) -> bool:
+    """Leaf by leaf: restored tensors (on the card) equal the saved ones (a
+    host copy), bit for bit."""
+    from repro_torch.models import params as pm
+    a, b = pm.tree_leaves(restored), pm.tree_leaves(saved)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y) for x, y in zip(a, b))
+
+
+def train_run(torch, card: str) -> dict:
+    """llama3.2-1b at full width and depth, bf16 over float32 masters,
+    remat, AdamW: ``TRAIN_STEPS`` steps of global batch 8 (2 microbatches
+    of 4) at 4096 tokens, the flash launches of every step gated exactly
+    (16 layers x 2 (remat) x 2 microbatches), the last step profiled.
+    After step 3 the state is saved asynchronously (the write overlaps the
+    next steps) beside a host copy; after the run a fresh model and
+    optimizer restore it on the card, the restored tensors equal to the
+    host copy bit for bit, and run the remaining steps: the first equal to
+    the uninterrupted run's loss bit for bit, the later ones reported (the
+    embedding gradient's atomics may move them by ulps)."""
+    import shutil
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, make_iterator
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import params as pm
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import make_train_step
+    cfg = registry.get(TRAIN_ARCH)
+    per_step = cfg.num_layers * 2 * TRAIN_ACCUM
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    took = {}
+
+    def fresh():
+        model = Model(cfg).init(TRAIN_SEED)
+        opt = make_optimizer(cfg, warmup_steps=TRAIN_WARMUP)
+        return model, opt, make_train_step(model, opt, n_accum=TRAIN_ACCUM)
+
+    def step_once(train, params, state, batch, i, label):
+        torch.cuda.reset_peak_memory_stats()
+        n0 = FA.flash_attention.launches
+        t0 = time.perf_counter()
+        params, state, m = train(params, state, batch, i)
+        loss = float(m["loss"])  # waits for the step
+        wall = time.perf_counter() - t0
+        row = {"step": i, "loss": loss, "grad_norm": float(m["grad_norm"]),
+               "wall_s": wall, "tokens_per_s": tokens / wall,
+               "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+               "flash": FA.flash_attention.launches - n0}
+        print(f"[{card}] train {label} step {i}: loss {loss:.6f} grad norm "
+              f"{row['grad_norm']:.4f} wall {wall:.3f} s "
+              f"{row['tokens_per_s']:.0f} tokens/s peak "
+              f"{row['peak_mib']:.1f} MiB flash {row['flash']}")
+        check(row["flash"] == per_step, f"train: {per_step} flash launches "
+              f"a step (16 layers x remat x 2 microbatches)")
+        return params, state, row
+
+    t0 = time.perf_counter()
+    model, opt, train = fresh()
+    print(f"[{card}] train {TRAIN_ARCH}: {model.n_params():,} parameters, "
+          f"{cfg.dtype} over {cfg.param_dtype} masters, remat "
+          f"{cfg.remat}, seq {TRAIN_SEQ}, batch {TRAIN_BATCH} as "
+          f"{TRAIN_ACCUM} x {TRAIN_BATCH // TRAIN_ACCUM}")
+    params, state = model.weights(), opt.init(model.weights())
+    it = make_iterator(cfg, dc)
+    rows, saved, prof = [], None, None
+    mgr = CheckpointManager(str(TRAIN_DIR), keep_last=1)
+    reset_counts()
+    for i in range(TRAIN_STEPS):
+        batch = next(it)
+        if i == TRAIN_PROFILED:
+            box = {}
+            prof = _profile(torch, f"train step {i}", lambda: box.update(
+                out=step_once(train, params, state, batch, i,
+                              "uninterrupted")))
+            params, state, row = box.pop("out")
+        else:
+            params, state, row = step_once(train, params, state, batch, i,
+                                           "uninterrupted")
+        rows.append(row)
+        if i + 1 == TRAIN_SAVE_AT:
+            tree = {"params": params, "opt": state}
+            t1 = time.perf_counter()
+            saved = pm.tree_map(lambda t: t.to("cpu", copy=True), tree)
+            t2 = time.perf_counter()
+            mgr.save(TRAIN_SAVE_AT, tree)
+            took["host_copy_s"] = t2 - t1
+            took["save_returned_s"] = time.perf_counter() - t2
+            t_write = time.perf_counter()
+    counts = read_counts()
+    mgr.wait()
+    took["write_done_after_s"] = time.perf_counter() - t_write
+    took["run_s"] = time.perf_counter() - t0
+    losses = [r["loss"] for r in rows]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train: losses finite and falling {losses}")
+    del model, opt, train, params, state, batch, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the resumed run: a fresh model and optimizer restore the checkpoint
+    t0 = time.perf_counter()
+    model, opt, train = fresh()
+    like = {"params": model.weights(), "opt": opt.init(model.weights())}
+    # no second sha256 pass over the 14.8 GB file: the restored state is
+    # held against the host copy bit for bit just below
+    restored, at = mgr.restore(like, verify=False)
+    took["restore_s"] = time.perf_counter() - t0
+    del like
+    same = _state_trees_equal(torch, restored, saved)
+    print(f"[{card}] train checkpoint after step {at}: host copy "
+          f"{took['host_copy_s']:.2f} s, save returned in "
+          f"{took['save_returned_s']:.2f} s, the write done "
+          f"{took['write_done_after_s']:.2f} s after it (steps "
+          f"{TRAIN_SAVE_AT}-{TRAIN_STEPS - 1} ran meanwhile), restored on "
+          f"the card with a fresh model in {took['restore_s']:.2f} s, equal "
+          f"to the saved state bit for bit: {same}")
+    check(same and at == TRAIN_SAVE_AT, "restored state == saved")
+    del saved
+    params, state = restored["params"], restored["opt"]
+    model.set_weights(params)
+    it = make_iterator(cfg, dc, start_step=TRAIN_SAVE_AT)
+    resumed_rows = []
+    for i in range(TRAIN_SAVE_AT, TRAIN_STEPS):
+        params, state, row = step_once(train, params, state, next(it), i,
+                                       "resumed")
+        resumed_rows.append(row)
+    diffs = [r["loss"] - losses[r["step"]] for r in resumed_rows]
+    print(f"[{card}] train resumed losses - uninterrupted: "
+          + ", ".join(f"step {i}: {d:+.3e}"
+                      for i, d in enumerate(diffs, TRAIN_SAVE_AT)))
+    check(diffs[0] == 0.0, "resume: the first resumed step's loss equals "
+          "the uninterrupted run's bit for bit")
+    del model, opt, train, params, state, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    # steady steps: not the first (warm-up), not the profiled one, not
+    # those that share the host with the save's write; the resumed ones
+    steady = [r for r in rows[1:TRAIN_SAVE_AT] + resumed_rows
+              if r is not rows[TRAIN_PROFILED]]
+    mean = lambda k: float(np.mean([r[k] for r in steady]))
+    print(f"[{card}] train steady steps {[r['step'] for r in steady]}: "
+          f"mean wall {mean('wall_s'):.3f} s, {mean('tokens_per_s'):.0f} "
+          f"tokens/s")
+    return {"rows": rows, "resumed_rows": resumed_rows,
+            "resumed_diffs": diffs, "counts": counts,
+            "per_step_flash": per_step, "mean_wall_s": mean("wall_s"),
+            "mean_tokens_per_s": mean("tokens_per_s"),
+            "peak_mib": max(r["peak_mib"] for r in rows), "took": took,
+            "profile": None if prof is None else {
+                "wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
+                "flash_share": _share(prof, "flash"),
+                "top": sorted(prof["kernels_ms"].items(),
+                              key=lambda kv: -kv[1])[:8]}}
+
+
+def train_cli(torch, card: str) -> dict:
+    """``repro_torch.launch.train.main`` at full width: a few short steps
+    with the energy loop and a checkpoint directory (``TRAIN_CLI``). The
+    loop plans the modelled 16 x 16 pod, whose 256-cell thermal solve is
+    one direct product (``core/thermal``: at most 512 cells): no thermal
+    kernel launches there, and the counts are reported."""
+    import shutil
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as launch
+    ckpt = ROOT / "build" / "train_cli_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    final = launch.main(TRAIN_CLI + ["--checkpoint-dir", str(ckpt)])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"[{card}] train CLI: final loss {final:.4f}, wall {wall:.1f} s, "
+          f"launches {counts}")
+    check(final is not None and np.isfinite(final), "CLI: a finite loss")
+    steps, cfg = int(TRAIN_CLI[TRAIN_CLI.index("--steps") + 1]), \
+        registry.get(TRAIN_ARCH)
+    check(counts["flash_attention"] == steps * cfg.num_layers * 2,
+          "CLI: flash twice a layer a step (remat)")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"final_loss": final, "wall_s": wall, "counts": counts}
+
+
+def train_path(torch, card: str) -> dict:
+    out, took = {}, {}
+    for name, fn in (("flash_grads", flash_grad_check),
+                     ("scan_grads", scan_grad_check), ("gate", train_gate),
+                     ("run", train_run), ("cli", train_cli)):
+        t0 = time.perf_counter()
+        out[name] = fn(torch, card)
+        took[name] = round(time.perf_counter() - t0, 1)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[{card}] train path times (s): {json.dumps(took)}")
+    out["took_s"] = took
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, err, rep, shapes):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -4020,6 +4476,9 @@ def main() -> int:
     study = timed("§V study", routed_study, torch)
     rec = {arch: timed(f"serve {arch}", recurrent_serve, torch, arch,
                        arch == "mamba2-780m") for arch in REC_SERVE}
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = timed("train path", train_path, torch, card)
     timed("profile", profile_phase, torch,
           mp["runs"]["table2_mkDelayWorker32B"]["fused_launches"],
           osp["params"], osp["fig8_probs"])
@@ -4031,6 +4490,7 @@ def main() -> int:
     print(f"multimodal paths: {json.dumps(mmp)}")
     print(f"§V study: {json.dumps(study)}")
     print(f"recurrent serve path: {json.dumps(rec)}")
+    print(f"train path: {json.dumps(train)}")
     print(f"phase times (s): {json.dumps(took)}")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/csrc/"
@@ -4100,7 +4560,8 @@ def main() -> int:
                            serve["prefill_counts"]["flash_attention"]
                            + sum(p["launches"]["prefill"]
                                  + p["launches"]["decode"]
-                                 for p in mmp.values()),
+                                 for p in mmp.values())
+                           + train["run"]["counts"]["flash_attention"],
                            att["max_abs_err"]["flash_attention"], rep_flash,
                            att["rows"]["flash_attention"]),
              launches_by_path={
@@ -4108,7 +4569,11 @@ def main() -> int:
                      serve["prefill_counts"]["flash_attention"],
                  **{f"{name}_{kind}": p["launches"][kind]
                     for name, p in mmp.items()
-                    for kind in ("prefill", "decode")}},
+                    for kind in ("prefill", "decode")},
+                 "train_full_width": train["run"]["counts"]
+                 ["flash_attention"]},
+             per_train_step=train["run"]["per_step_flash"],
+             grad_rel_err=train["flash_grads"]["worst"],
              per_prefill={n: p["flash_per_prefill"] for n, p in mmp.items()},
              per_decode_step={n: p["flash_per_decode_step"]
                               for n, p in mmp.items()}),

@@ -1,0 +1,174 @@
+"""Async, integrity-checked checkpointing: the port of the reference's
+``checkpoint/manager.py``, in its format.
+
+One ``step_<k>/`` directory per checkpoint holds ``arrays.npz`` (the tree
+flattened under ``/``-joined key paths, exactly as the reference's
+``_flatten`` names them) and ``manifest.json`` (the tree's structure,
+keys, step, sha256 of the npz, user metadata). A checkpoint written by
+either package restores in the other. ``save`` copies every leaf to the
+host before it returns (a consistent snapshot: the optimizer later writes
+the tensors in place), and the write can run on a background thread, fenced
+by the next ``save`` or ``wait``; ``keep_last`` prunes. numpy holds no
+bfloat16, so a bfloat16 leaf raises instead of being written as another
+type (the masters and moments are float32). One card has no sharding: the
+reference's ``shardings`` re-placement waits for the SPMD slice, and
+``restore`` puts each leaf on its ``like_tree`` leaf's device.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import threading
+import time
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def _items(tree, prefix=()):
+    """(key path, leaf) pairs in the reference's flattening order: dict
+    keys sorted, sequences by index."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _items(tree[k], prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _items(v, prefix + (str(i),))
+    else:
+        yield "/".join(prefix), tree
+
+
+def _host(key: str, leaf) -> np.ndarray:
+    """A host copy of one leaf (a CPU tensor's numpy view would follow
+    later writes)."""
+    if not isinstance(leaf, torch.Tensor):
+        return np.array(leaf)
+    if leaf.dtype == torch.bfloat16:
+        raise TypeError(f"checkpoint leaf {key!r} is bfloat16, which numpy "
+                        f"cannot hold")
+    t = leaf.detach()
+    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
+
+
+def _flatten(tree) -> Dict[str, np.ndarray]:
+    return {k: _host(k, v) for k, v in _items(tree)}
+
+
+def _structure(tree) -> str:
+    """The tree's shape in the reference's ``PyTreeDef`` notation."""
+    def walk(t):
+        if isinstance(t, dict):
+            return "{" + ", ".join(f"{k!r}: {walk(t[k])}"
+                                   for k in sorted(t)) + "}"
+        if isinstance(t, (list, tuple)):
+            inner = ", ".join(walk(v) for v in t)
+            return f"[{inner}]" if isinstance(t, list) else f"({inner})"
+        return "*"
+    return f"PyTreeDef({walk(tree)})"
+
+
+def _unflatten(like, leaves):
+    if isinstance(like, dict):
+        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten(v, leaves) for v in like)
+    return next(leaves)
+
+
+def _sha256(path: str, block: int = 1 << 26) -> str:
+    """The file's sha256, read in blocks (a full-width checkpoint is ~15
+    GB; the reference reads it whole)."""
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(block), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, keep_last: int = 3,
+                 async_save: bool = True):
+        self.dir = directory
+        self.keep_last = keep_last
+        self.async_save = async_save
+        self._thread: Optional[threading.Thread] = None
+        os.makedirs(directory, exist_ok=True)
+
+    # --- save ---------------------------------------------------------------
+    def save(self, step: int, tree, metadata: Optional[Dict[str, Any]] = None):
+        self.wait()  # fence the previous async save
+        flat = _flatten(tree)  # the host copy happens now
+        structure = _structure(tree)
+
+        def _write():
+            path = os.path.join(self.dir, f"step_{step:08d}")
+            tmp = path + ".tmp"
+            os.makedirs(tmp, exist_ok=True)
+            npz_path = os.path.join(tmp, "arrays.npz")
+            np.savez(npz_path, **flat)
+            manifest = {
+                "step": step,
+                "treedef": structure,
+                "keys": sorted(flat.keys()),
+                "sha256": _sha256(npz_path),
+                "time": time.time(),
+                "metadata": metadata or {},
+            }
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f, indent=1)
+            if os.path.exists(path):
+                shutil.rmtree(path)
+            os.rename(tmp, path)
+            self._prune()
+
+        if self.async_save:
+            self._thread = threading.Thread(target=_write, daemon=True)
+            self._thread.start()
+        else:
+            _write()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _prune(self):
+        steps = self.all_steps()
+        for s in steps[: -self.keep_last]:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"),
+                          ignore_errors=True)
+
+    # --- restore --------------------------------------------------------------
+    def all_steps(self):
+        out = []
+        for d in os.listdir(self.dir):
+            if d.startswith("step_") and not d.endswith(".tmp"):
+                out.append(int(d.split("_")[1]))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, like_tree, step: Optional[int] = None,
+                verify: bool = True) -> Tuple[Any, int]:
+        """Restore into the structure of ``like_tree``: each leaf a tensor
+        of the saved dtype on its ``like_tree`` leaf's device (the CPU for
+        a leaf that is no tensor)."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        path = os.path.join(self.dir, f"step_{step:08d}")
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        npz_path = os.path.join(path, "arrays.npz")
+        if verify and _sha256(npz_path) != manifest["sha256"]:
+            raise IOError(f"checkpoint {path} corrupt (sha256 mismatch)")
+        with np.load(npz_path) as data:
+            arrays = [torch.from_numpy(data[k]).to(
+                like.device if isinstance(like, torch.Tensor) else "cpu")
+                for k, like in _items(like_tree)]
+        return _unflatten(like_tree, iter(arrays)), step

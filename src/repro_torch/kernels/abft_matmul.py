@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.grad import refuse_grad
 from repro_torch.kernels.overscale_matmul import (check_inputs, launch,
                                                   overscale_matmul_ref,
                                                   wrap_int32)
@@ -45,6 +46,7 @@ def abft_matmul(a, b, u_gate, u_bit, cdf, *, return_clean: bool = False):
     uint32 bits, cdf (33,) float32 -> (c (M, N), rowsum (M,), colsum (N,))
     int32, the checksums of the corrupted product; ``return_clean`` adds
     the product before the flips, from the same launch."""
+    refuse_grad("abft_matmul", a, b, cdf)
     if a.device.type == "cpu":
         return abft_matmul_ref(a, b, u_gate, u_bit, cdf,
                                return_clean=return_clean)

@@ -37,6 +37,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.grad import wants_grad
+
 _KERNEL = "flash_attention"
 NEG_INF = -1e30
 CHUNK = 16  # keys per online-softmax step of the float32 kernel
@@ -286,7 +288,11 @@ def check_inputs(q, k, v):
 
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """q (B, S, H, D), k and v (B, T, Hkv, D), float32 or bfloat16 (all of
-    one dtype) -> (B, S, H, D) in q's dtype."""
+    one dtype) -> (B, S, H, D) in q's dtype. Where autograd records and an
+    input requires a gradient the call goes through :class:`FlashAttention`
+    (the same forward, and a backward)."""
+    if wants_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":
@@ -309,3 +315,81 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
 
 
 flash_attention.launches = 0
+
+
+# scores of one block of query rows in the backward: at most this many
+# float32 elements (B x H x rows x keys) per tensor
+BWD_BLOCK = 1 << 26
+
+
+def flash_attention_backward(q, k, v, o, do, *, causal: bool = True,
+                             block: int = BWD_BLOCK):
+    """The gradients of :func:`flash_attention` in plain PyTorch: q (B, S,
+    H, D), k and v (B, T, Hkv, D), the forward's output o and its gradient
+    do (B, S, H, D) -> (dq, dk, dv) in the inputs' dtype.
+
+    Per block of query rows, all in float32: the scores ``s = q k^T /
+    sqrt(D)`` recomputed from q and k (hidden keys, above the diagonal when
+    causal, score -inf), ``P = exp(s - lse)`` with lse the row's
+    log-sum-exp, then ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P (dP -
+    rowsum(dO o))``, ``dQ = dS K / sqrt(D)`` and ``dK = dS^T Q / sqrt(D)``;
+    dK and dV sum over the query heads of each kv head. A block takes
+    ``block // (B H T)`` rows, so the (B, H, rows, T) scores stay bounded
+    (the whole matrix at B 4, S 4096, H 32 is 8.6 GB in float32); a causal
+    block reads only the keys up to its last row (every causal row sees
+    key 0)."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    # (B, Hkv, g, S, D) for q, o and do; (B, Hkv, T, D) for k and v
+    grouped = lambda x: x.float().reshape(B, S, Hkv, g, D).permute(
+        0, 2, 3, 1, 4)
+    qf, of, dof = grouped(q), grouped(o), grouped(do)
+    kf = k.float().transpose(1, 2)
+    vf = v.float().transpose(1, 2)
+    delta = (dof * of).sum(-1)  # rowsum(dO o): (B, Hkv, g, S)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    rows = max(1, min(S, block // max(1, B * H * T)))
+    for r0 in range(0, S, rows):
+        r1 = min(S, r0 + rows)
+        t1 = min(T, r1) if causal else T  # keys a row of the block can see
+        qb, dob = qf[..., r0:r1, :], dof[..., r0:r1, :]
+        kb, vb = kf[:, :, :t1], vf[:, :, :t1]
+        s = torch.einsum("bhgnd,bhtd->bhgnt", qb, kb) * scale
+        if causal:
+            qpos = torch.arange(r0, r1, device=q.device)[:, None]
+            vis = torch.arange(t1, device=q.device)[None, :] <= qpos
+            s = s.masked_fill(~vis, float("-inf"))
+        lse = torch.logsumexp(s, dim=-1, keepdim=True)
+        p = torch.exp(s - lse)
+        dv[:, :, :t1] += torch.einsum("bhgnt,bhgnd->bhtd", p, dob)
+        dp = torch.einsum("bhgnd,bhtd->bhgnt", dob, vb)
+        ds = p * (dp - delta[..., r0:r1, None])
+        dq[..., r0:r1, :] = torch.einsum("bhgnt,bhtd->bhgnd", ds, kb) * scale
+        dk[:, :, :t1] += torch.einsum("bhgnt,bhgnd->bhtd", ds, qb) * scale
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+    return (dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient: the forward is the kernel
+    on the card (its plain version on the CPU), the backward
+    :func:`flash_attention_backward` from the saved q, k, v and output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o = flash_attention(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, o, do.contiguous(),
+                                          causal=ctx.causal), None)

@@ -49,6 +49,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.kernels.grad import wants_grad
+
 _KERNEL = "mamba_scan"
 # csrc/mamba_scan.cu's tiles: columns of P per scan block, output rows and
 # input rows (or state entries) per tile of the scan block, and the C B^T
@@ -233,7 +235,10 @@ def check_inputs(xh, dt, A, B, C, chunk):
 def mamba_scan(xh, dt, A, B, C, *, chunk: int = 256):
     """xh (b, S, H, P), dt (b, S, H), B and C (b, S, G, N), all float32 or
     all bfloat16, A (H,) float32 -> (y (b, S, H, P) in xh's dtype, final
-    state (b, H, P, N) float32)."""
+    state (b, H, P, N) float32). Where autograd records and an input
+    requires a gradient the call goes through :class:`MambaScan`."""
+    if wants_grad(xh, dt, A, B, C):
+        return MambaScan.apply(xh, dt, A, B, C, chunk)
     if xh.device.type == "cpu":
         return mamba_scan_ref(xh, dt, A, B, C, chunk=chunk)
     if xh.device.type != "cuda":
@@ -261,3 +266,32 @@ def mamba_scan(xh, dt, A, B, C, *, chunk: int = 256):
 
 
 mamba_scan.launches = 0
+
+
+class MambaScan(torch.autograd.Function):
+    """:func:`mamba_scan` with a gradient for y: the forward is the kernel
+    on the card (its plain version on the CPU); the backward recomputes the
+    plain version :func:`mamba_scan_ref` from the saved inputs under
+    autograd and differentiates it (plain PyTorch, as the reference's
+    backward is plain XLA). The final state is not differentiable: a
+    prefill hands it to decode, which trains nothing."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, A, B, C, chunk):
+        y, state = mamba_scan(xh, dt, A, B, C, chunk=chunk)
+        ctx.save_for_backward(xh, dt, A, B, C)
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(state)
+        return y, state
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, _dstate):
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            y, _ = mamba_scan_ref(*ins, chunk=ctx.chunk)
+            got = iter(torch.autograd.grad(
+                y, [t for t in ins if t.requires_grad], dy))
+        return (*(next(got) if n else None for n in need), None)

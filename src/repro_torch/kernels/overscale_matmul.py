@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels.grad import refuse_grad
 
 _KERNEL = "int8_error_matmul"
 TWO_POW_M32 = 1.0 / 4294967296.0
@@ -242,6 +243,7 @@ def overscale_matmul(a, b, u_gate, u_bit, cdf, *, return_clean: bool = False):
     uint32 bits, cdf (33,) float32 -> (M, N) int32 with injected errors.
     ``return_clean`` also returns the product before the flips, from the
     same launch."""
+    refuse_grad("overscale_matmul", a, b, cdf)
     if a.device.type == "cpu":
         return overscale_matmul_ref(a, b, u_gate, u_bit, cdf,
                                     return_clean=return_clean)

@@ -55,6 +55,7 @@ import math
 import torch
 
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels.grad import refuse_grad
 
 _KERNEL = "paged_attention"
 NEG_INF = -1e30
@@ -350,6 +351,7 @@ def paged_attention(q, k_pool, v_pool, ids_pool, block_table, pos, *,
     (P, ps, Hkv, D) float32 or bfloat16 (q's dtype), ids_pool (P, ps) and
     the tables int32 -> q's shape and dtype. Block-table entries name pages
     in [0, P)."""
+    refuse_grad("paged_attention", q, k_pool, v_pool)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, ids_pool, block_table,
                                    pos, window=window)

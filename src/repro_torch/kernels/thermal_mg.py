@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import thermal_stencil as TS
+from repro_torch.kernels.grad import refuse_grad
 from repro_torch.kernels.thermal_stencil import nbr_sum, thermal_stencil_ref
 
 MAX_LEVELS = 16  # kMaxLevels in the source
@@ -254,6 +255,7 @@ def thermal_mg_solve(b: torch.Tensor, T0: Optional[torch.Tensor],
                      n_smooth: int):
     """One multigrid solve per batch element in one launch. b: (B, m, n)
     contiguous float32; T0: None or the same. -> (T, cycles (B,) int32)."""
+    refuse_grad("thermal_mg_solve", b, T0)
     kw = dict(tol=tol, max_cycles=max_cycles, n_smooth=n_smooth)
     if b.device.type == "cpu":
         return thermal_mg_solve_ref(b, T0, plan, **kw)

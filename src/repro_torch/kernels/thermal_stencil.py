@@ -30,6 +30,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.grad import refuse_grad
+
 _KERNEL = "thermal_stencil"
 
 
@@ -111,6 +113,7 @@ def thermal_stencil(T: torch.Tensor, P: torch.Tensor, diag: torch.Tensor, *,
                     phase: Optional[int] = None) -> torch.Tensor:
     """``iters`` fused sweeps. T: (B, m, n) or (m, n) float32; P and diag
     of the same shape, or (m, n) to share one grid across the batch."""
+    refuse_grad("thermal_stencil", T, P, diag)
     if T.device.type == "cpu":
         return thermal_stencil_ref(T, P, diag, g_lat, g_v_tamb, iters, phase)
     if T.device.type != "cuda":

@@ -323,8 +323,65 @@ def _paged_write(cache, block_table, t, news, keep=None):
         _masked_put(cache[name], (page, t % ps), new, keep)
 
 
+def _unseen_rows(o, cache, table, block_table, t, v_new, positions, w,
+                 null_page, slots=None):
+    """The paged kernel's output ``o`` (B, S, H, D) with each row that sees
+    no key (an idle slot's: n_valid 0 and no entry of its own) set to what
+    the reference's paged step gives it. The kernel writes such a row as an
+    exact 0; the reference gathers the slot's logical cache and takes a
+    softmax whose mask value is finite, so the row averages the slot's
+    entries uniformly: with a window the ``T`` entries of its ring before
+    the write and the chunk's ``S`` rows, without one the ``T`` entries
+    after the chunk's (clamped) write. Pages the slot does not own read as
+    the reference's fill, zeros. ``table``: what the kernel read (the ring,
+    or the ring and the scratch pages); ``t`` (B, S): the chunk's logical
+    indices. Only an MoE model needs it: there the row's routes take
+    expert capacity from real tokens (``models/moe``). ``slots`` (host
+    ints; None: every slot): the only slots whose rows may see no key; the
+    others' rows are left as they are, and an empty list costs nothing."""
+    if slots is None:
+        return _uniform_rows(o, cache, table, block_table, t, v_new,
+                             positions, w, null_page)
+    if len(slots) == 0:
+        return o
+    sl = torch.as_tensor(slots, dtype=torch.long, device=o.device)
+    o[sl] = _uniform_rows(o[sl], cache, table[sl], block_table[sl], t[sl],
+                          v_new[sl], positions[sl], w, null_page)
+    return o
+
+
+def _uniform_rows(o, cache, table, block_table, t, v_new, positions, w,
+                  null_page):
+    """``_unseen_rows`` over every slot of its arguments."""
+    B, S, H, D = o.shape
+    ps = cache["pos_ids"].shape[1]
+    ids = cache["pos_ids"][table.long()].reshape(B, 1, -1)
+    p = positions[..., None]
+    seen = (ids >= 0) & (ids <= p)
+    if w:
+        seen &= ids > p - w
+    unseen = ~seen.any(-1)  # (B, S)
+    bt = block_table.long()
+    v = cache["v"][bt].reshape(B, bt.shape[1] * ps, *v_new.shape[2:])
+    if null_page is not None:
+        own = (bt != null_page).repeat_interleave(ps, dim=1)
+        v = v * own[..., None, None].to(v.dtype)
+    v_new = v_new.to(v.dtype)
+    if w:
+        v = torch.cat([v, v_new], dim=1)
+    else:
+        rows = torch.arange(B, device=v.device)[:, None].expand(B, S)
+        v = v.index_put((rows, t), v_new)
+    wt = torch.full((v.shape[1],), 1.0 / v.shape[1], dtype=torch.float32,
+                    device=v.device).to(v.dtype)
+    avg = torch.einsum("bthd,t->bhd", v, wt)  # (B, Hkv, D)
+    avg = avg.repeat_interleave(H // avg.shape[1], dim=1)[:, None]
+    return torch.where(unseen[..., None, None], avg.to(o.dtype), o)
+
+
 def gqa_decode(p, x, cache, pos, cfg: ModelConfig, n_valid=None,
-               block_table=None, scratch_table=None, cols: bool = False):
+               block_table=None, scratch_table=None, null_page=None,
+               idle_slots=None, cols: bool = False):
     """Ragged decode/extend. x (B,S,D); pos: scalar or (B,) per-slot
     position. Appends S new tokens per row at that row's own offset (ring-
     modded for sliding-window caches), in place; ``n_valid`` (B,) marks how
@@ -356,6 +413,10 @@ def gqa_decode(p, x, cache, pos, cfg: ModelConfig, n_valid=None,
     into the ring; such a chunk without scratch pages raises. A decode row
     (S = 1) evicts only ``pos - window``, which its window leaves out, so
     it is written first.
+
+    ``idle_slots`` (host ints; None: every slot): the slots with no real
+    token in the chunk, the only ones whose rows an MoE model's paged step
+    may have to repair (``_unseen_rows``).
 
     ``cols``: the qk-norms' means run a column at a time
     (``L.by_column``), so each row of a short chunk takes its decode row's
@@ -416,6 +477,12 @@ def gqa_decode(p, x, cache, pos, cfg: ModelConfig, n_valid=None,
     o = KERNELS["paged"](q.contiguous(), cache["k"], cache["v"],
                          cache["pos_ids"], table.contiguous(),
                          positions.contiguous(), window=w)
+    if cfg.is_moe:
+        # every row of a slot with a real token sees that token, unless the
+        # chunk outruns the window
+        slots = None if w and S > w else idle_slots
+        o = _unseen_rows(o, cache, table, block_table, t, v_new, positions,
+                         w, null_page, slots)
     if table is not block_table:
         _paged_write(cache, block_table, t, news, keep)
     return _out(L.tap("attn", o), p["wo"]), cache

@@ -7,6 +7,8 @@ hybrid, vlm, audio).
     logits, aux = model.apply({"tokens": tokens})  # aux: moe_aux, moe_z
     logits, cache = model.prefill({"tokens": tokens}, max_len=...)
     logits, cache = model.decode(tokens, cache, pos, n_valid=...)
+    logits, aux = model.loss_forward(masters, batch)  # differentiable
+    model.set_weights(masters)  # after an optimizer step
 
 ``batch`` is a dict: ``tokens`` (B, S), and the stubbed frontends' inputs
 at model width, ``image_embeds`` (B, num_image_tokens, d_model) for the vlm
@@ -20,6 +22,13 @@ reference's tree paths (``blocks.stack.attn.wq``, ``blocks.groups.ssm.wB``,
 weights are set, which gives the same values (at full width a fresh cast
 of llama3.2-1b's 1.24 B parameters on every tick would move ~7.4 GB). It
 takes no sharding plan: one card has none.
+
+Training (``repro_torch.train``) differentiates :meth:`Model.loss_forward`,
+which casts a tree of float32 masters at use inside the graph, as the
+reference casts, and runs each block under activation checkpointing when
+``cfg.remat == "full"`` (``transformer.run_block``). After each optimizer
+step :meth:`Model.set_weights` takes the updated masters, so ``apply``,
+``prefill`` and serving read the trained weights.
 """
 from __future__ import annotations
 
@@ -63,10 +72,14 @@ class _Tree(nn.Module):
         return out
 
 
-def _cast(tree, dtype, key=None):
+def _cast(tree, dtype, key=None, detach: bool = True):
+    """The tree with its ``CAST_KEYS`` leaves in ``dtype``; without
+    ``detach`` the casts are recorded by autograd, so gradients flow back to
+    the tree's leaves."""
     if isinstance(tree, dict):
-        return {k: _cast(v, dtype, k) for k, v in tree.items()}
-    return tree.detach().to(dtype) if key in CAST_KEYS else tree.detach()
+        return {k: _cast(v, dtype, k, detach) for k, v in tree.items()}
+    t = tree.detach() if detach else tree
+    return t.to(dtype) if key in CAST_KEYS else t
 
 
 def _tokens(x, device) -> torch.Tensor:
@@ -128,7 +141,7 @@ class Model(nn.Module):
         ``torch.Generator`` seeded with ``seed`` on the model's device."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
-        return self._set(pm.materialize(self.param_meta(), gen,
+        return self.set_weights(pm.materialize(self.param_meta(), gen,
                                         self.cfg.param_dtype, self.device))
 
     def load_reference(self, tree) -> "Model":
@@ -137,9 +150,13 @@ class Model(nn.Module):
         dt = pm.torch_dtype(self.cfg.param_dtype)
         tree = pm.tree_map(lambda t: t.to(dt), pm.from_reference(
             tree, self.device))
-        return self._set(tree)
+        return self.set_weights(tree)
 
-    def _set(self, tree) -> "Model":
+    def set_weights(self, tree) -> "Model":
+        """Take ``tree`` (the reference's nesting and shapes, in
+        ``cfg.param_dtype``) as the stored weights, without a copy, and
+        make the compute copy: after an optimizer step the model serves
+        the updated weights."""
         want = pm.tree_map(lambda m: tuple(m.shape), self.param_meta())
         got = pm.tree_map(lambda t: tuple(t.shape), tree)
         if want != got:
@@ -168,6 +185,18 @@ class Model(nn.Module):
         return self._family.apply(self.params, *self._inputs(batch),
                                   self.cfg)
 
+    def loss_forward(self, masters, batch: Dict[str, Any]):
+        """The forward that training differentiates: ``masters`` (a weight
+        tree such as :meth:`weights`, float32) cast to ``cfg.dtype`` inside
+        the graph for the ``CAST_KEYS`` leaves, so that gradients reach the
+        masters, and each block under activation checkpointing when
+        ``cfg.remat == "full"``. The casts are made once per call, where
+        the reference casts at every use: the same values, but a leaf read
+        twice (tied embeddings, zamba2's shared block) sums its two
+        gradients in ``cfg.dtype`` before the cast back. -> (logits, aux)."""
+        return self._family.apply(_cast(masters, cdt(self.cfg), detach=False),
+                                  *self._inputs(batch), self.cfg)
+
     # --- serving ------------------------------------------------------------
     @torch.no_grad()
     def prefill(self, batch: Dict[str, Any], max_len: Optional[int] = None,
@@ -177,14 +206,15 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def decode(self, tokens, cache, pos, n_valid=None, block_table=None,
-               scratch_table=None, null_page=None):
+               scratch_table=None, null_page=None, idle_slots=None):
         """Ragged decode: ``pos`` scalar or (B,) per-slot; tokens (B,S),
         S >= 1 for attention stacks and S = 1 for the recurrent families;
         ``n_valid`` (B,) marks real tokens per row. The cache (or, with
         ``block_table``, the page pool; ``scratch_table``: each slot's
         scratch pages for a wrapping ring; ``null_page``: the pool's page
-        that unallocated table entries name) is updated in place. The vlm
-        and audio families take the contiguous cache only, as the
+        that unallocated table entries name; ``idle_slots``: the slots
+        with no real token, host ints, None for any) is updated in place.
+        The vlm and audio families take the contiguous cache only, as the
         reference's do."""
         toks = _tokens(tokens, self.device)
         if self._family.frontend is not None:
@@ -195,7 +225,8 @@ class Model(nn.Module):
                                        self.cfg, n_valid=n_valid)
         return tf.lm_decode(self.params, toks, cache, pos, self.cfg,
                             n_valid=n_valid, block_table=block_table,
-                            scratch_table=scratch_table, null_page=null_page)
+                            scratch_table=scratch_table, null_page=null_page,
+                            idle_slots=idle_slots)
 
     def cache(self, batch_size: int, max_len: int, device=None):
         """The zero decode cache, on the model's device unless ``device``

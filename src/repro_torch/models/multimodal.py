@@ -39,7 +39,7 @@ from repro_torch.models.params import stack_tree
 from repro_torch.models.transformer import (_stack, attn_block_apply,
                                             attn_block_decode,
                                             attn_block_params, depth, layer,
-                                            zero_aux)
+                                            run_block, zero_aux)
 
 
 def _seeded(cfg, kv, batch, max_len, dtype, lengths):
@@ -118,12 +118,13 @@ def _vlm_forward(params, tokens, image_embeds, cfg, max_len=None,
         group = []
         sp = layer(bp["groups"], g)
         for i in range(depth(sp)):
-            x, _, kv = attn_block_apply(layer(sp, i), x, cfg,
-                                        collect_kv=True)
+            x, _, kv = run_block(attn_block_apply, cfg, layer(sp, i), x,
+                                 cfg, collect_kv=True)
             if max_len:
                 group.append(_seeded(cfg, kv, B, max_len, L.cdt(cfg),
                                      lengths))
-        x, (ck, cv) = cross_block_apply(layer(bp["cross"], g), x, img, cfg)
+        x, (ck, cv) = run_block(cross_block_apply, cfg,
+                                layer(bp["cross"], g), x, img, cfg)
         if max_len:
             selfs.append(_stack(group))
             cks.append(ck)
@@ -226,13 +227,16 @@ def whisper_encode(params, frames, cfg: ModelConfig):
     x = frames.to(L.cdt(cfg))
     x = x + sinusoidal(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
     for i in range(depth(params["enc"])):
-        lp = layer(params["enc"], i)
-        h = L.norm_apply(lp["ln1"], x, cfg)
-        a, _ = attn.gqa_apply(lp["attn"], h, cfg, causal=False)
-        x = x + a
-        h = L.norm_apply(lp["ln2"], x, cfg)
-        x = x + L.mlp_apply(lp["mlp"], h, cfg)
+        x = run_block(_enc_block, cfg, layer(params["enc"], i), x, cfg)
     return L.norm_apply(params["enc_ln"], x, cfg)
+
+
+def _enc_block(lp, x, cfg: ModelConfig):
+    h = L.norm_apply(lp["ln1"], x, cfg)
+    a, _ = attn.gqa_apply(lp["attn"], h, cfg, causal=False)
+    x = x + a
+    h = L.norm_apply(lp["ln2"], x, cfg)
+    return x + L.mlp_apply(lp["mlp"], h, cfg)
 
 
 def _dec_block(lp, x, enc_out, cfg: ModelConfig):
@@ -256,8 +260,8 @@ def _whisper_forward(params, tokens, frames, cfg, max_len=None,
     x = x + sinusoidal(S, cfg.d_model, x.dtype, x.device)[None]
     selfs, cks, cvs = [], [], []
     for i in range(depth(params["dec"])):
-        x, kv, (ck, cv) = _dec_block(layer(params["dec"], i), x, enc_out,
-                                     cfg)
+        x, kv, (ck, cv) = run_block(_dec_block, cfg, layer(params["dec"], i),
+                                    x, enc_out, cfg)
         if max_len:
             selfs.append(_seeded(cfg, kv, B, max_len, L.cdt(cfg), lengths))
             cks.append(ck)

@@ -23,6 +23,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -44,6 +45,20 @@ def check_supported(cfg: ModelConfig):
 
 def _mla(cfg: ModelConfig) -> bool:
     return cfg.attn_type == "mla"
+
+
+def run_block(fn, cfg: ModelConfig, *args, **kw):
+    """``fn(*args, **kw)``, one block of a forward. Where autograd records
+    and ``cfg.remat == "full"`` the block runs under activation
+    checkpointing (``torch.utils.checkpoint``, non-reentrant): its
+    activations are recomputed in the backward, as the reference's
+    ``_maybe_remat`` wraps its block bodies in ``jax.checkpoint``, so a
+    kernel in it launches twice a training step. Serving runs without
+    autograd and is not touched."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False, **kw)
+    return fn(*args, **kw)
 
 
 def zero_aux(device=None):
@@ -109,7 +124,8 @@ def attn_block_apply(p, x, cfg, positions=None, collect_kv=False):
 
 
 def attn_block_decode(p, x, cache, pos, cfg, n_valid=None, block_table=None,
-                      scratch_table=None, null_page=None, cols=False):
+                      scratch_table=None, null_page=None, idle_slots=None,
+                      cols=False):
     """``cols``: the ops whose rounding depends on the row count a column
     at a time (``L.by_column``)."""
     h = L.tap("ln1", L.norm_apply(p["ln1"], x, cfg, cols))
@@ -120,7 +136,9 @@ def attn_block_decode(p, x, cache, pos, cfg, n_valid=None, block_table=None,
     else:
         a, cache = attn.gqa_decode(p["attn"], h, cache, pos, cfg,
                                    n_valid=n_valid, block_table=block_table,
-                                   scratch_table=scratch_table, cols=cols)
+                                   scratch_table=scratch_table,
+                                   null_page=null_page,
+                                   idle_slots=idle_slots, cols=cols)
     x = x + a
     h = L.tap("ln2", L.norm_apply(p["ln2"], x, cfg, cols))
     return x + _ffn(p, h, cfg, cols)[0], cache
@@ -146,7 +164,7 @@ def _ssm_stack_apply(stack, x, cfg, states=None):
     """Run the stacked mamba layers; with a list ``states``, append each
     layer's final state (the prefill's decode seed) to it."""
     for i in range(depth(stack)):
-        x, st = ssm_block_apply(layer(stack, i), x, cfg)
+        x, st = run_block(ssm_block_apply, cfg, layer(stack, i), x, cfg)
         if states is not None:
             states.append(st)
     return x
@@ -222,7 +240,7 @@ def lm_params(cfg: ModelConfig):
 def _hybrid_apply(bp, x, cfg):
     for g in range(depth(bp["groups"])):
         x = _ssm_stack_apply(layer(bp["groups"], g), x, cfg)
-        x, _ = attn_block_apply(bp["shared_attn"], x, cfg)
+        x, _ = run_block(attn_block_apply, cfg, bp["shared_attn"], x, cfg)
     return _ssm_stack_apply(bp["tail"], x, cfg)
 
 
@@ -239,9 +257,10 @@ def lm_apply(params, tokens, cfg: ModelConfig):
         x = _ssm_stack_apply(bp["stack"], x, cfg)
     else:
         for i in range(_n_dense(cfg)):
-            x, _ = attn_block_apply(bp[f"dense{i}"], x, cfg)
+            x, _ = run_block(attn_block_apply, cfg, bp[f"dense{i}"], x, cfg)
         for i in range(depth(bp["stack"])):
-            x, a = attn_block_apply(layer(bp["stack"], i), x, cfg)
+            x, a = run_block(attn_block_apply, cfg, layer(bp["stack"], i),
+                             x, cfg)
             aux = {k: aux[k] + a[k] for k in aux}
     x = L.norm_apply(params["final_ln"], x, cfg)
     return L.unembed_apply(params["embed"], x, cfg), aux
@@ -324,7 +343,8 @@ def lm_prefill(params, tokens, cfg: ModelConfig,
 
 
 def lm_decode(params, tokens, cache, pos, cfg: ModelConfig, n_valid=None,
-              block_table=None, scratch_table=None, null_page=None):
+              block_table=None, scratch_table=None, null_page=None,
+              idle_slots=None):
     """tokens (B,S) -> logits (B,S,V); the cache is updated in place (and
     returned). ``pos`` is a scalar or a (B,) vector of per-slot positions.
     Attention stacks take S > 1 (a chunked-prefill extend) with ``n_valid``
@@ -334,7 +354,10 @@ def lm_decode(params, tokens, cache, pos, cfg: ModelConfig, n_valid=None,
     each slot's scratch pages of the pool, which a chunk on a wrapping
     sliding-window ring passes through (``attention.gqa_decode``), and
     ``null_page`` the page that its unallocated entries name, which MLA's
-    decode leaves unwritten (``attention.mla_decode``). A recurrent state advances one token per step, so
+    decode leaves unwritten (``attention.mla_decode``); ``idle_slots``
+    (host ints) the slots with no real token, where an MoE model's paged
+    step repairs the rows that see no key (``attention.gqa_decode``). A
+    recurrent state advances one token per step, so
     the ssm and hybrid families take S = 1 and the contiguous cache only;
     ``pos`` and ``n_valid`` reach the hybrid's shared attention. A chunk of
     2..16 tokens (a speculative verify, ``L.by_column``) runs the ops whose
@@ -365,6 +388,7 @@ def lm_decode(params, tokens, cache, pos, cfg: ModelConfig, n_valid=None,
             x, _ = attn_block_decode(lp, x, lc, pos, cfg, n_valid=n_valid,
                                      block_table=block_table,
                                      scratch_table=scratch_table,
-                                     null_page=null_page, cols=cols)
+                                     null_page=null_page,
+                                     idle_slots=idle_slots, cols=cols)
     x = L.tap("final_ln", L.norm_apply(params["final_ln"], x, cfg, cols))
     return L.tap("logits", L.unembed_apply(params["embed"], x, cfg)), cache

@@ -191,11 +191,13 @@ class Engine:
         pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
         nv = torch.as_tensor(n_valid, dtype=torch.int32, device=dev)
         if self._paged:
+            idle = np.flatnonzero(np.asarray(n_valid) == 0).tolist()
             logits, _ = self.model.decode(toks, self.mgr.pool, pos,
                                           n_valid=nv,
                                           block_table=self._bt_device(),
                                           scratch_table=self._scratch_dev,
-                                          null_page=self.mgr.null_page)
+                                          null_page=self.mgr.null_page,
+                                          idle_slots=idle)
         else:
             logits, _ = self.model.decode(toks, self.mgr.cache, pos,
                                           n_valid=nv)

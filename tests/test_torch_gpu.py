@@ -1093,3 +1093,111 @@ def test_foreign_resume_guard_with_engines_on_the_card(cuda):
     away.run()
     assert pool.migrations == 1
     assert list(away.finished[0].out) == want
+
+
+# --- gradients through the kernels (training) ---------------------------------
+
+def _attn64_grads(q, k, v, do, causal):
+    """(dq, dk, dv) of a materialised float64 softmax attention, by
+    autograd."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    heads = torch.arange(H, device=q.device) // (H // Hkv)
+    leaves = [t.detach().double().requires_grad_() for t in (q, k, v)]
+    qd, kd, vd = leaves
+    s = torch.einsum("bshd,bthd->bhst", qd, kd[:, :, heads]) / D ** 0.5
+    if causal:
+        hide = torch.arange(T, device=q.device)[None] > \
+            torch.arange(S, device=q.device)[:, None]
+        s = s.masked_fill(hide, float("-inf"))
+    o = torch.einsum("bhst,bthd->bshd", torch.softmax(s, -1), vd[:, :, heads])
+    return torch.autograd.grad(o, leaves, do.double())
+
+
+# dq, dk, dv as a share of each gradient's largest magnitude: float32 sums
+# in another order; bf16 outputs and gradients rounded to 2^-9
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,S,T,H,Hkv,D", [
+    (True, 300, 300, 8, 2, 64), (False, 300, 300, 4, 4, 64),
+    (False, 37, 211, 8, 2, 128), (False, 1, 150, 4, 4, 32)])
+def test_flash_function_gradients(cuda, dtype, causal, S, T, H, Hkv, D):
+    """The flash Function on the card (the kernel forward, the plain
+    backward): its output is the kernel's, bit for bit, and dq, dk, dv
+    agree with float64 autograd."""
+    from repro_torch.kernels import flash_attention as FA
+    g = torch.Generator(device=cuda).manual_seed(3)
+    mk = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
+    q, k, v, do = mk(2, S, H, D), mk(2, T, Hkv, D), mk(2, T, Hkv, D), \
+        mk(2, S, H, D)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n0 = FA.flash_attention.launches
+    o = FA.flash_attention(*leaves, causal=causal)
+    assert FA.flash_attention.launches == n0 + 1
+    assert torch.equal(o.detach(), FA.flash_attention(q, k, v,
+                                                      causal=causal))
+    got = torch.autograd.grad(o, leaves, do)
+    want = _attn64_grads(q, k, v, do, causal)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        assert (a.double() - b).abs().max() <= GRAD_TOL[dtype] * \
+            b.abs().max()
+
+
+def test_scan_function_gradients(cuda):
+    """The scan Function on the card: y is the kernel's, the gradients are
+    autograd's through the plain version (up to the order of the atomics
+    that sum B's and C's shares over the heads of a group)."""
+    from repro_torch.kernels import mamba_scan as MS
+    g = torch.Generator(device=cuda).manual_seed(4)
+    mk = lambda *s: torch.randn(s, generator=g, device=cuda)
+    b, S, H, P, G, N = 2, 128, 8, 32, 2, 64
+    ins = [mk(b, S, H, P), torch.nn.functional.softplus(mk(b, S, H)),
+           -torch.exp(mk(H) * 0.5), mk(b, S, G, N), mk(b, S, G, N)]
+    leaves = [t.clone().requires_grad_() for t in ins]
+    y, state = MS.mamba_scan(*leaves, chunk=64)
+    y0, s0 = MS.mamba_scan(*ins, chunk=64)
+    assert torch.equal(y.detach(), y0) and torch.equal(state, s0)
+    dy = mk(*y.shape)
+    got = torch.autograd.grad(y, leaves, dy)
+    ref, _ = MS.mamba_scan_ref(*leaves, chunk=64)
+    want = torch.autograd.grad(ref, leaves, dy)
+    for a, w in zip(got, want):
+        assert (a - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "whisper-small",
+                                  "mamba2-780m"])
+def test_every_leaf_gets_a_gradient_on_the_card(cuda, arch):
+    """A small config through the kernels (remat on): every leaf's gradient
+    is nonzero (one that stopped at a kernel would leave the attention's
+    or the mixer's projections at 0) and equals the plain path's
+    (``attention.plain_kernels``) within float32 rounding. The gated
+    cross-attention's ``gate`` is set to 0.5: at its init 0 the block
+    passes nothing, and its projections get no gradient by design."""
+    from repro_torch.configs import registry
+    from repro_torch.models import attention as attn
+    from repro_torch.models import params as pm
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import make_grad_fn
+    cfg = registry.get(arch).reduced().replace(dtype="float32",
+                                               remat="full")
+    model = Model(cfg, device=cuda).init(0)
+    gates = [p for n, p in model.named_parameters() if n.endswith("gate")]
+    for p in gates:
+        p.data.fill_(0.5)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), device=cuda,
+                         generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "audio":
+        batch["audio_frames"] = 0.1 * torch.randn(
+            (2, cfg.encoder_frames, cfg.d_model), device=cuda, generator=g)
+    _, _, grads = make_grad_fn(model)(model.weights(), batch)
+    with attn.plain_kernels():
+        _, _, ref = make_grad_fn(model)(model.weights(), batch)
+    for a, b in zip(pm.tree_leaves(grads), pm.tree_leaves(ref)):
+        assert float(a.norm()) > 0
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
