@@ -35,8 +35,10 @@ Phases, each of which exits non-zero on failure:
    dynamic LUT as one batched solve, Algorithm 2 on mkPktMerge, and one
    256x256 solve (too large for one CTA: the per-step form with the
    stencil kernel as smoother); each is held against the port on the CPU
-   and the reference values (the 256x256 solve against the plain version
-   on the card, bit for bit); per run it prints the solves, fused launches
+   and the reference values (the LUT: all 86 entries against the
+   reference's table, 6 of them, one batch, against the CPU port; the
+   256x256 solve against the plain version on the card, bit for bit); per
+   run it prints the solves, fused launches
    per solve, stencil launches, thermal host syncs per solve, the fixed
    point's host syncs and the wall, and every multigrid solve at a path
    grid must be one fused launch with no thermal host sync;
@@ -253,7 +255,27 @@ Phases, each of which exits non-zero on failure:
    ``--energy-policy power_save`` and a checkpoint directory (its
    interval past the run: the 14.8 GB save and restore are the run's),
    flash launches gated (3 steps x 16 layers x 2);
-12. profile: one warm Table II run, one warm 86-ambient LUT and one warm
+12. expandable serving (``Engine(expandable=True)``, capacity 64 at the
+   start, doubling to max_len): phase 10's traffic at llama3.2-1b full
+   width, float32, contiguous and paged, every stream equal to phase 10's
+   float32 stream of the same cache kind (gated), paged launches == ticks
+   x 16 layers on block tables that widen between ticks, grows, capacity,
+   pages in use and peak pages, tokens/s beside phase 10's; bf16 paged
+   beside phase 10's bf16 paged streams (reported), timed in turns with
+   the fixed-size engine on the same traffic (fixed, expandable,
+   expandable, fixed);
+13. SPMD on one card: (a) ``sharding.pipeline.pipeline_apply`` over a
+   2-rank gloo group on cuda:0 (llama3.2-1b at full width in bf16, the 16
+   blocks split 8 + 8, B 8, S 1024, 4 microbatches, activations through
+   pinned host memory), its output equal bit for bit to the same blocks
+   run in one process over the same microbatches, flash launches gated
+   (16 x 4 across both ranks), wall and each rank's idle share beside the
+   bubble bound (P-1)/(M+P-1), the whole-batch run reported on the
+   logits; (b) ``ft.elastic.rescale`` of llama3.2-1b at full width with 2
+   layers from a checkpoint the phase writes, under a world-1 gloo group
+   on the card: every leaf a DTensor equal bit for bit to the saved
+   tensor;
+14. profile: one warm Table II run, one warm 86-ambient LUT and one warm
    LeNet inference at gamma = 1.35 under ``torch.profiler``: device time
    by kernel, the card's busy time and idle share of the wall time (the
    serve profiles run in phases 10 and 11).
@@ -290,6 +312,19 @@ STENCIL_FLOPS_PER_CELL = 7
 # reference decisions (the JAX package on the CPU)
 TABLE_II = {"iters": 4, "v_core": 0.75, "v_bram": 0.83, "power_mw": 554.60}
 MCML = {"iters": 3, "v_core": 0.75, "v_bram": 0.70, "power_mw": 1753.45}
+# the 86-ambient LUT (dynamic_lut of mkDelayWorker32B at 0..85 C, theta_JA
+# 12, act 1.0; the JAX package on the CPU) as its change points: from each
+# ambient on, (v_core, v_bram) until the next
+LUT_86 = [(0, 0.70, 0.83), (11, 0.70, 0.84), (14, 0.71, 0.82),
+          (16, 0.71, 0.83), (29, 0.71, 0.84), (30, 0.72, 0.82),
+          (31, 0.72, 0.83), (41, 0.73, 0.82), (42, 0.73, 0.83),
+          (49, 0.74, 0.82), (51, 0.74, 0.83), (56, 0.75, 0.82),
+          (58, 0.75, 0.83), (61, 0.76, 0.82), (64, 0.76, 0.83),
+          (65, 0.77, 0.82), (68, 0.78, 0.82), (71, 0.79, 0.82),
+          (72, 0.80, 0.81), (73, 0.80, 0.82), (74, 0.80, 0.95)]
+# the ambients at which the CPU port recomputes the LUT (one batch of 6:
+# the whole 86 take 93-127 s of the host's CPU)
+LUT_CPU_AMBS = [float(t) for t in range(0, 86, 17)]
 GOLDEN_EO = {"v_core": 0.55, "v_bram": 0.55, "d_opt_ns": 17.019848,
              "energy": 27.992240, "saving": 0.640888,
              "freq_ratio": 0.367218}  # energy_opt.run(mkPktMerge, 65C, theta 2)
@@ -770,6 +805,17 @@ def _run_stats(before: dict, after: dict, wall: float) -> dict:
             "fixed_point_host_syncs": d["fixed_point_syncs"]}
 
 
+def lut_86() -> dict:
+    """``LUT_86`` as ``dynamic_lut`` returns it: {t_amb: (v_core, v_bram)},
+    the rails as float32 values."""
+    f32 = lambda v: float(np.float32(v))
+    out = {}
+    for (t0, vc, vb), nxt in zip(LUT_86, LUT_86[1:] + [(86,)]):
+        for t in range(t0, nxt[0]):
+            out[float(t)] = (f32(vc), f32(vb))
+    return out
+
+
 def main_path_phase(torch) -> dict:
     from repro_torch import policy as pol
     from repro_torch.core import energy_opt as EO
@@ -844,8 +890,12 @@ def main_path_phase(torch) -> dict:
     check(torch.equal(large, plain), f"{LARGE_GRID}x{LARGE_GRID}: stencil "
                                      "kernel form == plain, bit for bit")
     t0 = time.perf_counter()
-    cpu = {name: runs[name]("cpu") for name in gpu}
-    print(f"cpu port: all four runs in {time.perf_counter() - t0:.1f} s")
+    cpu = {name: runs[name]("cpu") for name in gpu
+           if name != "dynamic_lut_86"}
+    cpu["dynamic_lut_86"] = VS.dynamic_lut(mkdelay, LUT_CPU_AMBS, 1.0, TC12,
+                                           device="cpu")
+    print(f"cpu port: the four runs (the LUT at {len(LUT_CPU_AMBS)} "
+          f"ambients) in {time.perf_counter() - t0:.1f} s")
 
     for name in ("table2_mkDelayWorker32B", "mcml_152x152"):
         g, c = gpu[name], cpu[name]
@@ -858,7 +908,10 @@ def main_path_phase(torch) -> dict:
     check(_final_ok(gpu["mcml_152x152"], MCML),
           "mcml: 3 iterations -> (0.75, 0.70), 1753.45 mW")
     lut_g, lut_c = gpu["dynamic_lut_86"], cpu["dynamic_lut_86"]
-    check(len(lut_g) == 86 and lut_g == lut_c, "86-ambient LUT: card == cpu")
+    check(len(lut_g) == 86 and lut_g == lut_86(),
+          "86-ambient LUT: card == the reference's table")
+    check(all(lut_g[t] == lut_c[t] for t in LUT_CPU_AMBS),
+          f"86-ambient LUT: card == cpu port at {LUT_CPU_AMBS}")
     print(f"dynamic LUT (every 17 C): {list(lut_g.items())[::17]}")
     eo = gpu["energy_opt_mkPktMerge"]
     check(abs(eo.v_core - GOLDEN_EO["v_core"]) < 1e-3
@@ -1980,10 +2033,14 @@ def serve_path(torch) -> dict:
     out["gate_counts"] = counts
     out["gate"] = dict(_tick_times(ticks), wall_s=wall)
     del eng
-    cont, _, wall_c = drive(Engine(m32, **SERVE_KW), prompts)
+    cont, ticks_c, wall_c = drive(Engine(m32, **SERVE_KW), prompts)
     print(f"serve gate float32 contiguous: wall {wall_c:.3f} s")
+    out["gate_contiguous"] = dict(_tick_times(ticks_c), wall_s=wall_c)
     out["gate_equal_streams"] = hold_streams(
         torch, "float32 paged vs contiguous", m32, prompts, paged, cont)
+    # phase 12 holds the expandable engines to these (popped before the
+    # summary line is printed)
+    out["streams"] = {"paged": paged, "contiguous": cont}
     for rid in sorted(paged):
         print(f"  request {rid} ({len(prompts[rid])} prompt tokens): "
               f"{paged[rid][:8]}...")
@@ -2027,6 +2084,7 @@ def serve_path(torch) -> dict:
     out["bf16"] = dict(tt, counts=counts, peak_memory_bytes=peak,
                        streams_equal_contiguous=same,
                        tokens_agree_contiguous=agree, tokens_total=total)
+    out["streams"]["bf16_paged"] = got16
 
     # speculative in bf16 against greedy on the same traffic (the gate: a
     # verify row takes its decode row's arithmetic in every layer), and
@@ -3994,7 +4052,7 @@ def recurrent_serve(torch, arch: str, profile: bool) -> dict:
     return out
 
 
-# --- training on the card: llama3.2-1b at full width (phase 13) -------------
+# --- training on the card: llama3.2-1b at full width (phase 11b) ------------
 TRAIN_ARCH, TRAIN_SEED = "llama3.2-1b", 0
 # the Functions' shapes, (label, B, S, T, H, Hkv, D, causal): llama's
 # causal self-attention at train_4k's length, the vlm's cross step over
@@ -4426,6 +4484,435 @@ def train_path(torch, card: str) -> dict:
     return out
 
 
+# --- expandable serving: llama3.2-1b at full width (phase 12) ----------------
+EXP_INITIAL = 64  # the managers' initial capacity (the reference's default)
+
+
+class kernel_taps:
+    """Within the block, one of the model's kernel entries
+    (``attention.KERNELS[name]``) is wrapped: each call goes to it
+    unchanged, and the first call at each ``key(call index, *args)`` (None:
+    keep nothing) leaves a copy of its inputs and of the kernel's output in
+    ``self.cases``: {key: (args, kwargs, output)}."""
+
+    def __init__(self, name, key):
+        self.name, self.key, self.cases, self.calls = name, key, {}, 0
+
+    def __enter__(self):
+        from repro_torch.models import attention as attn
+        inner = self.inner = attn.KERNELS[self.name]
+
+        def tap(*args, **kw):
+            out = inner(*args, **kw)
+            key = self.key(self.calls, *args)
+            self.calls += 1
+            if key is not None and key not in self.cases:
+                self.cases[key] = ([t.clone() for t in args], kw,
+                                   out.clone())
+            return out
+
+        attn.KERNELS[self.name] = tap
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as attn
+        attn.KERNELS[self.name] = self.inner
+
+
+def paged_taps() -> kernel_taps:
+    """The first paged call at each (table width in pages, rows per slot;
+    0 for decode rows)."""
+    return kernel_taps("paged", lambda i, q, k, v, ids, bt, pos: (
+        bt.shape[1], q.shape[1] if q.dim() == 4 else 0))
+
+
+def hold_paged_taps(torch, label, taps, capacities) -> list:
+    """Each tapped call's output (the paged kernel's, in the engine's
+    warm-up and in the run) against ``paged_attention_ref`` on the same
+    inputs, bit for bit as phase 7 holds the kernel at 128 pages; every
+    table width the run attended over (its capacities over the page size)
+    must be among the run's."""
+    from repro_torch.kernels import paged_attention as PA
+    ps = SERVE_KW["page_size"]
+    rows = []
+    for when, cases in taps.items():
+        for (n, S), (args, kw, got) in sorted(cases.items()):
+            want = PA.paged_attention_ref(*args, **kw)
+            torch.cuda.synchronize()
+            e = float((got.float() - want.float()).abs().max())
+            seen = int((args[3][args[4].long()] >= 0).sum())
+            form = "decode rows" if S == 0 else f"{S}-row chunks"
+            print(f"  paged {label} {when} at {n} pages ({n * ps} entries),"
+                  f" {form}, q={tuple(args[0].shape)}, {seen} cache entries "
+                  f"written: max|kernel-plain|={e:.3e}"
+                  + (" (bit for bit)" if torch.equal(got, want) else ""))
+            check(torch.equal(got, want), f"paged {label} {when} at {n} "
+                                          f"pages, {form}: kernel == plain "
+                                          f"bit for bit")
+            rows.append({"when": when, "n_pages": n, "rows_per_slot": S,
+                         "q": list(args[0].shape), "entries_written": seen,
+                         "max_abs_err": e})
+    widths = {n for n, _ in taps["run"]}
+    check({c // ps for c in capacities} <= widths,
+          f"paged {label}: every table width of the run was held "
+          f"({sorted(widths)} pages)")
+    return rows
+
+
+def _exp_run(torch, model, prompts, paged: bool,
+             expandable: bool = True, tap: bool = False) -> dict:
+    """One run of phase 10's traffic through a fresh expandable (or
+    fixed-size) engine, the launch counts set to 0 just before it and read
+    just after; with ``tap`` the paged kernel's calls in the engine's
+    warm-up and in the run are tapped (:func:`paged_taps`), returned as
+    ``taps``."""
+    import contextlib
+
+    from repro_torch.serve import Engine
+    warm, run = ((paged_taps(), paged_taps()) if tap else
+                 (contextlib.nullcontext(), contextlib.nullcontext()))
+    with warm:
+        eng = Engine(model, paged=paged, expandable=expandable, **SERVE_KW)
+    caps = []
+    reset_counts()
+    with run:
+        got, ticks, wall = drive(eng, prompts, hook=lambda e, n: caps.append(
+            getattr(e.mgr, "capacity", e.max_len)))
+    counts = read_counts()
+    tt = _tick_times(ticks)
+    mgr = eng.mgr
+    return {"streams": got, "ticks": ticks, "counts": counts,
+            "taps": ({"warm-up": warm.cases, "run": run.cases} if tap
+                     else None),
+            "summary": dict(tt, wall_s=wall, tokens_per_s=tt["tokens"] / wall,
+                            grows=getattr(mgr, "grows", 0),
+                            capacity=getattr(mgr, "capacity", eng.max_len),
+                            capacities=sorted(set(caps)),
+                            pages_in_use=mgr.pages_in_use,
+                            peak_pages=mgr.peak_pages,
+                            recount_pages=mgr.recount_pages(),
+                            counts=counts)}
+
+
+def expandable_path(torch, serve: dict) -> dict:
+    """Phase 10's traffic through the expandable engines (capacity 64 at
+    the start, doubling to max_len): float32 contiguous and paged, each
+    stream equal to phase 10's float32 stream of the same cache kind
+    (gated), and bf16 paged beside phase 10's bf16 paged streams
+    (reported), timed in turns with the fixed-size engine. In the float32
+    paged run and the first bf16 expandable one, the paged kernel's first
+    call at each table width and rows per slot is held bit for bit against
+    its plain version on the same inputs (:func:`hold_paged_taps`)."""
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+    cfg = registry.get(SERVE_ARCH)
+    n_layers = cfg.num_layers
+    prompts = serve_prompts(cfg.vocab_size)
+    streams = serve.pop("streams")
+    base = {"contiguous": serve["gate_contiguous"], "paged": serve["gate"]}
+    out = {}
+    m32 = Model(cfg.replace(dtype="float32")).init(SERVE_SEED)
+    for paged in (False, True):
+        kind = "paged" if paged else "contiguous"
+        r = _exp_run(torch, m32, prompts, paged, tap=paged)
+        sm, want = r["summary"], streams[kind]
+        same = sum(r["streams"][rid] == want[rid] for rid in want)
+        n_ticks = sum(1 for w, _, _, _ in r["ticks"] if w > 0)
+        print(f"expandable float32 {kind}: grows {sm['grows']}, capacities "
+              f"{sm['capacities']}, final capacity {sm['capacity']}, pages "
+              f"in use {sm['pages_in_use']} (recount {sm['recount_pages']})"
+              f", peak pages {sm['peak_pages']}, {sm['tokens']} tokens in "
+              f"{sm['wall_s']:.3f} s = {sm['tokens_per_s']:.1f} tokens/s "
+              f"(phase 10 {kind}: {base[kind]['tokens']} tokens in "
+              f"{base[kind]['wall_s']:.3f} s = "
+              f"{base[kind]['tokens'] / base[kind]['wall_s']:.1f} tokens/s), "
+              f"launches {r['counts']} (phase 10 paged: "
+              f"{serve['gate_counts']['paged_attention']}); {same} of "
+              f"{len(want)} streams equal phase 10's")
+        for rid in want:
+            i = _first_diff(r["streams"][rid], want[rid])
+            if i is not None:
+                print(f"  request {rid} first differs at generated token "
+                      f"{i}; the plain run's top-2 margin there is "
+                      f"{plain_margin(torch, m32, prompts[rid], want[rid], i):.3e}")
+        check(same == len(want), f"float32 expandable {kind} streams equal "
+                                 f"phase 10's")
+        check(sm["grows"] > 0 and sm["capacity"] > EXP_INITIAL,
+              f"the {kind} capacity grew")
+        check(sm["pages_in_use"] == sm["recount_pages"] == 0,
+              f"{kind} pages all returned")
+        if paged:
+            check(r["counts"]["paged_attention"] == n_ticks * n_layers,
+                  f"paged launches == ticks x {n_layers} layers")
+            out["gate_counts"] = r["counts"]
+            sm["paged_vs_plain"] = hold_paged_taps(
+                torch, "float32 expandable", r.pop("taps"), sm["capacities"])
+        out[kind] = dict(sm, streams_equal_phase10=same)
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    m16 = Model(cfg).init(SERVE_SEED)
+    # the fixed-size and the expandable engine in turns (fixed first and
+    # last) on the same traffic: this phase runs late in the script, where
+    # phase 10's times are no yardstick for its own
+    turns = [(exp, _exp_run(torch, m16, prompts, True, exp, tap=i == 1))
+             for i, exp in enumerate((False, True, True, False))]
+    r = turns[1][1]
+    held = hold_paged_taps(torch, "bf16 expandable", r.pop("taps"),
+                           r["summary"]["capacities"])
+    want = streams["bf16_paged"]
+    same = sum(r["streams"][rid] == want[rid] for rid in want)
+    sm = r["summary"]
+    by = {name: [t["summary"] for e, t in turns if e == exp]
+          for name, exp in (("fixed", False), ("expandable", True))}
+    keys = ("tokens_per_s", "decode_tick_s", "prefill_tick_s", "wall_s")
+    print(f"expandable bf16 paged (reported): {same} of {len(want)} streams "
+          f"equal phase 10's bf16 paged streams; grows {sm['grows']}, peak "
+          f"pages {sm['peak_pages']}; in turns fixed, expandable, "
+          f"expandable, fixed: " + "; ".join(
+              f"{k} tokens/s {[round(t['tokens_per_s'], 1) for t in v]}, "
+              f"decode tick {[round(t['decode_tick_s'], 5) for t in v]} s"
+              for k, v in by.items()))
+    out["bf16_paged"] = dict(sm, streams_equal_phase10=same,
+                             paged_vs_plain=held, turns={
+        k: [{key: t[key] for key in keys} for t in v]
+        for k, v in by.items()})
+    del m16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# --- SPMD on one card: the GPipe pipeline and the rescale (phase 13) ---------
+PIPE_P, PIPE_M, PIPE_B, PIPE_S = 2, 4, 8, 1024
+PIPE_RUNS = 2  # timed runs after one warm-up
+PIPE_DIR = ROOT / "build" / "spmd"
+
+
+def _pipe_setup(torch):
+    """llama3.2-1b at full width in bf16 from the serve seed, its blocks,
+    the stage function (blocks in order, no grad) and the input: the
+    embeddings of (PIPE_B, PIPE_S) seeded tokens."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+    cfg = registry.get(SERVE_ARCH)
+    model = Model(cfg).init(SERVE_SEED)
+    stack = model.params["blocks"]["stack"]
+    blocks = [tf.layer(stack, i) for i in range(cfg.num_layers)]
+
+    @torch.no_grad()
+    def stage(ps, x):
+        for lp in ps:
+            x, _ = tf.attn_block_apply(lp, x, cfg)
+        return x
+
+    toks = torch.as_tensor(np.random.default_rng(SERVE_SEED + 2).integers(
+        0, cfg.vocab_size, (PIPE_B, PIPE_S)), device=DEV)
+    x = model.params["embed"]["embedding"][toks]
+    return model, blocks, stage, x
+
+
+def pipe_worker(rank: int, world: int, store: str) -> None:
+    """One rank of the pipeline (``torch.multiprocessing.spawn`` target):
+    a gloo group, this rank's half of the blocks on cuda:0, one warm-up
+    and PIPE_RUNS timed runs, each with the launch counts set to 0 just
+    before it and read just after; writes its timings (and rank 0 the
+    output) under PIPE_DIR."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.sharding.pipeline import pipeline_apply
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        _, blocks, stage, x = _pipe_setup(torch)
+        per = len(blocks) // world
+        mine = blocks[rank * per:(rank + 1) * per]
+        busy = [0.0]
+
+        def timed_stage(ps, h):
+            t0 = time.perf_counter()
+            y = stage(ps, h)
+            torch.cuda.synchronize()
+            busy[0] += time.perf_counter() - t0
+            return y
+
+        runs = []
+        for i in range(PIPE_RUNS + 1):
+            busy[0] = 0.0
+            dist.barrier()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            y = pipeline_apply(timed_stage, mine, x, dist.group.WORLD,
+                               PIPE_M)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            if i:
+                runs.append({"wall_s": wall, "busy_s": busy[0],
+                             "idle_share": 1 - busy[0] / wall,
+                             "flash": counts["flash_attention"],
+                             "launches": counts})
+        if rank == 0:
+            torch.save(y.cpu(), PIPE_DIR / "out.pt")
+        (PIPE_DIR / f"rank{rank}.json").write_text(json.dumps(runs))
+    finally:
+        dist.destroy_process_group()
+
+
+def hold_flash_taps(torch, cases, n_blocks: int) -> dict:
+    """Each block's tapped flash call (the kernel's output in the run)
+    against ``flash_attention_ref`` on the same inputs, bit for bit."""
+    from repro_torch.kernels import flash_attention as FA
+    check(sorted(cases) == list(range(n_blocks)),
+          f"the microbatch ran {n_blocks} flash calls")
+    worst = 0.0
+    for i, (args, kw, got) in sorted(cases.items()):
+        want = FA.flash_attention_ref(*args, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        check(torch.equal(got, want), f"pipeline block {i}: flash kernel "
+                                      f"== plain bit for bit")
+    q = cases[0][0][0]
+    print(f"  flash at the pipeline's shapes, q={tuple(q.shape)} "
+          f"{str(q.dtype).split('.')[-1]} causal="
+          f"{cases[0][1].get('causal')}: {n_blocks} blocks' calls, "
+          f"max|kernel-plain|={worst:.3e}")
+    return {"q": list(q.shape), "calls": n_blocks, "max_abs_err": worst}
+
+
+def pipeline_check(torch, card: str) -> dict:
+    """Phase 13a: the GPipe pipeline of llama3.2-1b's 16 blocks over a
+    2-rank gloo group on cuda:0 (8 + 8 blocks, B 8, S 1024, 4
+    microbatches), its output equal bit for bit to the same blocks run in
+    one process over the same microbatches, whose 16 flash calls on the
+    first microbatch are held bit for bit against the plain version; the
+    whole-batch run reported beside it on the logits
+    (test_torch_models.py's bf16 bound)."""
+    import shutil
+
+    import torch.multiprocessing as mp
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    PIPE_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.spawn(pipe_worker, args=(PIPE_P, str(PIPE_DIR / "store")),
+             nprocs=PIPE_P)
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.loads((PIPE_DIR / f"rank{r}.json").read_text())
+             for r in range(PIPE_P)]
+    got = torch.load(PIPE_DIR / "out.pt").to(DEV)
+    model, blocks, stage, x = _pipe_setup(torch)
+    n_blocks = len(blocks)
+    # each block's flash call on the first microbatch, at the pipeline's
+    # shapes: its inputs are the pipeline's when the outputs agree
+    taps = kernel_taps("flash", lambda i, *a: i if i < n_blocks else None)
+    with taps:
+        mbs = [stage(blocks, mb) for mb in x.chunk(PIPE_M)]
+    seq = torch.cat(mbs)
+    equal = torch.equal(got, seq)
+    flash_held = hold_flash_taps(torch, taps.cases, n_blocks)
+    del taps
+    whole = stage(blocks, x)
+    from repro_torch.models import layers as L
+    with torch.no_grad():
+        logits = [L.unembed_apply(model.params["embed"], L.norm_apply(
+            model.params["final_ln"], h, model.cfg), model.cfg).float()
+            for h in (seq, whole)]
+    d_logits = float((logits[0] - logits[1]).abs().max())
+    top1 = float((logits[0].argmax(-1) == logits[1].argmax(-1)).float()
+                 .mean())
+    del logits, model, blocks
+    flash = [[run["flash"] for run in r] for r in ranks]
+    bubble = (PIPE_P - 1) / (PIPE_M + PIPE_P - 1)
+    print(f"pipeline {PIPE_P} ranks x {len(mbs)} microbatches on one card "
+          f"({card}): output {'equals' if equal else 'DIFFERS FROM'} the "
+          f"microbatched sequential run bit for bit; whole-batch run "
+          f"(reported): max |d logits| {d_logits:.4g}, top-1 agreement "
+          f"{top1:.4f} (bound {BF16_ATOL}, {BF16_TOP1}); flash launches per "
+          f"rank and run {flash}; bubble bound {bubble:.3f}")
+    for r, runs in enumerate(ranks):
+        for run in runs:
+            print(f"  rank {r}: wall {run['wall_s']:.4f} s, stage busy "
+                  f"{run['busy_s']:.4f} s, idle share "
+                  f"{run['idle_share']:.4f}")
+    check(equal, "the pipeline's output equals the microbatched sequential "
+                 "run bit for bit")
+    check(all(sum(f[i] for f in flash) == n_blocks * PIPE_M
+              for i in range(PIPE_RUNS)),
+          f"flash launches == {n_blocks} blocks x {PIPE_M} microbatches")
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    return {"equal": equal, "flash_vs_plain": flash_held,
+            "d_logits_whole_batch": d_logits,
+            "top1_whole_batch": top1, "bubble_bound": bubble,
+            "spawn_s": spawn_s, "launches": sum(f[0] for f in flash),
+            "ranks": ranks}
+
+
+RESCALE_LAYERS = 2
+
+
+def rescale_check(torch, card: str) -> dict:
+    """Phase 13b: llama3.2-1b at full width with 2 layers, float32
+    weights, checkpointed, then ``ft.elastic.rescale`` under a world-1
+    gloo group on the card: every restored leaf a DTensor on the rebuilt
+    (1, 1) mesh, equal bit for bit to the saved tensor."""
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.ft import elastic
+    from repro_torch.models import params as pm
+    from repro_torch.models.model import Model
+    cfg = registry.get(SERVE_ARCH).replace(num_layers=RESCALE_LAYERS)
+    model = Model(cfg).init(SERVE_SEED)
+    ckpt = PIPE_DIR / "ckpt"
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    PIPE_DIR.mkdir(parents=True)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(PIPE_DIR / "store1"), 1), rank=0, world_size=1)
+    try:
+        mgr = CheckpointManager(str(ckpt), async_save=False)
+        t0 = time.perf_counter()
+        mgr.save(1, model.weights())
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh, plan, params, step = elastic.rescale(cfg, mgr, model, 1)
+        restore_s = time.perf_counter() - t0
+        saved = pm.tree_leaves(model.weights())
+        leaves = pm.tree_leaves(params)
+        ok = (step == 1 and len(leaves) == len(saved) and all(
+            isinstance(a, DTensor) and a.device_mesh is mesh
+            and torch.equal(a.full_tensor(), b)
+            for a, b in zip(leaves, saved)))
+        nbytes = sum(b.numel() * b.element_size() for b in saved)
+        print(f"rescale ({card}): {len(leaves)} leaves, "
+              f"{nbytes / 2 ** 30:.3f} GiB, onto mesh {tuple(mesh.shape)} "
+              f"{mesh.mesh_dim_names} ({mesh.device_type}); save "
+              f"{save_s:.2f} s, rescale {restore_s:.2f} s; every leaf a "
+              f"DTensor equal to the saved tensor: {ok}")
+        check(ok, "every restored leaf is a DTensor equal bit for bit to "
+                  "the saved tensor")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    return {"leaves": len(leaves), "bytes": nbytes, "save_s": save_s,
+            "rescale_s": restore_s, "plan_tp": plan.tp}
+
+
+def spmd_path(torch, card: str) -> dict:
+    out = {"pipeline": pipeline_check(torch, card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["rescale"] = rescale_check(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, err, rep, shapes):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -4479,6 +4966,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train = timed("train path", train_path, torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    exp = timed("expandable serve path", expandable_path, torch, serve)
+    spmd = timed("spmd on one card", spmd_path, torch, card)
     timed("profile", profile_phase, torch,
           mp["runs"]["table2_mkDelayWorker32B"]["fused_launches"],
           osp["params"], osp["fig8_probs"])
@@ -4491,6 +4982,8 @@ def main() -> int:
     print(f"§V study: {json.dumps(study)}")
     print(f"recurrent serve path: {json.dumps(rec)}")
     print(f"train path: {json.dumps(train)}")
+    print(f"expandable serve path: {json.dumps(exp)}")
+    print(f"spmd on one card: {json.dumps(spmd)}")
     print(f"phase times (s): {json.dumps(took)}")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/csrc/"
@@ -4544,13 +5037,15 @@ def main() -> int:
                            "src/repro/kernels/paged_attention.py:118",
                            serve["gate_counts"]["paged_attention"]
                            + fleet["paged_launches"]
-                           + mix["gate_counts"]["paged_attention"],
+                           + mix["gate_counts"]["paged_attention"]
+                           + exp["gate_counts"]["paged_attention"],
                            att["max_abs_err"]["paged_attention"], rep_paged,
                            att["rows"]["paged_attention"]),
              launches_by_path={
                  "serve_gate": serve["gate_counts"]["paged_attention"],
                  "fleet_drill": fleet["paged_launches"],
-                 "mixtral_gate": mix["gate_counts"]["paged_attention"]},
+                 "mixtral_gate": mix["gate_counts"]["paged_attention"],
+                 "expandable_gate": exp["gate_counts"]["paged_attention"]},
              # the mixtral path's shapes: 4096-entry rings, window 4096
              max_abs_err_ring=att["max_abs_err"]["paged_ring"],
              mixtral_rows=[r for r in att["rows"]["paged_attention"]
@@ -4561,7 +5056,8 @@ def main() -> int:
                            + sum(p["launches"]["prefill"]
                                  + p["launches"]["decode"]
                                  for p in mmp.values())
-                           + train["run"]["counts"]["flash_attention"],
+                           + train["run"]["counts"]["flash_attention"]
+                           + spmd["pipeline"]["launches"],
                            att["max_abs_err"]["flash_attention"], rep_flash,
                            att["rows"]["flash_attention"]),
              launches_by_path={
@@ -4571,7 +5067,8 @@ def main() -> int:
                     for name, p in mmp.items()
                     for kind in ("prefill", "decode")},
                  "train_full_width": train["run"]["counts"]
-                 ["flash_attention"]},
+                 ["flash_attention"],
+                 "pipeline": spmd["pipeline"]["launches"]},
              per_train_step=train["run"]["per_step_flash"],
              grad_rel_err=train["flash_grads"]["worst"],
              per_prefill={n: p["flash_per_prefill"] for n, p in mmp.items()},

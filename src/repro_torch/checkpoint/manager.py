@@ -10,9 +10,11 @@ host before it returns (a consistent snapshot: the optimizer later writes
 the tensors in place), and the write can run on a background thread, fenced
 by the next ``save`` or ``wait``; ``keep_last`` prunes. numpy holds no
 bfloat16, so a bfloat16 leaf raises instead of being written as another
-type (the masters and moments are float32). One card has no sharding: the
-reference's ``shardings`` re-placement waits for the SPMD slice, and
-``restore`` puts each leaf on its ``like_tree`` leaf's device.
+type (the masters and moments are float32). The arrays are saved whole,
+so a checkpoint restores onto any mesh: ``restore`` puts each leaf on its
+``like_tree`` leaf's device, or with ``shardings`` (a tree of
+``sharding.plan.Sharding``, as ``Plan.param_shardings`` gives it) places it
+as a ``DTensor`` on the current mesh (``ft.elastic.rescale``).
 """
 from __future__ import annotations
 
@@ -39,6 +41,16 @@ def _items(tree, prefix=()):
             yield from _items(v, prefix + (str(i),))
     else:
         yield "/".join(prefix), tree
+
+
+def _dict_leaves(tree):
+    """The leaves of a nested dict in sorted key order (a leaf may be a
+    tuple, as a ``Sharding`` is)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _dict_leaves(tree[k])
+    else:
+        yield tree
 
 
 def _host(key: str, leaf) -> np.ndarray:
@@ -86,6 +98,28 @@ def _sha256(path: str, block: int = 1 << 26) -> str:
         for chunk in iter(lambda: f.read(block), b""):
             h.update(chunk)
     return h.hexdigest()
+
+
+def _place(a: np.ndarray, sh):
+    """The saved array ``a`` as a ``DTensor`` on ``sh.mesh`` with
+    ``sh.placements``: this rank's shard (each ``Shard(d)`` of a mesh
+    dimension splits dimension d into that dimension's size, in mesh order,
+    as ``DTensor`` lays shards out) is cut on the host and copied alone to
+    the device; a rank outside the mesh holds an empty shard."""
+    from torch.distributed.tensor import DTensor, Shard
+    full = torch.from_numpy(a)
+    coord = sh.mesh.get_coordinate()
+    local = full
+    if coord is None:
+        local = full.new_empty(0)
+    else:
+        for i, p in enumerate(sh.placements):
+            if isinstance(p, Shard):
+                local = local.chunk(sh.mesh.size(i), dim=p.dim)[coord[i]]
+    local = local.to(sh.mesh.device_type, copy=True,
+                     memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, sh.mesh, sh.placements, run_check=False,
+                              shape=full.shape, stride=full.stride())
 
 
 class CheckpointManager:
@@ -154,10 +188,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, like_tree, step: Optional[int] = None,
-                verify: bool = True) -> Tuple[Any, int]:
+                shardings=None, verify: bool = True) -> Tuple[Any, int]:
         """Restore into the structure of ``like_tree``: each leaf a tensor
         of the saved dtype on its ``like_tree`` leaf's device (the CPU for
-        a leaf that is no tensor)."""
+        a leaf that is no tensor), or with ``shardings`` a ``DTensor`` on
+        its leaf's mesh and placements (:func:`_place`: each rank reads the
+        whole array on the host and copies only its own shard to its
+        device; no collective runs)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -168,7 +205,11 @@ class CheckpointManager:
         if verify and _sha256(npz_path) != manifest["sha256"]:
             raise IOError(f"checkpoint {path} corrupt (sha256 mismatch)")
         with np.load(npz_path) as data:
-            arrays = [torch.from_numpy(data[k]).to(
-                like.device if isinstance(like, torch.Tensor) else "cpu")
-                for k, like in _items(like_tree)]
+            if shardings is not None:
+                arrays = [_place(data[k], sh) for (k, _), sh in zip(
+                    _items(like_tree), _dict_leaves(shardings))]
+            else:
+                arrays = [torch.from_numpy(data[k]).to(
+                    like.device if isinstance(like, torch.Tensor) else "cpu")
+                    for k, like in _items(like_tree)]
         return _unflatten(like_tree, iter(arrays)), step

@@ -1,7 +1,16 @@
-"""The control plane's work-migration actuation (``Rebalance``).
+"""Elastic scaling: rebuild the mesh and plan on a change of device count
+and restore the parameters onto it, and the control plane's work-migration
+actuation (``Rebalance``); the port of ``repro.ft.elastic``.
 
-The port of ``repro.ft.elastic``'s host-side half (numpy, as the
-reference's). A controller that decides ``Rebalance(chip)`` (rails alone
+The flow: a worker dies and the heartbeat reports a smaller alive set;
+``choose_mesh_shape`` picks the largest usable (data, model) grid;
+:func:`rebuild` makes a ``DeviceMesh`` of that shape over the first
+``n_devices`` ranks of the process group and the plan for it; :func:`rescale`
+restores the parameters from the latest checkpoint, each leaf placed by
+the plan as a ``DTensor`` (``CheckpointManager.restore(...,
+shardings=...)``: the checkpoint is mesh-agnostic).
+
+A controller that decides ``Rebalance(chip)`` (rails alone
 cannot hold the clock) needs something to actually *move the work*.
 :class:`ElasticWorkAssignment` is that something in simulation: a per-chip
 work-share vector that a condemn spreads over the healthy chips, and
@@ -10,20 +19,22 @@ work-share vector that a condemn spreads over the healthy chips, and
 as :class:`~repro_torch.control.telemetry.UtilSample` telemetry, so the
 very next control tick plans rails for the *migrated* load (the condemned
 chip cools at ~zero utilization; its former share heats its neighbours).
-``ElasticWorkAssignment.mesh_hint`` names the (data, model) grid a real
-rescale onto the surviving devices would rebuild.
-
-(The reference's mesh rebuild and checkpoint rescale wait for the sharding
-slice of the port.)
+``ElasticWorkAssignment.mesh_hint`` names the (data, model) grid that
+:func:`rescale` onto the surviving devices rebuilds.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
+from torch.distributed.device_mesh import DeviceMesh
 
+from repro_torch import resolve_device
 from repro_torch.control.controller import Rebalance, Restore
 from repro_torch.control.telemetry import UtilSample
+from repro_torch.models import params as pm
+from repro_torch.sharding.plan import make_plan
 
 
 def choose_mesh_shape(n_devices: int, prefer_model: int = 1) -> Tuple[int, int]:
@@ -33,6 +44,32 @@ def choose_mesh_shape(n_devices: int, prefer_model: int = 1) -> Tuple[int, int]:
         model //= 2
     data = n_devices // model
     return data, model
+
+
+def rebuild(cfg, n_devices: int, prefer_model: int = 1, device=None):
+    """A ``DeviceMesh`` of ``choose_mesh_shape(n_devices, prefer_model)``
+    over ranks ``0 .. n_devices - 1`` of the current process group (of the
+    device type of ``device``; None: the CUDA card), axes ``("data",
+    "model")``, and its plan -> (mesh, plan)."""
+    data, model = choose_mesh_shape(n_devices, prefer_model)
+    mesh = DeviceMesh(resolve_device(device).type,
+                      torch.arange(data * model).reshape(data, model),
+                      mesh_dim_names=("data", "model"))
+    return mesh, make_plan(cfg, mesh)
+
+
+def rescale(cfg, ckpt_mgr, model_obj, n_devices: int, prefer_model: int = 1,
+            step: Optional[int] = None, device=None):
+    """Restore the parameters from a checkpoint onto a rebuilt mesh, each
+    leaf a ``DTensor`` placed by the plan's ``param_shardings`` of
+    ``model_obj``'s parameter tree -> (mesh, plan, params, restored
+    step)."""
+    mesh, plan = rebuild(cfg, n_devices, prefer_model, device)
+    meta = model_obj.param_meta()
+    like = pm.tree_map(lambda m: torch.empty(m.shape, device="meta"), meta)
+    params, got = ckpt_mgr.restore(like, step=step,
+                                   shardings=plan.param_shardings(meta))
+    return mesh, plan, params, got
 
 
 class ElasticWorkAssignment:

@@ -1,26 +1,77 @@
-"""Pod topology: the control plane's worker -> chip mapping.
+"""Meshes and the pod topology (the counterpart of the reference's
+``launch/mesh.py``).
 
-The port of ``repro.launch.mesh``'s :class:`PodTopology` (pure Python, as
-the reference's). It resolves a worker name to a validated pod-local chip
-index (and 2-D pod coordinate), so straggler telemetry lands on the chip
-the actuator can really touch, and ``partition`` lays a fleet out as
-contiguous pods (``control.fleet``'s failure domains). Single pod: 16x16 =
-256 chips; multi-pod: 2 pods = 512 chips, pod-major.
+``make_production_mesh`` gives the production meshes' shapes as a
+:class:`MeshShape` (names and sizes only): 16x16 = 256 chips over
+``("data", "model")``, or 2 pods = 512 chips with a leading ``"pod"`` axis.
+One host does not start 256 or 512 ranks, and the sharding plan
+(``sharding.plan.make_plan``) reads no more than the names and sizes.
+``make_host_mesh`` builds a real ``torch.distributed.device_mesh.DeviceMesh``
+over the ranks of the current process group. Both are functions, so
+importing this module initialises nothing.
 
-(The reference's device-mesh constructors and ``from_mesh`` wait for the
-sharding slice of the port.)
+:class:`PodTopology` (pure Python, as the reference's) resolves a worker
+name to a validated pod-local chip index (and 2-D pod coordinate), so
+straggler telemetry lands on the chip the actuator can really touch, and
+``partition`` lays a fleet out as contiguous pods (``control.fleet``'s
+failure domains). Single pod: 16x16 = 256 chips; multi-pod: 2 pods = 512
+chips, pod-major. ``PodTopology.from_mesh`` reads either kind of mesh.
 """
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 _DIGITS = re.compile(r"\d+")
 # host/worker composition only applies to names that really carry BOTH
 # labels — a bare version digit ("tpu-v4-rank12") must not be mistaken
 # for a host index
 _HOST_WORKER = re.compile(r"host(\d+).*?worker(\d+)")
+
+
+@dataclass(frozen=True)
+class MeshShape:
+    """A mesh of axis names and sizes only, without devices."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.sizes:
+            n *= s
+        return n
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return MeshShape(axes, shape)
+
+
+def make_host_mesh(model: int = 1, device=None):
+    """A ``DeviceMesh`` over the ranks of the current process group, axes
+    ``("data", "model")``, of the device type of ``device`` (None: the CUDA
+    card, raising without one; ``"cpu"`` for a gloo group of CPU ranks)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch import resolve_device
+    if not dist.is_initialized():
+        raise RuntimeError("make_host_mesh needs an initialised process "
+                           "group (torch.distributed.init_process_group)")
+    n = dist.get_world_size()
+    model = min(model, n)
+    return DeviceMesh(resolve_device(device).type,
+                      torch.arange(n).reshape(n // model, model),
+                      mesh_dim_names=("data", "model"))
 
 
 @dataclass(frozen=True)
@@ -111,3 +162,21 @@ class PodTopology:
                 f"{n_chips} chips do not split into {n_pods} equal pods")
         per = n_chips // n_pods
         return tuple((p * per, (p + 1) * per) for p in range(n_pods))
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_mesh(cls, mesh, workers_per_host: Optional[int] = None
+                  ) -> "PodTopology":
+        """Topology of a mesh (a ``DeviceMesh`` or a :class:`MeshShape`):
+        the trailing two axes are the pod grid, any leading axes multiply
+        into ``n_pods``."""
+        from repro_torch.sharding.plan import mesh_axes
+        shape = tuple(mesh_axes(mesh).values())
+        if len(shape) == 1:
+            shape = (1,) + shape
+        grid = shape[-2:]
+        n_pods = 1
+        for d in shape[:-2]:
+            n_pods *= int(d)
+        return cls(grid=(int(grid[0]), int(grid[1])), n_pods=n_pods,
+                   workers_per_host=workers_per_host)

@@ -103,8 +103,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model-parallel > 1 needs the SPMD slice of the port "
-            "(ROADMAP queue 1, item 6); one card trains with "
+            "--model-parallel > 1 needs the rest of the SPMD tier: a train "
+            "step executed under the sharding plan across ranks (tensor "
+            "and FSDP parallelism) and the step's hoist_gather, which the "
+            "port does not have yet; one card trains with "
             "--model-parallel 1")
     if args.batch % args.n_accum:
         raise ValueError(f"--n-accum {args.n_accum} does not divide "

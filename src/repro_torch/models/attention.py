@@ -51,6 +51,7 @@ from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import layers as L
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.params import ParamMeta, dense
+from repro_torch.sharding.plan import Spec
 
 NEG_INF = -1e30
 
@@ -166,9 +167,9 @@ def _new_pos_ids(positions, n_valid):
 # GQA
 # =============================================================================
 
-def gqa_params(cfg: ModelConfig, cross: bool = False):
+def gqa_params(cfg: ModelConfig, cross: bool = False, *, plan):
     d, dh = cfg.d_model, cfg.head_dim
-    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    h, hkv = plan.num_heads, plan.num_kv_heads
     p = {
         "wq": ParamMeta((d, h, dh), ("embed", "heads", None), fan_in=d),
         "wk": ParamMeta((d, hkv, dh), ("embed", "kv_heads", None), fan_in=d),
@@ -294,15 +295,22 @@ def cache_len(cfg: ModelConfig, max_len: int) -> int:
 
 
 def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                   device=None):
+                   device=None, *, plan):
     T = cache_len(cfg, max_len)
-    hkv, dh = cfg.num_kv_heads, cfg.head_dim
+    hkv, dh = plan.num_kv_heads, cfg.head_dim
     return {
         "k": torch.zeros((batch, T, hkv, dh), dtype=dtype, device=device),
         "v": torch.zeros((batch, T, hkv, dh), dtype=dtype, device=device),
         "pos_ids": torch.full((batch, T), -1, dtype=torch.int32,
                               device=device),
     }
+
+
+def gqa_cache_spec(plan, seq_axis=None):
+    b = plan.batch_axes
+    kvh = plan.rules.get("kv_heads")
+    return {"k": Spec(b, seq_axis, kvh, None),
+            "v": Spec(b, seq_axis, kvh, None), "pos_ids": Spec(b, seq_axis)}
 
 
 def _win_mask(entry_pos, positions, window: int):
@@ -520,8 +528,8 @@ def gqa_seed_cache(cache, kv, prefill_len: int, lengths=None):
 # MLA (deepseek-v2): low-rank compressed KV, absorbed decode
 # =============================================================================
 
-def mla_params(cfg: ModelConfig):
-    d, h = cfg.d_model, cfg.num_heads
+def mla_params(cfg: ModelConfig, plan):
+    d, h = cfg.d_model, plan.num_heads
     nope, rope_d, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
                         cfg.v_head_dim)
     r = cfg.kv_lora_rank
@@ -581,6 +589,12 @@ def mla_apply(p, x, cfg: ModelConfig, positions=None):
         *k_nope.shape[:3], k_rope.shape[-1])], -1)
     o = _sdpa(q, k, v, causal_mask(S, S, 0, device=x.device))
     return _out(o, p["wo"]), (c_kv, k_rope)
+
+
+def mla_cache_spec(plan, seq_axis=None):
+    b = plan.batch_axes
+    return {"c_kv": Spec(b, seq_axis, None), "k_rope": Spec(b, seq_axis, None),
+            "pos_ids": Spec(b, seq_axis)}
 
 
 def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,

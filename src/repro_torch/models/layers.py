@@ -6,9 +6,9 @@ Functional style: ``*_params(cfg)`` builds a ParamMeta tree, ``*_apply(p, x,
 stored in ``cfg.param_dtype``. The reference casts each weight at every use;
 here the caller hands the layers weights already cast to the compute dtype
 (``Model`` keeps one cast copy, the same values), while norm scales are read
-in float32 as the reference reads them. One card has no sharding, so the
-padded widths of the reference's single-device plan are the config's own:
-the vocabulary padded to a multiple of 128.
+in float32 as the reference reads them. The vocabulary is the plan's
+(``sharding.plan``): padded to a multiple of 128 without a mesh, and of
+``max(128, tp)`` with one.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig, pad_to_multiple
+from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models.params import ParamMeta, dense, torch_dtype
 
@@ -29,10 +29,6 @@ TAPE = None
 
 def cdt(cfg: ModelConfig) -> torch.dtype:
     return torch_dtype(cfg.dtype)
-
-
-def padded_vocab(cfg: ModelConfig) -> int:
-    return pad_to_multiple(cfg.vocab_size, 128)
 
 
 def tap(name: str, x):
@@ -172,8 +168,8 @@ def mlp_apply(p, x, cfg: ModelConfig, cols: bool = False):
 
 # --- embeddings ----------------------------------------------------------------
 
-def embed_params(cfg: ModelConfig):
-    v = padded_vocab(cfg)
+def embed_params(cfg: ModelConfig, plan):
+    v = plan.vocab
     p = {"embedding": ParamMeta((v, cfg.d_model), ("vocab", "embed"),
                                 init="embed", fan_in=cfg.d_model)}
     if not cfg.tie_embeddings:

@@ -20,8 +20,14 @@ reference's tree paths (``blocks.stack.attn.wq``, ``blocks.groups.ssm.wB``,
 ...), stored in ``cfg.param_dtype``. The reference casts each weight to
 ``cfg.dtype`` at every use; the port keeps one cast copy, made when the
 weights are set, which gives the same values (at full width a fresh cast
-of llama3.2-1b's 1.24 B parameters on every tick would move ~7.4 GB). It
-takes no sharding plan: one card has none.
+of llama3.2-1b's 1.24 B parameters on every tick would move ~7.4 GB).
+
+``Model(cfg, plan=...)`` takes a sharding plan (``sharding.plan``), as the
+reference's ``Model(cfg, plan)`` does: the plan's padded heads, KV heads and
+vocabulary size the parameters and the caches (``make_plan(cfg, None)``
+without one: the config's own heads, the vocabulary padded to 128), and
+:meth:`Model.cache_specs` gives the caches' partition specs. The forward
+reads its widths off the weights, so a padded model runs as any other.
 
 Training (``repro_torch.train``) differentiates :meth:`Model.loss_forward`,
 which casts a tree of float32 masters at use inside the graph, as the
@@ -43,6 +49,7 @@ from repro_torch.models import multimodal as mm
 from repro_torch.models import params as pm
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import cdt
+from repro_torch.sharding.plan import Plan, make_plan
 
 # leaves the reference casts to the compute dtype at use; the rest (norm
 # scales and biases, qk-norm scales, the mamba blocks' A_log and norm) it
@@ -95,24 +102,29 @@ class _Family(NamedTuple):
     prefill: Callable
     decode: Callable
     cache: Callable
+    cache_specs: Callable
     frontend: Optional[str]
 
 
 _LM = _Family(tf.lm_params, tf.lm_apply, tf.lm_prefill, tf.lm_decode,
-              tf.lm_cache, None)
+              tf.lm_cache, tf.lm_cache_specs, None)
 _MULTIMODAL = {
     "vlm": _Family(mm.vlm_params, mm.vlm_apply, mm.vlm_prefill,
-                   mm.vlm_decode, mm.vlm_cache, "image_embeds"),
+                   mm.vlm_decode, mm.vlm_cache, mm.vlm_cache_specs,
+                   "image_embeds"),
     "audio": _Family(mm.whisper_params, mm.whisper_apply, mm.whisper_prefill,
-                     mm.whisper_decode, mm.whisper_cache, "audio_frames"),
+                     mm.whisper_decode, mm.whisper_cache,
+                     mm.whisper_cache_specs, "audio_frames"),
 }
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, *, plan: Optional[Plan] = None,
+                 device=None):
         super().__init__()
         tf.check_supported(cfg)
         self.cfg = cfg
+        self.plan = make_plan(cfg, None) if plan is None else plan
         self.device = resolve_device(device)
         self._compute: Optional[Dict[str, Any]] = None
 
@@ -131,7 +143,7 @@ class Model(nn.Module):
 
     # --- params -----------------------------------------------------------
     def param_meta(self):
-        return self._family.params(self.cfg)
+        return self._family.params(self.cfg, self.plan)
 
     def n_params(self) -> int:
         return pm.n_params(self.param_meta())
@@ -202,7 +214,8 @@ class Model(nn.Module):
     def prefill(self, batch: Dict[str, Any], max_len: Optional[int] = None,
                 lengths=None):
         return self._family.prefill(self.params, *self._inputs(batch),
-                                    self.cfg, max_len, lengths=lengths)
+                                    self.cfg, self.plan, max_len,
+                                    lengths=lengths)
 
     @torch.no_grad()
     def decode(self, tokens, cache, pos, n_valid=None, block_table=None,
@@ -231,5 +244,9 @@ class Model(nn.Module):
     def cache(self, batch_size: int, max_len: int, device=None):
         """The zero decode cache, on the model's device unless ``device``
         is given (``"meta"`` gives its layout without allocating)."""
-        return self._family.cache(self.cfg, batch_size, max_len,
+        return self._family.cache(self.cfg, self.plan, batch_size, max_len,
                                   cdt(self.cfg), device or self.device)
+
+    def cache_specs(self, seq_axis=None):
+        """The partition specs of :meth:`cache`'s tree under the plan."""
+        return self._family.cache_specs(self.cfg, self.plan, seq_axis)

@@ -39,12 +39,14 @@ from repro_torch.models.params import stack_tree
 from repro_torch.models.transformer import (_stack, attn_block_apply,
                                             attn_block_decode,
                                             attn_block_params, depth, layer,
-                                            run_block, zero_aux)
+                                            layer_spec, run_block, zero_aux)
+from repro_torch.sharding.plan import Spec
 
 
-def _seeded(cfg, kv, batch, max_len, dtype, lengths):
+def _seeded(cfg, kv, batch, max_len, dtype, lengths, plan):
     """One self-attention block's decode cache seeded from its prefill K/V."""
-    cache = attn.gqa_cache_init(cfg, batch, max_len, dtype, kv[0].device)
+    cache = attn.gqa_cache_init(cfg, batch, max_len, dtype, kv[0].device,
+                                plan=plan)
     return attn.gqa_seed_cache(cache, kv, kv[0].shape[1], lengths=lengths)
 
 
@@ -66,10 +68,10 @@ def _cross_step(p, h, kv, cfg: ModelConfig, qk_norm: bool):
 # VLM: self-attention groups + gated cross-attention blocks
 # =============================================================================
 
-def cross_block_params(cfg: ModelConfig):
+def cross_block_params(cfg: ModelConfig, plan):
     return {
         "ln1": L.norm_params(cfg),
-        "attn": attn.gqa_params(cfg, cross=True),
+        "attn": attn.gqa_params(cfg, cross=True, plan=plan),
         "ln2": L.norm_params(cfg),
         "mlp": L.mlp_params(cfg),
     }
@@ -92,22 +94,22 @@ def cross_block_decode(p, x, kv_cache, cfg: ModelConfig):
     return x + L.mlp_apply(p["mlp"], h, cfg)
 
 
-def vlm_params(cfg: ModelConfig):
+def vlm_params(cfg: ModelConfig, plan):
     k = cfg.cross_attn_every
     n_groups = cfg.num_layers // k
     return {
-        "embed": L.embed_params(cfg),
+        "embed": L.embed_params(cfg, plan),
         "final_ln": L.norm_params(cfg),
         "blocks": {
-            "groups": stack_tree(stack_tree(attn_block_params(cfg), k),
-                                 n_groups),
-            "cross": stack_tree(cross_block_params(cfg), n_groups),
+            "groups": stack_tree(stack_tree(
+                attn_block_params(cfg, plan=plan), k), n_groups),
+            "cross": stack_tree(cross_block_params(cfg, plan), n_groups),
         },
     }
 
 
 def _vlm_forward(params, tokens, image_embeds, cfg, max_len=None,
-                 lengths=None):
+                 lengths=None, plan=None):
     """The forward; with ``max_len`` also the seeded decode cache."""
     x = L.embed_apply(params["embed"], tokens, cfg)
     img = image_embeds.to(x.dtype)
@@ -122,7 +124,7 @@ def _vlm_forward(params, tokens, image_embeds, cfg, max_len=None,
                                  cfg, collect_kv=True)
             if max_len:
                 group.append(_seeded(cfg, kv, B, max_len, L.cdt(cfg),
-                                     lengths))
+                                     lengths, plan))
         x, (ck, cv) = run_block(cross_block_apply, cfg,
                                 layer(bp["cross"], g), x, img, cfg)
         if max_len:
@@ -141,24 +143,35 @@ def vlm_apply(params, tokens, image_embeds, cfg: ModelConfig):
         zero_aux(tokens.device)
 
 
-def vlm_prefill(params, tokens, image_embeds, cfg: ModelConfig,
+def vlm_prefill(params, tokens, image_embeds, cfg: ModelConfig, plan,
                 max_len: Optional[int] = None, lengths=None):
     return _vlm_forward(params, tokens, image_embeds, cfg,
-                        max_len or tokens.shape[1], lengths)
+                        max_len or tokens.shape[1], lengths, plan)
 
 
-def vlm_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+def vlm_cache(cfg: ModelConfig, plan, batch: int, max_len: int, dtype,
               device=None):
     k = cfg.cross_attn_every
     n_groups = cfg.num_layers // k
-    kv = attn.gqa_cache_init(cfg, batch, max_len, dtype, device)
-    shape = (n_groups, batch, cfg.num_image_tokens, cfg.num_kv_heads,
-             cfg.head_dim)
+    kv = attn.gqa_cache_init(cfg, batch, max_len, dtype, device, plan=plan)
+    shape = (n_groups, batch, cfg.num_image_tokens,
+             plan.num_kv_heads, cfg.head_dim)
     return {
         "self": _stack([_stack([kv] * k)] * n_groups),
         "cross": {"k": torch.zeros(shape, dtype=dtype, device=device),
                   "v": torch.zeros(shape, dtype=dtype, device=device)},
     }
+
+
+def _cross_spec(plan):
+    kvh = plan.rules.get("kv_heads")
+    spec = Spec(None, plan.batch_axes, None, kvh, None)
+    return {"k": spec, "v": spec}
+
+
+def vlm_cache_specs(cfg: ModelConfig, plan, seq_axis=None):
+    return {"self": layer_spec(attn.gqa_cache_spec(plan, seq_axis), 2),
+            "cross": _cross_spec(plan)}
 
 
 def vlm_decode(params, tokens, cache, pos, cfg: ModelConfig, n_valid=None):
@@ -199,25 +212,26 @@ def _sin_at(positions, cfg: ModelConfig, dtype):
     return _sin(positions.float(), cfg.d_model, dtype)
 
 
-def dec_block_params(cfg: ModelConfig):
+def dec_block_params(cfg: ModelConfig, plan):
     return {
         "ln1": L.norm_params(cfg),
-        "self_attn": attn.gqa_params(cfg),
+        "self_attn": attn.gqa_params(cfg, plan=plan),
         "ln_x": L.norm_params(cfg),
-        "cross_attn": attn.gqa_params(cfg, cross=True),
+        "cross_attn": attn.gqa_params(cfg, cross=True, plan=plan),
         "ln2": L.norm_params(cfg),
         "mlp": L.mlp_params(cfg),
     }
 
 
-def whisper_params(cfg: ModelConfig):
-    enc_block = {"ln1": L.norm_params(cfg), "attn": attn.gqa_params(cfg),
+def whisper_params(cfg: ModelConfig, plan):
+    enc_block = {"ln1": L.norm_params(cfg),
+                 "attn": attn.gqa_params(cfg, plan=plan),
                  "ln2": L.norm_params(cfg), "mlp": L.mlp_params(cfg)}
     return {
-        "embed": L.embed_params(cfg),
+        "embed": L.embed_params(cfg, plan),
         "enc": stack_tree(enc_block, cfg.encoder_layers),
         "enc_ln": L.norm_params(cfg),
-        "dec": stack_tree(dec_block_params(cfg), cfg.num_layers),
+        "dec": stack_tree(dec_block_params(cfg, plan), cfg.num_layers),
         "final_ln": L.norm_params(cfg),
     }
 
@@ -253,7 +267,7 @@ def _dec_block(lp, x, enc_out, cfg: ModelConfig):
 
 
 def _whisper_forward(params, tokens, frames, cfg, max_len=None,
-                     lengths=None):
+                     lengths=None, plan=None):
     enc_out = whisper_encode(params, frames, cfg)
     x = L.embed_apply(params["embed"], tokens, cfg)
     B, S = tokens.shape
@@ -263,7 +277,8 @@ def _whisper_forward(params, tokens, frames, cfg, max_len=None,
         x, kv, (ck, cv) = run_block(_dec_block, cfg, layer(params["dec"], i),
                                     x, enc_out, cfg)
         if max_len:
-            selfs.append(_seeded(cfg, kv, B, max_len, L.cdt(cfg), lengths))
+            selfs.append(_seeded(cfg, kv, B, max_len, L.cdt(cfg), lengths,
+                                 plan))
             cks.append(ck)
             cvs.append(cv)
     x = L.norm_apply(params["final_ln"], x, cfg)
@@ -278,22 +293,27 @@ def whisper_apply(params, tokens, frames, cfg: ModelConfig):
         zero_aux(tokens.device)
 
 
-def whisper_prefill(params, tokens, frames, cfg: ModelConfig,
+def whisper_prefill(params, tokens, frames, cfg: ModelConfig, plan,
                     max_len: Optional[int] = None, lengths=None):
     return _whisper_forward(params, tokens, frames, cfg,
-                            max_len or tokens.shape[1], lengths)
+                            max_len or tokens.shape[1], lengths, plan)
 
 
-def whisper_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+def whisper_cache(cfg: ModelConfig, plan, batch: int, max_len: int, dtype,
                   device=None):
     nl = cfg.num_layers
-    kv = attn.gqa_cache_init(cfg, batch, max_len, dtype, device)
-    shape = (nl, batch, cfg.encoder_frames, cfg.num_kv_heads, cfg.head_dim)
+    kv = attn.gqa_cache_init(cfg, batch, max_len, dtype, device, plan=plan)
+    shape = (nl, batch, cfg.encoder_frames, plan.num_kv_heads, cfg.head_dim)
     return {
         "self": _stack([kv] * nl),
         "cross": {"k": torch.zeros(shape, dtype=dtype, device=device),
                   "v": torch.zeros(shape, dtype=dtype, device=device)},
     }
+
+
+def whisper_cache_specs(cfg: ModelConfig, plan, seq_axis=None):
+    return {"self": layer_spec(attn.gqa_cache_spec(plan, seq_axis)),
+            "cross": _cross_spec(plan)}
 
 
 def whisper_decode(params, tokens, cache, pos, cfg: ModelConfig,

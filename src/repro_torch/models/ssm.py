@@ -25,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ParamMeta, dense
+from repro_torch.sharding.plan import Spec
 
 
 def ssm_params(cfg: ModelConfig):
@@ -146,6 +147,12 @@ def ssm_state_init(cfg: ModelConfig, batch: int, dtype, device=None):
         "conv": torch.zeros((batch, cfg.d_inner, cfg.ssm_conv - 1),
                             dtype=dtype, device=device),
     }
+
+
+def ssm_state_spec(plan):
+    b = plan.batch_axes
+    return {"ssm": Spec(b, plan.rules.get("ssm_heads"), None, None),
+            "conv": Spec(b, plan.rules.get("dinner"), None)}
 
 
 def ssm_decode(p, x, state, cfg: ModelConfig):

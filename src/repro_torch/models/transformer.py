@@ -30,7 +30,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.params import stack_tree, tree_leaves
+from repro_torch.models.params import stack_tree, tree_leaves, tree_map
+from repro_torch.sharding.plan import Spec
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
@@ -90,11 +91,13 @@ def _stack(trees):
 # single blocks
 # =============================================================================
 
-def attn_block_params(cfg: ModelConfig, use_moe: bool = False, d_ff=None):
+def attn_block_params(cfg: ModelConfig, use_moe: bool = False, d_ff=None,
+                      *, plan):
     p = {
         "ln1": L.norm_params(cfg),
         "ln2": L.norm_params(cfg),
-        "attn": attn.mla_params(cfg) if _mla(cfg) else attn.gqa_params(cfg),
+        "attn": (attn.mla_params(cfg, plan) if _mla(cfg)
+                 else attn.gqa_params(cfg, plan=plan)),
     }
     if use_moe:
         p["moe"] = moe_lib.moe_params(cfg)
@@ -192,12 +195,13 @@ def _blocks(tree, cfg: ModelConfig):
             + [layer(tree["stack"], i) for i in range(depth(tree["stack"]))])
 
 
-def attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+def attn_cache(cfg: ModelConfig, plan, batch: int, max_len: int, dtype,
                device=None):
     """One attention block's zero decode cache: MLA's compressed rows, or
-    GQA's K/V (a ring for a sliding window)."""
-    init = attn.mla_cache_init if _mla(cfg) else attn.gqa_cache_init
-    return init(cfg, batch, max_len, dtype, device)
+    GQA's K/V (a ring for a sliding window) with the plan's KV heads."""
+    if _mla(cfg):
+        return attn.mla_cache_init(cfg, batch, max_len, dtype, device)
+    return attn.gqa_cache_init(cfg, batch, max_len, dtype, device, plan=plan)
 
 
 def seed_attn_cache(cfg: ModelConfig, cache, kv, lengths=None):
@@ -207,9 +211,9 @@ def seed_attn_cache(cfg: ModelConfig, cache, kv, lengths=None):
     return seed(cache, kv, kv[0].shape[1], lengths=lengths)
 
 
-def lm_params(cfg: ModelConfig):
+def lm_params(cfg: ModelConfig, plan):
     check_supported(cfg)
-    p: Dict[str, Any] = {"embed": L.embed_params(cfg),
+    p: Dict[str, Any] = {"embed": L.embed_params(cfg, plan),
                          "final_ln": L.norm_params(cfg)}
     if cfg.family == "hybrid":
         k = cfg.hybrid_attn_every
@@ -217,7 +221,7 @@ def lm_params(cfg: ModelConfig):
         p["blocks"] = {
             "groups": stack_tree(stack_tree(ssm_block_params(cfg), k),
                                  n_groups),
-            "shared_attn": attn_block_params(cfg),
+            "shared_attn": attn_block_params(cfg, plan=plan),
             "tail": (stack_tree(ssm_block_params(cfg), rem) if rem
                      else {}),
         }
@@ -227,9 +231,11 @@ def lm_params(cfg: ModelConfig):
     else:
         n_dense = _n_dense(cfg)
         p["blocks"] = {
-            "stack": stack_tree(attn_block_params(cfg, use_moe=cfg.is_moe),
+            "stack": stack_tree(attn_block_params(cfg, use_moe=cfg.is_moe,
+                                                  plan=plan),
                                 cfg.num_layers - n_dense),
-            **{f"dense{i}": attn_block_params(cfg) for i in range(n_dense)}}
+            **{f"dense{i}": attn_block_params(cfg, plan=plan)
+               for i in range(n_dense)}}
     return p
 
 
@@ -266,7 +272,7 @@ def lm_apply(params, tokens, cfg: ModelConfig):
     return L.unembed_apply(params["embed"], x, cfg), aux
 
 
-def lm_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+def lm_cache(cfg: ModelConfig, plan, batch: int, max_len: int, dtype,
              device=None):
     """Zero decode cache for the whole stack, every leaf with its leading
     layer axes: dense and moe ``{"stack": {"k", "v": (L, B, T, Hkv, D),
@@ -276,13 +282,13 @@ def lm_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     (L, B, T, rope) and ``pos_ids``); ssm ``{"stack": {"ssm": (L, B, H,
     P, N), "conv": (L, B, d_inner, K - 1)}}``; hybrid ``{"groups":
     (n_groups, k, B, ...) states, "shared_attn": (n_groups, B, T, ...)
-    K/V, "tail": (r, B, ...) states or {}}``."""
+    K/V, "tail": (r, B, ...) states or {}}``. Hkv is the plan's."""
     check_supported(cfg)
     if cfg.family in ("dense", "moe"):
         n_dense = _n_dense(cfg)
-        kv = attn_cache(cfg, batch, max_len, dtype, device)
+        kv = attn_cache(cfg, plan, batch, max_len, dtype, device)
         return {"stack": _stack([kv] * (cfg.num_layers - n_dense)),
-                **{f"dense{i}": attn_cache(cfg, batch, max_len, dtype,
+                **{f"dense{i}": attn_cache(cfg, plan, batch, max_len, dtype,
                                            device)
                    for i in range(n_dense)}}
     state = ssm_lib.ssm_state_init(cfg, batch, dtype, device)
@@ -290,7 +296,7 @@ def lm_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
         return {"stack": _stack([state] * cfg.num_layers)}
     k = cfg.hybrid_attn_every
     n_groups, rem = divmod(cfg.num_layers, k)
-    kv = attn_cache(cfg, batch, max_len, dtype, device)
+    kv = attn_cache(cfg, plan, batch, max_len, dtype, device)
     return {
         "groups": _stack([_stack([state] * k)] * n_groups),
         "shared_attn": _stack([kv] * n_groups),
@@ -298,7 +304,34 @@ def lm_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     }
 
 
-def lm_prefill(params, tokens, cfg: ModelConfig,
+def layer_spec(tree, n: int = 1):
+    """A spec tree with ``n`` leading (replicated) layer axes added."""
+    for _ in range(n):
+        tree = tree_map(lambda s: Spec(None, *s), tree)
+    return tree
+
+
+def lm_cache_specs(cfg: ModelConfig, plan, seq_axis=None):
+    """The partition specs of :func:`lm_cache`'s tree."""
+    a_spec = (attn.mla_cache_spec(plan, seq_axis) if _mla(cfg)
+              else attn.gqa_cache_spec(plan, seq_axis))
+    s_spec = ssm_lib.ssm_state_spec(plan)
+    if cfg.family in ("dense", "moe"):
+        c = {"stack": layer_spec(a_spec)}
+        for i in range(cfg.first_k_dense):
+            c[f"dense{i}"] = a_spec
+        return c
+    if cfg.family == "ssm":
+        return {"stack": layer_spec(s_spec)}
+    if cfg.family == "hybrid":
+        rem = cfg.num_layers % cfg.hybrid_attn_every
+        return {"groups": layer_spec(s_spec, 2),
+                "shared_attn": layer_spec(a_spec),
+                "tail": layer_spec(s_spec) if rem else {}}
+    raise ValueError(cfg.family)
+
+
+def lm_prefill(params, tokens, cfg: ModelConfig, plan,
                max_len: Optional[int] = None, lengths=None):
     """tokens (B,S) -> (logits, seeded cache with capacity max_len or S).
 
@@ -320,8 +353,8 @@ def lm_prefill(params, tokens, cfg: ModelConfig,
         cache: Dict[str, Any] = {"stack": _stack(states)}
     elif cfg.family == "hybrid":
         n_groups = depth(bp["groups"])
-        shared = _stack([attn_cache(cfg, B, max_len, dtype, x.device)]
-                        * n_groups)
+        shared = _stack([attn_cache(cfg, plan, B, max_len, dtype,
+                                    x.device)] * n_groups)
         g_states, tail = [], []
         for g in range(n_groups):
             states = []
@@ -334,7 +367,7 @@ def lm_prefill(params, tokens, cfg: ModelConfig,
         cache = {"groups": _stack(g_states), "shared_attn": shared,
                  "tail": _stack(tail) if tail else {}}
     else:
-        cache = lm_cache(cfg, B, max_len, dtype, x.device)
+        cache = lm_cache(cfg, plan, B, max_len, dtype, x.device)
         for lp, lc in zip(_blocks(bp, cfg), _blocks(cache, cfg)):
             x, _, kv = attn_block_apply(lp, x, cfg, collect_kv=True)
             seed_attn_cache(cfg, lc, kv, lengths=lengths)
@@ -349,8 +382,8 @@ def lm_decode(params, tokens, cache, pos, cfg: ModelConfig, n_valid=None,
     returned). ``pos`` is a scalar or a (B,) vector of per-slot positions.
     Attention stacks take S > 1 (a chunked-prefill extend) with ``n_valid``
     (B,) marking real tokens per row, and with ``block_table`` (B, n_pages)
-    int32 the serving tier's page pool (``lm_cache(cfg, pages, page_size,
-    ...)``) as the cache; ``scratch_table`` (B, n_scratch) int32 names
+    int32 the serving tier's page pool (``lm_cache(cfg, plan, pages,
+    page_size, ...)``) as the cache; ``scratch_table`` (B, n_scratch) int32 names
     each slot's scratch pages of the pool, which a chunk on a wrapping
     sliding-window ring passes through (``attention.gqa_decode``), and
     ``null_page`` the page that its unallocated entries name, which MLA's

@@ -33,8 +33,19 @@ when its slot is next filled. The paged pool serves attention-only stacks
 (pages on the slot axis and ``page_size`` entries on the sequence axis
 after it: axis 1 and 2 of a stack's ``(L, pages, ps, ...)`` leaves, axis 0
 and 1 of an MoE stack's ``dense{i}`` blocks); the engine refuses it for the
-recurrent families, as the reference does. The expandable managers wait for
-a later slice of the port.
+recurrent families, as the reference does.
+
+``ExpandableKVCacheManager`` starts at ``initial_len`` entries per slot and
+doubles up to ``max_len`` on demand (``ensure``): the leaves that carry a
+sequence axis, found by building the cache at two lengths and taking the
+axis where they differ (:func:`probe_axes`), grow, K/V padded with 0 and
+``pos_ids`` with -1; the leaves that carry none (SSM and conv states, a
+window-clamped ring) stay as they are. A growth replaces the grown
+tensors, so the engine reads ``mgr.cache`` afresh on every step.
+``ExpandablePagedKVCacheManager`` sizes its pool for ``max_len`` up front
+and grows only the block tables, with null-page columns: a live page never
+moves. ``restore`` pads rows captured before a growth out to the current
+shapes (``pos_ids`` with -1), in both kinds.
 """
 from __future__ import annotations
 
@@ -56,13 +67,43 @@ def tree_map(fn, *trees, _path=()):
     return fn(_path, *trees)
 
 
+def probe_axes(a, b):
+    """Per leaf, the first axis where two cache trees' shapes differ, or
+    None where they agree (the reference's ``_probe_axes``, NO_AXIS)."""
+    return tree_map(lambda path, x, y: next(
+        (i for i, (m, n) in enumerate(zip(x.shape, y.shape)) if m != n),
+        None), a, b)
+
+
 def slot_axes(model, max_len: int):
     """The slot axis of every leaf of ``model.cache``: the one axis where
     the cache at two slots differs from the cache at one."""
-    one, two = (model.cache(n, max_len, device="meta") for n in (1, 2))
-    return tree_map(lambda path, a, b: next(
-        i for i, (m, n) in enumerate(zip(a.shape, b.shape)) if m != n),
-        one, two)
+    return probe_axes(*(model.cache(n, max_len, device="meta")
+                        for n in (1, 2)))
+
+
+def _pad_to(path, row, shape, skip=None):
+    """``row`` grown at its ends to ``shape`` (axis ``skip`` left as it
+    is), with -1 for ``pos_ids`` and 0 elsewhere."""
+    for ax, want in enumerate(shape):
+        pad = want - row.shape[ax]
+        if ax == skip or pad <= 0:
+            continue
+        fill = list(row.shape)
+        fill[ax] = pad
+        row = torch.cat([row, torch.full(fill, _fill(path), dtype=row.dtype,
+                                         device=row.device)], ax)
+    return row
+
+
+def _doubled(capacity: int, needed: int, limit: int) -> int:
+    """``capacity`` doubled (at most to ``limit``) until it holds
+    ``needed``; ``ValueError`` past ``limit``."""
+    if needed > limit:
+        raise ValueError(f"request needs {needed} tokens; max_len={limit}")
+    while capacity < needed:
+        capacity = min(capacity * 2, limit)
+    return capacity
 
 
 def _slots(axis: int, ids):
@@ -78,12 +119,13 @@ class KVCacheManager:
     """Fixed-capacity cache over ``slots`` rows of length ``max_len``."""
 
     def __init__(self, model, slots: int, max_len: int,
-                 page_size: int = 16):
+                 page_size: int = 16, alloc: bool = True):
         self.model = model
         self.slots = slots
         self.max_len = max_len
         self.page_size = page_size
-        self.cache = model.cache(slots, max_len)
+        if alloc:
+            self.cache = model.cache(slots, max_len)
         self.axes = slot_axes(model, max_len)
         # host-side bookkeeping (no device sync needed to schedule)
         self.pos = np.zeros(slots, np.int32)        # next decode position
@@ -188,7 +230,12 @@ class KVCacheManager:
 
     def restore(self, slot: int, rows, pos: int):
         """Scatter one preempted row set back into a (re)allocated slot and
-        rewind its decode position — the resume half of preemption."""
+        rewind its decode position — the resume half of preemption. Rows
+        captured before an :class:`ExpandableKVCacheManager` growth are
+        padded out to the current leaf shapes (-1 for ``pos_ids``)."""
+        rows = tree_map(lambda path, row, axis, cur: _pad_to(
+            path, torch.as_tensor(row), cur.shape, skip=axis),
+            rows, self.axes, self.cache)
         self.write_rows([slot], rows)
         self.pos[slot] = int(pos)
         self._set_slot_pages(
@@ -199,6 +246,40 @@ class KVCacheManager:
             self.pos[s] += int(n)
             self._set_slot_pages(
                 s, max(1, math.ceil(int(self.pos[s]) / self.page_size)))
+
+
+class ExpandableKVCacheManager(KVCacheManager):
+    """Starts at ``initial_len`` entries per slot and doubles up to
+    ``max_len``. A growth re-allocates only the leaves that carry a
+    sequence axis (probed: SSM and conv states and a window-clamped ring
+    are left alone), K/V padded with 0 and ``pos_ids`` with -1."""
+
+    def __init__(self, model, slots: int, max_len: int,
+                 initial_len: int = 64, page_size: int = 16):
+        initial_len = min(initial_len, max_len)
+        super().__init__(model, slots, max_len, page_size, alloc=False)
+        self.capacity = initial_len
+        self.cache = model.cache(slots, initial_len)
+        self.grows = 0
+
+    def ensure(self, needed: int):
+        """Grow the capacity (doubling) until it holds ``needed`` tokens
+        per slot; more than ``max_len`` raises ``ValueError`` (the
+        reference's raises where the capacity is ``max_len`` already and
+        loops forever where it is not)."""
+        if needed <= self.capacity:
+            return
+        new_cap = _doubled(self.capacity, needed, self.max_len)
+        old, new = (self.model.cache(self.slots, n, device="meta")
+                    for n in (self.capacity, new_cap))
+        # a leaf grows to its shape at the new length (a ring longer than
+        # the old capacity stops at its window)
+        self.cache = tree_map(
+            lambda path, leaf, ax, want: leaf if ax is None else _pad_to(
+                path, leaf, want.shape),
+            self.cache, probe_axes(old, new), new)
+        self.capacity = new_cap
+        self.grows += 1
 
 
 class HostPagePool:
@@ -574,3 +655,41 @@ class PagedKVCacheManager:
         for s, n in zip(slot_ids, counts):
             self.pos[s] += int(n)
             self.extend(s, int(self.pos[s]))
+
+
+class ExpandablePagedKVCacheManager(PagedKVCacheManager):
+    """A paged manager whose per-slot capacity starts at ``initial_len`` and
+    doubles up to ``max_len``. A growth only widens the block tables with
+    null-page columns: live pages never move and the pool, sized for
+    ``max_len`` up front, is untouched, so it costs O(slots) on the host.
+    The model's step reads the table's width as the slot's extent, so a
+    grown table serves at once."""
+
+    def __init__(self, model, slots: int, max_len: int,
+                 initial_len: int = 64, page_size: int = 16,
+                 total_pages: Optional[int] = None, chunk: int = 1):
+        window = model.cfg.sliding_window
+        if window and window < max_len:
+            raise ValueError(
+                "expandable paged cache requires sliding_window >= max_len")
+        super().__init__(model, slots, max_len, page_size=page_size,
+                         total_pages=total_pages, chunk=chunk)
+        initial_len = min(max(initial_len, page_size), max_len)
+        init_pages = max(1, math.ceil(initial_len / page_size))
+        self.block_table = self.block_table[:, :init_pages].copy()
+        self.capacity = init_pages * page_size
+        self.grows = 0
+
+    def ensure(self, needed: int):
+        """Grow the capacity (doubling) until it holds ``needed`` tokens
+        per slot; the new columns name the null page until ``extend``
+        claims pages for them."""
+        if needed <= self.capacity:
+            return
+        new_cap = _doubled(self.capacity, needed, self.seq_len)
+        grown = np.full((self.slots, new_cap // self.page_size),
+                        self.null_page, np.int32)
+        grown[:, :self.block_table.shape[1]] = self.block_table
+        self.block_table = grown
+        self.capacity = new_cap
+        self.grows += 1

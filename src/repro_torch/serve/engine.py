@@ -61,8 +61,17 @@ its model tokens only, as the reference's does, and they are served through
 
 Paged mode and speculation take the ragged path only, as in the reference,
 and speculation refuses a window shorter than ``max_len`` (a wrapped ring
-cannot roll a rejected draft back). The expandable managers wait for a
-later slice.
+cannot roll a rejected draft back).
+
+``expandable=True`` starts each slot's cache at the managers' default 64
+entries and doubles it up to ``max_len`` where a tick, a resume or a
+stateful prefill needs more (:class:`~repro_torch.serve.cache.ExpandableKVCacheManager`, or
+with ``paged=True`` :class:`~repro_torch.serve.cache.
+ExpandablePagedKVCacheManager`, which widens the block tables only), at
+the four places the reference's engine calls ``ensure``. A growth replaces
+the contiguous cache's tensors, so the step reads ``mgr.cache`` afresh each
+tick; the paged step sizes its extent by the table's width, which a growth
+changes between ticks.
 Every ``step()`` emits a ``TickSample`` to the ``on_tick`` subscribers.
 """
 from __future__ import annotations
@@ -77,7 +86,9 @@ import torch
 from repro_torch.control.telemetry import TickSample
 from repro_torch.models.model import Model
 from repro_torch.serve import scheduler as sched
-from repro_torch.serve.cache import (HostPagePool, KVCacheManager,
+from repro_torch.serve.cache import (ExpandableKVCacheManager,
+                                     ExpandablePagedKVCacheManager,
+                                     HostPagePool, KVCacheManager,
                                      PagedKVCacheManager)
 from repro_torch.serve.step import sample
 
@@ -108,10 +119,6 @@ class Engine:
                  speculate: int = 0,
                  seed: int = 0, warmup: bool = True,
                  pool: Optional[HostPagePool] = None):
-        if expandable:
-            raise NotImplementedError(
-                "the expandable cache managers are not ported yet: they wait "
-                "for a later slice of the port")
         if model.cfg.family in ("vlm", "audio"):
             raise ValueError(
                 f"the engine feeds its model tokens only, so it cannot serve "
@@ -147,18 +154,22 @@ class Engine:
                 raise ValueError(
                     "speculate requires sliding_window >= max_len")
         self._scratch_dev: Optional[torch.Tensor] = None
+        self._expandable = bool(expandable)
         if self._paged:
-            self.mgr = PagedKVCacheManager(model, batch_slots, max_len,
-                                           page_size=page_size,
-                                           total_pages=total_pages,
-                                           chunk=self.prefill_chunk)
+            mgr_cls = (ExpandablePagedKVCacheManager if expandable
+                       else PagedKVCacheManager)
+            self.mgr = mgr_cls(model, batch_slots, max_len,
+                               page_size=page_size, total_pages=total_pages,
+                               chunk=self.prefill_chunk)
             if self.mgr.scratch_table is not None:
                 self._scratch_dev = torch.as_tensor(
                     self.mgr.scratch_table, dtype=torch.int32,
                     device=model.device)
         else:
-            self.mgr = KVCacheManager(model, batch_slots, max_len,
-                                      page_size=page_size)
+            mgr_cls = (ExpandableKVCacheManager if expandable
+                       else KVCacheManager)
+            self.mgr = mgr_cls(model, batch_slots, max_len,
+                               page_size=page_size)
         self.slot_req: List[Optional[Request]] = [None] * self.B
         self.queue: List[Request] = []
         self.finished: List[Request] = []
@@ -235,6 +246,10 @@ class Engine:
         widths = {1, self.prefill_chunk} if self._ragged else {1}
         if self._spec_k:
             widths.add(self._spec_k + 1)
+        if self._expandable:
+            # a width past the initial capacity first runs on the tick
+            # that grows the cache to hold it
+            widths = {S for S in widths if S <= self.mgr.capacity}
         zero = np.zeros(self.B, np.int32)
         for S in sorted(widths):
             self.step_logits(np.zeros((self.B, S), np.int32), zero, zero)
@@ -273,6 +288,8 @@ class Engine:
                 # the host page pool bit for bit — no recompute
                 slot = self.mgr.allocate(len(req.prompt))
                 rows, pos = self.pool.take(req.rid, owner=self.mgr)
+                if self._expandable:
+                    self.mgr.ensure(pos + 1)
                 self.mgr.restore(slot, rows, pos)
                 self.slot_req[slot] = req
                 admitted += 1
@@ -336,8 +353,12 @@ class Engine:
         written, the first token sampled from the last logit."""
         toks = torch.as_tensor(np.asarray(req.prompt, np.int32)[None],
                                device=self.model.device)
-        logits, rows = self.model.prefill({"tokens": toks},
-                                          max_len=self.max_len)
+        if self._expandable:
+            self.mgr.ensure(len(req.prompt) + 1)
+            cap = self.mgr.capacity
+        else:
+            cap = self.max_len
+        logits, rows = self.model.prefill({"tokens": toks}, max_len=cap)
         self.mgr.write_rows([slot], rows)
         self.mgr.advance([slot], [len(req.prompt)])
         req.fed = len(req.prompt)
@@ -412,6 +433,8 @@ class Engine:
         plan, spec = self._compose()
         if plan is None:
             return 0
+        if self._expandable:
+            self.mgr.ensure(int(plan.pos.max() + plan.width))
         if self._paged:
             while not self._reserve_pages(plan):
                 # out of pages mid-decode: preempt the newest low-priority
@@ -425,6 +448,8 @@ class Engine:
                 plan, spec = self._compose()
                 if plan is None:
                     return 0
+                if self._expandable:
+                    self.mgr.ensure(int(plan.pos.max() + plan.width))
         self.tick_width = plan.width
         if spec:
             rows = self._run_fused(plan, True)  # (B, k+1)

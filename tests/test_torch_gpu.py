@@ -1201,3 +1201,128 @@ def test_every_leaf_gets_a_gradient_on_the_card(cuda, arch):
     for a, b in zip(pm.tree_leaves(grads), pm.tree_leaves(ref)):
         assert float(a.norm()) > 0
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+# --- expandable serving and the SPMD tier on one card ----------------------------
+
+def test_paged_attention_on_a_table_widened_mid_run(cuda):
+    """The expandable paged engine widens a slot's block table between
+    ticks with null-page columns: the kernel at each width (its split-K
+    count follows the width) equals its plain version bit for bit, on
+    decode rows and on a chunk."""
+    from repro_torch.kernels import paged_attention as PA
+    g = torch.Generator(device=cuda)
+    g.manual_seed(21)
+    B, H, Hkv, D, ps, P = 3, 32, 8, 64, 16, 40
+    for dtype in (torch.float32, torch.bfloat16):
+        k = torch.randn((P + 1, ps, Hkv, D), generator=g, device=cuda).to(
+            dtype)
+        v = torch.randn((P + 1, ps, Hkv, D), generator=g, device=cuda).to(
+            dtype)
+        ids = torch.full((P + 1, ps), -1, dtype=torch.int32, device=cuda)
+        owned = [4, 3, 2]  # pages per slot, the rest of a row null
+        bt_full = torch.full((B, 64), P, dtype=torch.int32, device=cuda)
+        page, ends = 0, []
+        for b, n in enumerate(owned):
+            for j in range(n):
+                bt_full[b, j] = page
+                ids[page] = torch.arange(j * ps, (j + 1) * ps,
+                                         dtype=torch.int32, device=cuda)
+                page += 1
+            ends.append(n * ps - 5)
+        for width in (4, 8, 16, 32, 64):  # the doublings of a growth
+            bt = bt_full[:, :width].contiguous()
+            pos = torch.tensor(ends, dtype=torch.int32, device=cuda)
+            q = torch.randn((B, H, D), generator=g, device=cuda).to(dtype)
+            before = PA.paged_attention.launches
+            got = PA.paged_attention(q, k, v, ids, bt, pos)
+            assert PA.paged_attention.launches == before + 1
+            assert torch.equal(got, PA.paged_attention_ref(q, k, v, ids, bt,
+                                                           pos))
+            qc = torch.randn((B, 4, H, D), generator=g, device=cuda).to(dtype)
+            pc = (pos[:, None] - 3 + torch.arange(
+                4, dtype=torch.int32, device=cuda)[None]).contiguous()
+            got = PA.paged_attention(qc, k, v, ids, bt, pc)
+            assert torch.equal(got, PA.paged_attention_ref(qc, k, v, ids, bt,
+                                                           pc))
+
+
+def test_expandable_engine_on_the_card(cuda):
+    """The reduced llama in float32 on the card, with traffic that doubles
+    the capacity: the expandable engines' tokens, contiguous and paged,
+    equal the fixed-size engines'."""
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+    from repro_torch.serve import Engine, Request
+    cfg = registry.get("llama3.2-1b").reduced().replace(dtype="float32")
+    model = Model(cfg, device=cuda).init(0)
+    outs = {}
+    for paged in (False, True):
+        for expandable in (False, True):
+            eng = Engine(model, batch_slots=2, max_len=256, eos_id=-1,
+                         paged=paged, expandable=expandable)
+            for rid in range(3):
+                eng.submit(Request(rid, (np.arange(20 + 60 * rid) * 3 + rid)
+                                   .astype(np.int32) % cfg.vocab_size,
+                                   max_new=40))
+            eng.run()
+            outs[paged, expandable] = {r.rid: tuple(r.out)
+                                       for r in eng.finished}
+            if expandable:
+                assert eng.mgr.grows >= 2
+    assert outs[False, True] == outs[False, False]
+    assert outs[True, True] == outs[True, False]
+
+
+PIPELINE_ON_THE_CARD = r"""
+import sys
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def work(rank, world, store, out):
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    from repro_torch.sharding.pipeline import pipeline_apply
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    D = 256
+    ws = torch.randn((world, D, D), generator=g, device=dev) / D ** 0.5
+    x = torch.randn((16, D), generator=g, device=dev)
+    stage = lambda w, h: torch.tanh(h @ w)
+    for M in (2, 4, 8):
+        got = pipeline_apply(stage, ws[rank], x, dist.group.WORLD, M)
+        seq = []
+        for mb in x.reshape(M, -1, D):
+            for i in range(world):
+                mb = stage(ws[i], mb)
+            seq.append(mb)
+        assert got.device == dev and torch.equal(got, torch.cat(seq)), M
+    dist.destroy_process_group()
+    print("PIPELINE_OK", rank, flush=True)
+
+
+if __name__ == "__main__":
+    store = sys.argv[1]
+    mp.spawn(work, args=(2, store, None), nprocs=2)
+"""
+
+
+def test_pipeline_two_ranks_on_the_card(cuda, tmp_path):
+    """Two gloo ranks on cuda:0, each one stage, activations through
+    pinned host memory: the output equals the stages composed one
+    microbatch at a time, bit for bit."""
+    import os
+    import subprocess
+    import sys
+    script = tmp_path / "pipeline_card.py"
+    script.write_text(PIPELINE_ON_THE_CARD)
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(__file__), "..", "src"))
+    run = subprocess.run([sys.executable, str(script),
+                          str(tmp_path / "store")], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert run.stdout.count("PIPELINE_OK") == 2

@@ -5,7 +5,9 @@ and the recurrent families on ``mamba2-780m.reduced()`` (ssm),
 ``zamba2-1.2b.reduced()`` (hybrid: 2 groups of 2 mamba layers, no tail) and a
 5-layer zamba2 (2 groups and a tail of 1).
 
-``apply``, ``prefill`` and ragged ``decode`` agree within 1e-5 in float32;
+``apply``, ``prefill`` and ragged ``decode`` agree within 1e-5 in float32,
+also for qwen3-1.7b (qk_norm, tied embeddings), nemotron-4-15b (relu2) and
+deepseek-67b, reduced;
 in bfloat16 (the working type) within atol 0.06 with top-1 agreement above
 0.95, the reference's bound between its own bf16 tiers
 (``tests/test_tolerance.py``, scan vs loop). The recurrent families are held
@@ -35,6 +37,7 @@ from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import attention as attn
 from repro_torch.models import params as pm
 from repro_torch.models.model import Model
+from repro_torch.sharding.plan import make_plan
 
 ARCH = "llama3.2-1b"
 BF16_ATOL, TOP1 = 0.06, 0.95
@@ -217,7 +220,8 @@ def test_device_rule_and_unported_families(monkeypatch):
     # the mixtral slice is ported: the moe family and the ring cache
     Model(registry.get("mixtral-8x7b").reduced(), device="cpu")
     assert attn.gqa_cache_init(cfg.replace(sliding_window=8), 1, 16,
-                               torch.float32)["k"].shape[1] == 8
+                               torch.float32, plan=make_plan(cfg))[
+        "k"].shape[1] == 8
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Model(cfg)
@@ -248,6 +252,53 @@ def test_every_registry_config_builds_and_runs(arch):
     logits, _ = model.decode(_tokens((2, 1)), cache, 8)
     assert logits.shape == (2, 1, V)
     assert torch.isfinite(logits.float()).all()
+
+
+# --- the dense configs of other layer kinds ------------------------------------
+
+@pytest.fixture(scope="module", params=["qwen3-1.7b", "nemotron-4-15b",
+                                        "deepseek-67b"])
+def dense_kind(request):
+    """qk_norm with tied embeddings (qwen3), the relu2 MLP (nemotron) and
+    deepseek-67b's config, reduced, float32: (JAX model, its params, the
+    port's model)."""
+    jcfg = jregistry.get(request.param).reduced().replace(dtype="float32")
+    jm = JModel(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    cfg = registry.get(request.param).reduced().replace(dtype="float32")
+    return jm, jp, Model(cfg, device="cpu").load_reference(
+        jax.device_get(jp))
+
+
+def test_dense_kind_apply(dense_kind):
+    jm, jp, model = dense_kind
+    toks = _tokens((4, 32))
+    _close("float32", model.apply({"tokens": toks})[0],
+           jm.apply(jp, {"tokens": toks})[0])
+
+
+def test_dense_kind_prefill(dense_kind):
+    jm, jp, model = dense_kind
+    toks = _tokens((4, 32), seed=1)
+    lengths = np.array([32, 20, 32, 7], np.int32)
+    jl, jc = jm.prefill(jp, {"tokens": toks}, max_len=48, lengths=lengths)
+    tl, tc = model.prefill({"tokens": toks}, max_len=48, lengths=lengths)
+    _close("float32", tl, jl)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(tc["stack"][name].numpy(),
+                                   np.asarray(jc["stack"][name]),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_dense_kind_decode(dense_kind):
+    jm, jp, model = dense_kind
+    toks = _tokens((4, 16), seed=3)
+    pos = np.array([6, 4, 0, 2], np.int32)
+    n_valid = np.array([16, 1, 0, 9], np.int32)
+    jl, jc, tl, tc = _decode_pair(jm, jp, model, toks, pos, n_valid, 32)
+    _close("float32", tl, jl)
+    np.testing.assert_array_equal(tc["stack"]["pos_ids"].numpy(),
+                                  np.asarray(jc["stack"]["pos_ids"]))
 
 
 # --- the recurrent families ---------------------------------------------------

@@ -34,8 +34,9 @@ from repro.serve.engine import Engine as JEngine, Request as JRequest
 from repro_torch.configs import registry
 from repro_torch.control.telemetry import TickSample
 from repro_torch.models.model import Model
-from repro_torch.serve import (Engine, KVCacheManager, PageAllocator,
-                               PagedKVCacheManager, Request,
+from repro_torch.serve import (Engine, ExpandableKVCacheManager,
+                               ExpandablePagedKVCacheManager, KVCacheManager,
+                               PageAllocator, PagedKVCacheManager, Request,
                                make_prefill_step)
 from repro_torch.serve.cache import tree_map
 
@@ -361,8 +362,11 @@ def test_tick_samples_and_prefill_step(dense):
 
 def test_unported_paths_raise(dense):
     cfg, _, _, model = dense
-    with pytest.raises(NotImplementedError, match="expandable"):
-        Engine(model, expandable=True, warmup=False)
+    # the expandable managers are ported: the engine builds them
+    assert isinstance(Engine(model, expandable=True, warmup=False).mgr,
+                      ExpandableKVCacheManager)
+    assert isinstance(Engine(model, expandable=True, paged=True,
+                             warmup=False).mgr, ExpandablePagedKVCacheManager)
     # the sliding-window ring is ported: a windowed model serves
     swa = Model(cfg.replace(sliding_window=8), device="cpu")
     Engine(swa, max_len=64, warmup=False)

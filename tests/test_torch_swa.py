@@ -38,6 +38,7 @@ from repro.serve.engine import Engine as JEngine, Request as JRequest
 from repro.sharding.plan import make_plan
 from repro_torch.configs import registry
 from repro_torch.models import attention as attn
+from repro_torch.sharding import plan as tplan
 from repro_torch.models import params as pm
 from repro_torch.models.model import Model
 from repro_torch.serve import Engine, Request
@@ -125,7 +126,8 @@ def test_cache_extent_is_the_references(window, max_len):
     jcfg, cfg = _cfgs(sliding_window=window)
     want = jattn.gqa_cache_init(jcfg, make_plan(jcfg), 2, max_len,
                                 jnp.float32)
-    got = attn.gqa_cache_init(cfg, 2, max_len, torch.float32)
+    got = attn.gqa_cache_init(cfg, 2, max_len, torch.float32,
+                              plan=tplan.make_plan(cfg))
     for key in want:
         assert tuple(got[key].shape) == want[key].shape
     assert attn.cache_len(cfg, max_len) == got["k"].shape[1]

@@ -9,7 +9,8 @@ Tolerances, each with its reason:
   order).
 - The train step, float32, every leaf's gradient within ``GRAD_TOL`` of
   the largest magnitude of the reference's gradient of that leaf: 2e-5
-  for the attention families (measured at most 2.2e-6: reductions summed
+  for the attention families (qk_norm and relu2 dense configs among
+  them; measured at most 2.2e-6: reductions summed
   in other orders), 1e-3 for the recurrent ones (measured 1.7e-5 on mamba2
   and 3.0e-4 on zamba2's embedding: the scan's float32 sums run in the
   kernel's order, and the port with the reference-form ``ssd_chunked`` in
@@ -58,7 +59,10 @@ from repro_torch.train import step as step_lib
 FAMILIES = {"dense": "llama3.2-1b", "moe": "mixtral-8x7b",
             "mla": "deepseek-v2-236b", "ssm": "mamba2-780m",
             "hybrid": "zamba2-1.2b", "vlm": "llama-3.2-vision-11b",
-            "audio": "whisper-small"}
+            "audio": "whisper-small",
+            # dense configs whose layers differ: qk_norm with tied
+            # embeddings, and the relu2 MLP
+            "qk_norm": "qwen3-1.7b", "relu2": "nemotron-4-15b"}
 GRAD_TOL = {"ssm": 1e-3, "hybrid": 1e-3}
 ATTN_GRAD_TOL = 2e-5
 

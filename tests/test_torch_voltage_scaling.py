@@ -150,3 +150,25 @@ def test_port_imports_neither_jax_nor_reference():
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), f"{f}: {mod}"
+
+
+def test_chip_smoke_lut_table_is_the_reference():
+    """``chip_smoke.py`` holds the card's 86-ambient LUT against its
+    ``LUT_86`` table (change points) and recomputes 6 ambients with the CPU
+    port. The table equals the reference's LUT at every change point and
+    the ambient just before it (34 ambients, one batched call), and the
+    port's at those 6."""
+    import chip_smoke
+    want = chip_smoke.lut_86()
+    assert sorted(want) == [float(t) for t in range(86)]
+    edges = sorted({float(t) for t0, _, _ in chip_smoke.LUT_86
+                    for t in (t0 - 1, t0) if t >= 0})
+    t_ambs = chip_smoke.LUT_CPU_AMBS
+    tc = dict(theta_ja=12.0)
+    ref = JVS.dynamic_lut(jvb.load("mkDelayWorker32B"), edges, 1.0,
+                          JT.ThermalConfig(**tc))
+    got = TVS.dynamic_lut(tvb.load("mkDelayWorker32B"), t_ambs, 1.0,
+                          TT.ThermalConfig(**tc), device="cpu")
+    assert got == {t: want[t] for t in t_ambs}
+    assert {float(t): (float(a), float(b)) for t, (a, b) in ref.items()} \
+        == {t: want[t] for t in edges}
