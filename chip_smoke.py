@@ -206,7 +206,8 @@ Phases, each of which exits non-zero on failure:
    256 tokens with 0.1 N(0, 1) embeddings, a prefill step each, then 32
    greedy decode steps of all four. The reduced model's logits on the card
    equal the CPU port's (1e-4); the float32 gate (depth cut: 5 + 1 and
-   1 + 1 layers): the streams through the kernels equal those under
+   1 + 1 layers, 8 decode steps): the streams through the kernels equal
+   those under
    ``plain_kernels()`` or part at a top-2 margin under 1e-4, flash
    launches counted; bf16: flash launches per prefill (48, 36) and per
    decode step (8, 12), times, peak memory, a decode step profiled, and
@@ -241,10 +242,11 @@ Phases, each of which exits non-zero on failure:
    mamba2 shape; the gradient gate: llama3.2-1b at full width with 2
    layers, float32, B 1, S 2048, every leaf's gradient through the
    kernels against the same step through ``_sdpa`` and every leaf's norm
-   above 0; the full-width run: llama3.2-1b, 16 layers, bf16 over float32
+   above 0; the full-width run: llama3.2-1b, 4 of its 16 layers (the
+   sharded bf16 run of 13c keeps all 16), bf16 over float32
    masters, remat, AdamW (warmup 5), 6 steps of global batch 8 as 2
    microbatches of 4 at 4096 tokens, per step loss, grad norm, wall,
-   tokens/s, peak memory and flash launches (gated: 64), the losses finite
+   tokens/s, peak memory and flash launches (gated: 16), the losses finite
    and falling, the last step profiled; an async checkpoint after step 3
    (its write overlapping the next steps), restored after the run (no
    second sha256 pass) by a fresh model and optimizer on the card equal
@@ -253,7 +255,8 @@ Phases, each of which exits non-zero on failure:
    uninterrupted run's bit for bit (later steps reported); then the CLI
    (``launch.train.main``) at full width for 3 short steps with
    ``--energy-policy power_save`` and a checkpoint directory (its
-   interval past the run: the 14.8 GB save and restore are the run's),
+   interval past the run: the run's ~6 GB save and restore stand for
+   it),
    flash launches gated (3 steps x 16 layers x 2);
 12. expandable serving (``Engine(expandable=True)``, capacity 64 at the
    start, doubling to max_len): phase 10's traffic at llama3.2-1b full
@@ -274,7 +277,20 @@ Phases, each of which exits non-zero on failure:
    logits; (b) ``ft.elastic.rescale`` of llama3.2-1b at full width with 2
    layers from a checkpoint the phase writes, under a world-1 gloo group
    on the card: every leaf a DTensor equal bit for bit to the saved
-   tensor;
+   tensor; (c) the train step across ranks (``train/step.py``'s sharded
+   step): a 4-rank gloo world on cuda:0 over a ``{data 2, model 2}`` mesh,
+   llama3.2-1b at full width, each rank's flash kernel on its 16 query and
+   4 kv heads; float32 at 2 layers, global B 4, S 1024, 2 microbatches,
+   ``hoist_gather`` off and on: the loss and every leaf's gathered
+   gradient against the one-process step on the card through the same
+   kernels (``TRAIN_GATE_TOL``), flash launches gated (ranks x layers x 2
+   (remat) x microbatches), each rank's bytes of parameter and optimizer
+   shards equal to the dry run's ``argument_bytes_per_device`` less the
+   batch and the step; bf16 over float32 masters at 16 layers with
+   ``hoist_gather``, 2 steps: step wall, tokens/s, each rank's peak memory
+   and flash launches; the
+   dry run (``launch/dryrun.run_cell``) of llama3.2-1b's cells on both
+   production meshes, each ok;
 14. profile: one warm Table II run, one warm 86-ambient LUT and one warm
    LeNet inference at gamma = 1.35 under ``torch.profiler``: device time
    by kernel, the card's busy time and idle share of the wall time (the
@@ -3465,6 +3481,10 @@ MM_MAX_LEN = MM_PROMPTS[-1] + MM_NEW
 # layer); the bf16 runs take the full depth
 MM_F32_DEPTH = {"vlm": dict(num_layers=5),
                 "whisper": dict(num_layers=1, encoder_layers=1)}
+# and its streams are cut to 8 new tokens (at 32 the plain decode took
+# 20.3 s of the vlm's 49 s and 11.9 s of whisper's 45 s on the H100); the
+# bf16 runs decode MM_NEW
+MM_F32_NEW = 8
 
 
 def mm_inputs(torch, cfg):
@@ -3596,14 +3616,14 @@ def mm_path(torch, name: str) -> dict:
                       **MM_F32_DEPTH[name])
     m32 = Model(c32).init(MM_SEED)
     prompts, key, emb = mm_inputs(torch, c32)
-    k32 = mm_serve(torch, m32, prompts, key, emb)
+    k32 = mm_serve(torch, m32, prompts, key, emb, new=MM_F32_NEW)
     with attn.plain_kernels():
-        p32 = mm_serve(torch, m32, prompts, key, emb)
+        p32 = mm_serve(torch, m32, prompts, key, emb, new=MM_F32_NEW)
     pre32, n_c32 = _mm_flash(c32)
     want_pre = len(prompts) * pre32
     check(k32["prefill_counts"]["flash_attention"] == want_pre,
           f"{name} float32: flash launches == {want_pre} over the prefills")
-    check(k32["decode_counts"]["flash_attention"] == MM_NEW * n_c32,
+    check(k32["decode_counts"]["flash_attention"] == MM_F32_NEW * n_c32,
           f"{name} float32: flash launches == {n_c32} per decode step")
     check(p32["prefill_counts"]["flash_attention"] == 0,
           f"{name} float32 plain: no kernel launched")
@@ -4082,14 +4102,17 @@ SCAN_GRAD_TOL = 1e-5
 TRAIN_GATE_LAYERS, TRAIN_GATE_B, TRAIN_GATE_S = 2, 1, 2048
 TRAIN_GATE_TOL = 1e-4
 # the full-width run: train_4k's length, global batch 8 as 2 microbatches
-# of 4, AdamW warming up over 5 steps; the checkpoint after step 3
+# of 4, AdamW warming up over 5 steps; the checkpoint after step 3. Depth
+# cut to 4 layers to keep the script inside its limit (16 layers: 166.6 s
+# of it, ~84 s the 14.8 GB checkpoint's round trip)
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4096, 8, 2, 6
+TRAIN_RUN_LAYERS = 4
 TRAIN_WARMUP, TRAIN_SAVE_AT = 5, 3
 TRAIN_PROFILED = 2  # a warm step before the save
 TRAIN_DIR = ROOT / "build" / "train_ckpt"
 # the CLI at full width: a few short steps with the energy loop
 # (its checkpoint interval past its last step: the full-width save and
-# restore are train_run's, ~15 GB each way; the CLI's save, resume and
+# restore are train_run's, ~6 GB each way; the CLI's save, resume and
 # retry run in tests/test_torch_train.py)
 TRAIN_CLI = ["--arch", TRAIN_ARCH, "--no-smoke", "--steps", "3", "--batch",
              "4", "--seq", "1024", "--log-every", "1", "--energy-policy",
@@ -4289,10 +4312,11 @@ def _state_trees_equal(torch, restored, saved) -> bool:
 
 
 def train_run(torch, card: str) -> dict:
-    """llama3.2-1b at full width and depth, bf16 over float32 masters,
-    remat, AdamW: ``TRAIN_STEPS`` steps of global batch 8 (2 microbatches
-    of 4) at 4096 tokens, the flash launches of every step gated exactly
-    (16 layers x 2 (remat) x 2 microbatches), the last step profiled.
+    """llama3.2-1b at full width and ``TRAIN_RUN_LAYERS`` layers, bf16
+    over float32 masters, remat, AdamW: ``TRAIN_STEPS`` steps of global
+    batch 8 (2 microbatches of 4) at 4096 tokens, the flash launches of
+    every step gated exactly (layers x 2 (remat) x 2 microbatches), the
+    profiled step's breakdown printed.
     After step 3 the state is saved asynchronously (the write overlaps the
     next steps) beside a host copy; after the run a fresh model and
     optimizer restore it on the card, the restored tensors equal to the
@@ -4308,7 +4332,7 @@ def train_run(torch, card: str) -> dict:
     from repro_torch.models.model import Model
     from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.step import make_train_step
-    cfg = registry.get(TRAIN_ARCH)
+    cfg = registry.get(TRAIN_ARCH).replace(num_layers=TRAIN_RUN_LAYERS)
     per_step = cfg.num_layers * 2 * TRAIN_ACCUM
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                     global_batch=TRAIN_BATCH)
@@ -4337,7 +4361,7 @@ def train_run(torch, card: str) -> dict:
               f"{row['tokens_per_s']:.0f} tokens/s peak "
               f"{row['peak_mib']:.1f} MiB flash {row['flash']}")
         check(row["flash"] == per_step, f"train: {per_step} flash launches "
-              f"a step (16 layers x remat x 2 microbatches)")
+              f"a step ({cfg.num_layers} layers x remat x 2 microbatches)")
         return params, state, row
 
     t0 = time.perf_counter()
@@ -4387,7 +4411,7 @@ def train_run(torch, card: str) -> dict:
     t0 = time.perf_counter()
     model, opt, train = fresh()
     like = {"params": model.weights(), "opt": opt.init(model.weights())}
-    # no second sha256 pass over the 14.8 GB file: the restored state is
+    # no second sha256 pass over the ~6 GB file: the restored state is
     # held against the host copy bit for bit just below
     restored, at = mgr.restore(like, verify=False)
     took["restore_s"] = time.perf_counter() - t0
@@ -4507,8 +4531,8 @@ class kernel_taps:
             key = self.key(self.calls, *args)
             self.calls += 1
             if key is not None and key not in self.cases:
-                self.cases[key] = ([t.clone() for t in args], kw,
-                                   out.clone())
+                self.cases[key] = ([t.detach().clone() for t in args], kw,
+                                   out.detach().clone())
             return out
 
         attn.KERNELS[self.name] = tap
@@ -4761,25 +4785,28 @@ def pipe_worker(rank: int, world: int, store: str) -> None:
         dist.destroy_process_group()
 
 
-def hold_flash_taps(torch, cases, n_blocks: int) -> dict:
-    """Each block's tapped flash call (the kernel's output in the run)
+def hold_flash_taps(torch, cases, n_calls: int, what="pipeline") -> dict:
+    """Each tapped flash call (the kernel's output in the run: one per
+    block of the pipeline, or each call of a sharded step on one rank)
     against ``flash_attention_ref`` on the same inputs, bit for bit."""
     from repro_torch.kernels import flash_attention as FA
-    check(sorted(cases) == list(range(n_blocks)),
-          f"the microbatch ran {n_blocks} flash calls")
+    check(sorted(cases) == list(range(n_calls)),
+          f"{what}: {n_calls} flash calls tapped")
     worst = 0.0
     for i, (args, kw, got) in sorted(cases.items()):
         want = FA.flash_attention_ref(*args, **kw)
         torch.cuda.synchronize()
         worst = max(worst, float((got.float() - want.float()).abs().max()))
-        check(torch.equal(got, want), f"pipeline block {i}: flash kernel "
+        check(torch.equal(got, want), f"{what} call {i}: flash kernel "
                                       f"== plain bit for bit")
-    q = cases[0][0][0]
-    print(f"  flash at the pipeline's shapes, q={tuple(q.shape)} "
-          f"{str(q.dtype).split('.')[-1]} causal="
-          f"{cases[0][1].get('causal')}: {n_blocks} blocks' calls, "
+    q, k = cases[0][0][:2]
+    print(f"  flash at the {what}'s shapes, q={tuple(q.shape)} "
+          f"kv={tuple(k.shape)} {str(q.dtype).split('.')[-1]} causal="
+          f"{cases[0][1].get('causal')}: {n_calls} calls, "
           f"max|kernel-plain|={worst:.3e}")
-    return {"q": list(q.shape), "calls": n_blocks, "max_abs_err": worst}
+    return {"q": list(q.shape), "kv": list(k.shape),
+            "dtype": str(q.dtype).split(".")[-1], "calls": n_calls,
+            "max_abs_err": worst}
 
 
 def pipeline_check(torch, card: str) -> dict:
@@ -4903,6 +4930,269 @@ def rescale_check(torch, card: str) -> dict:
             "rescale_s": restore_s, "plan_tp": plan.tp}
 
 
+# the train step across ranks (phase 13c): 4 gloo ranks on cuda:0 as
+# {data 2, model 2}; the float32 gate at 2 layers, hoist_gather off and on,
+# then bf16 over float32 masters at full depth
+SPMD_WORLD, SPMD_MODEL = 4, 2
+SPMD_B, SPMD_S, SPMD_ACCUM = 4, 1024, 2
+SPMD_GATE_LAYERS, SPMD_RUN_STEPS = 2, 2
+SPMD_DIR = ROOT / "build" / "spmd_train"
+
+
+def _spmd_batch(torch, cfg):
+    toks = torch.randint(0, cfg.vocab_size, (SPMD_B, SPMD_S + 1), device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(5))
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _local_bytes(tree) -> int:
+    from repro_torch.models import params as pm
+    return sum(t.to_local().numel() * t.to_local().element_size()
+               for t in pm.tree_leaves(tree))
+
+
+def spmd_gate(torch, rank: int, mesh) -> dict:
+    """One rank's float32 gate: the sharded step's gradients with
+    hoist_gather off and on, gathered; rank 0 holds them against the
+    one-process step through the same kernels, and each of its flash
+    calls in the step (its local heads at its rows of a microbatch: the
+    kernel's shapes on this path) against the plain version. The shard
+    bytes beside the dry run's count."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import init_sharded
+    from repro_torch.models import params as pm
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.plan import make_plan
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import make_grad_fn, make_train_step
+    cfg = registry.get(TRAIN_ARCH).replace(num_layers=SPMD_GATE_LAYERS,
+                                           dtype="float32")
+    opt = make_optimizer(cfg)
+    model = Model(cfg, plan=make_plan(cfg, mesh))
+    params, state = init_sharded(model, opt, TRAIN_SEED)
+    batch = _spmd_batch(torch, cfg)
+    low = dryrun.lower_cell(cfg, ShapeSpec("spmd_gate", SPMD_S, SPMD_B,
+                                           "train"), mesh)
+    out = {"shard_bytes": _local_bytes(params) + _local_bytes(state),
+           "dryrun_bytes": low.argument_bytes() - sum(
+               dryrun.tree_bytes(t, sp, mesh)
+               for t, sp in zip(low.args[2:], low.arg_specs[2:])),
+           "n_accum_dryrun": low.info["n_accum"], "runs": {},
+           "flash_vs_plain": {}}
+    got = {}
+    n_calls = SPMD_GATE_LAYERS * 2 * SPMD_ACCUM
+    for hoist in (False, True):
+        step = make_train_step(model, opt, n_accum=SPMD_ACCUM,
+                               hoist_gather=hoist)
+        taps = kernel_taps("flash", lambda i, *a: i if rank == 0 else None)
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with taps:
+            loss, _, grads = step.grads(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if rank == 0:
+            out["flash_vs_plain"][str(hoist)] = hold_flash_taps(
+                torch, taps.cases, n_calls,
+                f"sharded float32 step (hoist_gather={hoist})")
+        del taps
+        full = [spmd.full_tensor(g) for g in pm.tree_leaves(grads)]
+        if rank == 0:
+            got[hoist] = (float(loss), full)
+        del full
+        out["runs"][str(hoist)] = {"wall_s": wall, "loss": float(loss),
+                                   "flash": counts["flash_attention"],
+                                   "launches": counts}
+        del grads
+    del params, state
+    if rank == 0:  # the one-process step on the card, the same kernels
+        one = Model(cfg).init(TRAIN_SEED)
+        loss1, _, ref = make_grad_fn(one, SPMD_ACCUM)(one.weights(), batch)
+        names = _leaf_names(ref)
+        ref = [r.double() for r in pm.tree_leaves(ref)]
+        for hoist, (loss, gs) in got.items():
+            errs = {n: _rel_err(a, b) for n, a, b in zip(names, gs, ref)}
+            worst = max(errs, key=errs.get)
+            out["runs"][str(hoist)].update(
+                one_process_loss=float(loss1),
+                loss_rel_err=abs(loss - float(loss1)) / abs(float(loss1)),
+                worst_rel_err=errs[worst], worst_leaf=worst)
+        del one, ref
+    del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def spmd_timed(torch, rank: int, mesh) -> dict:
+    """bf16 over float32 masters at full depth, ``hoist_gather`` on (one
+    bf16 gather a step in place of a float32 one a microbatch: 14.0-15.6 s
+    a step without it on the H100, against 7.1-9.3 s with it in the
+    float32 gate's 2 layers): SPMD_RUN_STEPS steps, each with the counts
+    set to 0 just before it; wall (host clock after the loss is read),
+    tokens/s, this rank's peak memory. Rank 0's flash calls on the first
+    microbatch's forward of step 0 are held against the plain version
+    after the step."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import init_sharded
+    from repro_torch.models.model import Model
+    from repro_torch.sharding.plan import make_plan
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import make_train_step
+    cfg = registry.get(TRAIN_ARCH)
+    opt = make_optimizer(cfg)
+    model = Model(cfg, plan=make_plan(cfg, mesh))
+    params, state = init_sharded(model, opt, TRAIN_SEED)
+    batch = _spmd_batch(torch, cfg)
+    step_fn = make_train_step(model, opt, n_accum=SPMD_ACCUM,
+                              hoist_gather=True)
+    layers = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    steps, held = [], None
+    for i in range(SPMD_RUN_STEPS):
+        taps = kernel_taps("flash", lambda c, *a: c if rank == 0 and i == 0
+                           and c < layers else None)
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with taps:
+            params, state, metrics = step_fn(params, state, batch, i)
+            loss = float(metrics["loss"])
+        wall = time.perf_counter() - t0
+        steps.append({"wall_s": wall, "tokens_per_s": SPMD_B * SPMD_S / wall,
+                      "loss": loss, "flash": read_counts()["flash_attention"]})
+        if taps.cases:
+            held = hold_flash_taps(torch, taps.cases, layers,
+                                   "sharded bf16 step")
+        del taps
+    out = {"layers": layers, "steps": steps, "flash_vs_plain": held,
+           "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def spmd_train_worker(rank: int, world: int, store: str) -> None:
+    """One rank of phase 13c (``torch.multiprocessing.spawn`` target): a
+    gloo group on cuda:0, the gate and the timed run; writes its results
+    under SPMD_DIR."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_host_mesh(model=SPMD_MODEL)
+        out = {"gate": spmd_gate(torch, rank, mesh),
+               "timed": spmd_timed(torch, rank, mesh)}
+        (SPMD_DIR / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def spmd_train_check(torch, card: str) -> dict:
+    """Phase 13c: the sharded train step over 4 gloo ranks on the card
+    (module docstring), then the dry run of llama3.2-1b's cells."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    shutil.rmtree(SPMD_DIR, ignore_errors=True)
+    SPMD_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.spawn(spmd_train_worker, args=(SPMD_WORLD, str(SPMD_DIR / "store")),
+             nprocs=SPMD_WORLD)
+    world_s = time.perf_counter() - t0
+    ranks = [json.loads((SPMD_DIR / f"rank{r}.json").read_text())
+             for r in range(SPMD_WORLD)]
+    shutil.rmtree(SPMD_DIR, ignore_errors=True)
+    gate = ranks[0]["gate"]
+    want_flash = SPMD_WORLD * SPMD_GATE_LAYERS * 2 * SPMD_ACCUM
+    for hoist, run in gate["runs"].items():
+        flash = sum(r["gate"]["runs"][hoist]["flash"] for r in ranks)
+        print(f"[{card}] sharded step {TRAIN_ARCH} {SPMD_GATE_LAYERS} layers "
+              f"float32 {{data 2, model 2}} B={SPMD_B} S={SPMD_S} "
+              f"n_accum={SPMD_ACCUM} hoist_gather={hoist}: loss "
+              f"{run['loss']:.6f} (one process {run['one_process_loss']:.6f},"
+              f" rel {run['loss_rel_err']:.3e}), worst leaf rel err "
+              f"{run['worst_rel_err']:.3e} at {run['worst_leaf']} (tol "
+              f"{TRAIN_GATE_TOL:g}), flash launches {flash} (gate "
+              f"{want_flash}), rank walls "
+              f"{[round(r['gate']['runs'][hoist]['wall_s'], 3) for r in ranks]}"
+              f" s")
+        check(run["worst_rel_err"] <= TRAIN_GATE_TOL
+              and run["loss_rel_err"] <= TRAIN_GATE_TOL,
+              f"sharded step (hoist_gather={hoist}) == one-process step")
+        check(flash == want_flash, f"sharded step: flash launches == "
+                                   f"{want_flash}")
+    held = [*gate["flash_vs_plain"].values(),
+            ranks[0]["timed"]["flash_vs_plain"]]
+    check(len(held) == 3 and all(h is not None for h in held),
+          "sharded step: rank 0's flash calls held against the plain "
+          "version (gate, hoist off and on; bf16 step 0)")
+    byte_ok = all(r["gate"]["shard_bytes"] == r["gate"]["dryrun_bytes"]
+                  for r in ranks)
+    print(f"[{card}] shard bytes per rank "
+          f"{[r['gate']['shard_bytes'] for r in ranks]}, dry run's "
+          f"argument bytes less batch and step {gate['dryrun_bytes']}")
+    check(byte_ok, "each rank's shard bytes == the dry run's count")
+    for r, rr in enumerate(ranks):
+        t = rr["timed"]
+        print(f"[{card}] sharded bf16 step, {t['layers']} layers, "
+              f"hoist_gather=True, rank {r}: "
+              + ", ".join(f"step {i} {s['wall_s']:.3f} s "
+                          f"({s['tokens_per_s']:.1f} tokens/s, flash "
+                          f"{s['flash']}, loss {s['loss']:.4f})"
+                          for i, s in enumerate(t["steps"]))
+              + f"; peak {t['peak_mib']:.1f} MiB")
+    timed_flash = [sum(rr["timed"]["steps"][i]["flash"] for rr in ranks)
+                   for i in range(SPMD_RUN_STEPS)]
+    check(all(np.isfinite(s["loss"]) for rr in ranks
+              for s in rr["timed"]["steps"]), "sharded bf16: finite losses")
+    layers = ranks[0]["timed"]["layers"]
+    check(timed_flash == [SPMD_WORLD * layers * 2 * SPMD_ACCUM]
+          * SPMD_RUN_STEPS, "sharded bf16: flash launches == ranks x "
+                            "layers x 2 x microbatches a step")
+    t0 = time.perf_counter()
+    cells = [dryrun.run_cell(TRAIN_ARCH, shape, mesh)
+             for shape in registry.get(TRAIN_ARCH).shapes()
+             for mesh in ("pod", "multipod")]
+    dry_s = time.perf_counter() - t0
+    check(all(c["ok"] for c in cells), "dry run: llama3.2-1b's cells ok")
+    print(f"[{card}] dry run of {TRAIN_ARCH}: {len(cells)} cells ok in "
+          f"{dry_s:.1f} s on the host; world spawned and run in "
+          f"{world_s:.1f} s")
+    return {"gate": gate["runs"], "flash_vs_plain": held,
+            "shard_bytes": [r["gate"]["shard_bytes"] for r in ranks],
+            "dryrun_bytes": gate["dryrun_bytes"],
+            "flash_gate": sum(r["gate"]["runs"][h]["flash"] for r in ranks
+                              for h in gate["runs"]),
+            "timed": [rr["timed"] for rr in ranks],
+            "timed_flash": timed_flash,
+            "dryrun_cells": [{k: c[k] for k in (
+                "shape", "mesh", "ok", "argument_bytes_per_device",
+                "output_bytes_per_device", "run_s", "flops_model")}
+                for c in cells],
+            "world_s": world_s, "dryrun_s": dry_s}
+
+
 def spmd_path(torch, card: str) -> dict:
     out = {"pipeline": pipeline_check(torch, card)}
     gc.collect()
@@ -4910,6 +5200,7 @@ def spmd_path(torch, card: str) -> dict:
     out["rescale"] = rescale_check(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
+    out["train"] = spmd_train_check(torch, card)
     return out
 
 
@@ -5057,7 +5348,9 @@ def main() -> int:
                                  + p["launches"]["decode"]
                                  for p in mmp.values())
                            + train["run"]["counts"]["flash_attention"]
-                           + spmd["pipeline"]["launches"],
+                           + spmd["pipeline"]["launches"]
+                           + spmd["train"]["flash_gate"]
+                           + sum(spmd["train"]["timed_flash"]),
                            att["max_abs_err"]["flash_attention"], rep_flash,
                            att["rows"]["flash_attention"]),
              launches_by_path={
@@ -5068,7 +5361,10 @@ def main() -> int:
                     for kind in ("prefill", "decode")},
                  "train_full_width": train["run"]["counts"]
                  ["flash_attention"],
-                 "pipeline": spmd["pipeline"]["launches"]},
+                 "pipeline": spmd["pipeline"]["launches"],
+                 "sharded_train_gate": spmd["train"]["flash_gate"],
+                 "sharded_train_bf16": sum(spmd["train"]["timed_flash"])},
+             sharded_train_vs_plain=spmd["train"]["flash_vs_plain"],
              per_train_step=train["run"]["per_step_flash"],
              grad_rel_err=train["flash_grads"]["worst"],
              per_prefill={n: p["flash_per_prefill"] for n, p in mmp.items()},

@@ -25,7 +25,9 @@ instance bit for bit, the tensor cores' way of summing included
 (:func:`tensor_core_mma`).
 
 ``flash_attention`` dispatches on q's device: the plain version for a CPU
-tensor, the kernel for a CUDA tensor (or an error).
+tensor, the kernel for a CUDA tensor (or an error), and for a meta tensor
+(the dry run, ``launch/dryrun.py``) an output of the kernel's shape and
+dtype with no work, as the reference's lowered call has its ``out_shape``.
 ``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -295,9 +297,12 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
         return FlashAttention.apply(q, k, v, causal)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
+    if q.device.type == "meta":  # a dry run: the output's layout, no work
+        check_inputs(q, k, v)
+        return torch.empty_like(q)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CPU or CUDA tensors, "
-                         f"not {q.device}")
+        raise ValueError(f"flash_attention runs on CPU, CUDA or meta "
+                         f"tensors, not {q.device}")
     B, S, T, H, Hkv, D = check_inputs(q, k, v)
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -378,7 +383,8 @@ def flash_attention_backward(q, k, v, o, do, *, causal: bool = True,
 class FlashAttention(torch.autograd.Function):
     """:func:`flash_attention` with a gradient: the forward is the kernel
     on the card (its plain version on the CPU), the backward
-    :func:`flash_attention_backward` from the saved q, k, v and output."""
+    :func:`flash_attention_backward` from the saved q, k, v and output. On
+    meta tensors (the dry run) both give their outputs' layout alone."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -391,5 +397,8 @@ class FlashAttention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
+        if q.device.type == "meta":  # a dry run: the gradients' layout
+            return (torch.empty_like(q), torch.empty_like(k),
+                    torch.empty_like(v), None)
         return (*flash_attention_backward(q, k, v, o, do.contiguous(),
                                           causal=ctx.causal), None)

@@ -241,9 +241,14 @@ def mamba_scan(xh, dt, A, B, C, *, chunk: int = 256):
         return MambaScan.apply(xh, dt, A, B, C, chunk)
     if xh.device.type == "cpu":
         return mamba_scan_ref(xh, dt, A, B, C, chunk=chunk)
+    if xh.device.type == "meta":  # a dry run: the outputs' layout, no work
+        b, S, H, P, G, N, Q = check_inputs(xh, dt, A, B, C, chunk)
+        return (torch.empty_like(xh),
+                torch.empty((b, H, P, N), dtype=torch.float32,
+                            device="meta"))
     if xh.device.type != "cuda":
-        raise ValueError(f"mamba_scan runs on CPU or CUDA tensors, not "
-                         f"{xh.device}")
+        raise ValueError(f"mamba_scan runs on CPU, CUDA or meta tensors, "
+                         f"not {xh.device}")
     b, S, H, P, G, N, Q = check_inputs(xh, dt, A, B, C, chunk)
     y = torch.empty_like(xh)
     state = torch.empty((b, H, P, N), dtype=torch.float32, device=xh.device)
@@ -274,7 +279,8 @@ class MambaScan(torch.autograd.Function):
     plain version :func:`mamba_scan_ref` from the saved inputs under
     autograd and differentiates it (plain PyTorch, as the reference's
     backward is plain XLA). The final state is not differentiable: a
-    prefill hands it to decode, which trains nothing."""
+    prefill hands it to decode, which trains nothing. On meta tensors (the
+    dry run) both give their outputs' layout alone."""
 
     @staticmethod
     def forward(ctx, xh, dt, A, B, C, chunk):
@@ -288,6 +294,9 @@ class MambaScan(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy, _dstate):
         need = ctx.needs_input_grad[:5]
+        if dy.device.type == "meta":  # a dry run: the gradients' layout
+            return (*(torch.empty_like(t) if n else None
+                      for t, n in zip(ctx.saved_tensors, need)), None)
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(n)
                    for t, n in zip(ctx.saved_tensors, need)]

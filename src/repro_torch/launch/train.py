@@ -16,15 +16,33 @@ With ``--energy-policy`` the run closes the loop through
 events route through the ``LutController`` (rail boost or rebalance
 become policy decisions), and a ``FleetActuator`` applies the rails and
 reports the thermal readout each control tick (the modelled 16 x 16 pod's
-field, whose 256 cells solve as one direct product). ``--model-parallel``
-above 1 needs the SPMD slice of the port, which is not written yet, and
-raises.
+field, whose 256 cells solve as one direct product).
+
+``--model-parallel N`` trains across the ranks of a process group, as the
+reference's ``build`` does on its host mesh: ``make_host_mesh(model=N)``
+over the world, the plan, ``Model(cfg, plan=...)`` and the sharded step
+(``train/step.py``: tensor parallelism over N ranks, FSDP over the rest),
+each rank drawing the same weights from the seed and keeping its shards.
+Under ``torchrun`` (the environment's ``WORLD_SIZE``) the CLI joins the
+group itself: gloo when the ranks share a card (or run on the CPU), NCCL
+when each has its own. One card, four ranks, tensor parallelism 2:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --model-parallel 2
+
+Under torchrun even ``--model-parallel 1`` trains across the world (FSDP
+alone); without a process group ``--model-parallel`` above 1 raises: the
+CLI never runs one rank in place of many. Across ranks it keeps no
+checkpoint and prints from rank 0.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional
+
+import torch
+import torch.distributed as dist
 
 from repro_torch import control as ctl
 from repro_torch import policy as pol
@@ -37,21 +55,87 @@ from repro_torch.data.pipeline import DataConfig, make_iterator
 from repro_torch.ft.elastic import ElasticActuator, ElasticWorkAssignment
 from repro_torch.ft.monitor import (FailureInjector, StragglerDetector,
                                     retry_step)
-from repro_torch.launch.mesh import PodTopology
+from repro_torch.launch.mesh import PodTopology, make_host_mesh
+from repro_torch.models import params as pm
 from repro_torch.models.model import Model
+from repro_torch.sharding import spmd
+from repro_torch.sharding.plan import make_plan
 from repro_torch.train.optimizer import make_optimizer
 from repro_torch.train.step import make_train_step
 
 
-def build(arch: str, smoke: bool, n_accum: int, device=None, seed: int = 0):
-    """-> (cfg, model with random weights from ``seed``, optimizer, the
-    train step)."""
+def build(arch: str, smoke: bool, n_accum: int, device=None, seed: int = 0,
+          mesh=None):
+    """-> (cfg, model, optimizer, the train step, params, optimizer
+    state), the weights random from ``seed``. With ``mesh`` (a
+    ``DeviceMesh`` over the process group) the step is the sharded one and
+    params and state are ``DTensor`` s at the plan's FSDP placements: each
+    rank draws the whole tree from the seed on ``device`` and keeps its
+    shards (the model holds no weights of its own), and the step hoists
+    the FSDP gather out of the microbatch loop (``hoist_gather``: one
+    gather a step where it applies; eager PyTorch does not hoist it
+    itself)."""
     cfg = registry.get(arch)
     if smoke:
         cfg = cfg.reduced()
-    model = Model(cfg, device=device).init(seed)
     opt = make_optimizer(cfg, total_steps=10_000)
-    return cfg, model, opt, make_train_step(model, opt, n_accum=n_accum)
+    if mesh is None:
+        model = Model(cfg, device=device).init(seed)
+        params = model.weights()
+        return (cfg, model, opt, make_train_step(model, opt, n_accum=n_accum),
+                params, opt.init(params))
+    model = Model(cfg, plan=make_plan(cfg, mesh), device=device)
+    params, opt_state = init_sharded(model, opt, seed)
+    return (cfg, model, opt, make_train_step(model, opt, n_accum=n_accum,
+                                             hoist_gather=True),
+            params, opt_state)
+
+
+def init_sharded(model: Model, opt, seed: int):
+    """Weights drawn from ``seed`` (``Model.init``'s draws) and zero
+    optimizer state, each leaf at the plan's FSDP sharding: every rank
+    draws the whole weight tree, keeps its shards and allocates only its
+    shards of the state."""
+    plan, meta = model.plan, model.param_meta()
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(int(seed))
+    full = pm.materialize(meta, gen, model.cfg.param_dtype, model.device)
+    it = iter(pm.tree_leaves(plan.param_shardings(meta)))
+    params = pm.tree_map(lambda t: spmd.place(t, next(it)), full)
+    del full
+    state_meta = opt.state_meta(meta)
+    it = iter(pm.tree_leaves(plan.param_shardings(state_meta)))
+    return params, pm.tree_map(lambda m: spmd.zeros(
+        m.shape, pm.torch_dtype(m.dtype), next(it), model.device),
+        state_meta)
+
+
+def join_world(model_parallel: int, device):
+    """The ``DeviceMesh`` of ``--model-parallel`` over the process group,
+    joined from ``torchrun`` 's environment where none is initialised yet
+    (gloo when the ranks share a card or run on the CPU, NCCL when each
+    rank has its own); raises without a process group."""
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise RuntimeError(
+                f"--model-parallel {model_parallel} trains across the ranks "
+                f"of a process group, and there is none: launch with "
+                f"torchrun (torchrun --nproc-per-node 4 -m "
+                f"repro_torch.launch.train --model-parallel 2) or initialise "
+                f"torch.distributed first")
+        world = int(os.environ["WORLD_SIZE"])
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        own_card = (device.type == "cuda"
+                    and torch.cuda.device_count() >= int(
+                        os.environ.get("LOCAL_WORLD_SIZE", world)))
+        if device.type == "cuda":
+            torch.cuda.set_device(local if own_card else 0)
+        dist.init_process_group("nccl" if own_card else "gloo")
+    n = dist.get_world_size()
+    if n % model_parallel:
+        raise ValueError(f"--model-parallel {model_parallel} does not "
+                         f"divide the world of {n} ranks")
+    return make_host_mesh(model=model_parallel, device=device)
 
 
 def _energy_loop(args, device):
@@ -101,24 +185,26 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 needs the rest of the SPMD tier: a train "
-            "step executed under the sharding plan across ranks (tensor "
-            "and FSDP parallelism) and the step's hoist_gather, which the "
-            "port does not have yet; one card trains with "
-            "--model-parallel 1")
     if args.batch % args.n_accum:
         raise ValueError(f"--n-accum {args.n_accum} does not divide "
                          f"--batch {args.batch}")
 
     device = resolve_device(args.device)
-    cfg, model, opt, train_step = build(args.arch, args.smoke, args.n_accum,
-                                        device)
-    print(f"[train] arch={cfg.name} params={model.n_params():,} "
-          f"device={device}")
-    params = model.weights()
-    opt_state = opt.init(params)
+    mesh = None
+    if (args.model_parallel > 1 or dist.is_initialized()
+            or "WORLD_SIZE" in os.environ):
+        mesh = join_world(args.model_parallel, device)
+        if args.checkpoint_dir:
+            raise ValueError("--checkpoint-dir keeps one process's tensors; "
+                             "across ranks the CLI keeps no checkpoint")
+    lead = mesh is None or dist.get_rank() == 0
+    log = print if lead else (lambda *a, **k: None)
+    cfg, model, opt, train_step, params, opt_state = build(
+        args.arch, args.smoke, args.n_accum, device, mesh=mesh)
+    log(f"[train] arch={cfg.name} params={model.n_params():,} "
+        f"device={device}"
+        + (f" mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+           if mesh is not None else ""))
 
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                     global_batch=args.batch)
@@ -153,7 +239,7 @@ def main(argv=None):
             return train_step.grads(params, batch)
 
         def on_fail(attempt, e):
-            print(f"[ft] step {step} attempt {attempt} failed: {e}; "
+            log(f"[ft] step {step} attempt {attempt} failed: {e}; "
                   f"retrying")
 
         t0 = time.time()
@@ -167,7 +253,7 @@ def main(argv=None):
         dt = time.time() - t0
         ev = straggler.record("worker0", step, dt)
         if ev:
-            print(f"[ft] straggler: step {ev.step} {ev.ratio:.2f}x median")
+            log(f"[ft] straggler: step {ev.step} {ev.ratio:.2f}x median")
 
         if step % args.log_every == 0 or step == args.steps - 1:
             msg = (f"[train] step {step}: loss={loss:.4f} "
@@ -180,14 +266,14 @@ def main(argv=None):
                 rep = loop.step(now=float(step))
                 for a in rep.actions:
                     if isinstance(a, (ctl.BoostRail, ctl.Rebalance)):
-                        print(f"[ctl] {a}")
+                        log(f"[ctl] {a}")
                 rails = next(a for a in rep.actions
                              if isinstance(a, ctl.SetRails))
                 p, ro = loop.controller.plan, rep.readout
                 msg += (f" | energy[{args.energy_policy}]: "
                         f"save={p.saving*100:.1f}% Tmax={ro.t_max:.0f}C"
                         f" | ctl[{rails.source}]")
-            print(msg)
+            log(msg)
 
         if ckpt and (step + 1) % args.checkpoint_every == 0:
             ckpt.save(step + 1, {"params": params, "opt": opt_state},
@@ -197,11 +283,11 @@ def main(argv=None):
     if ckpt:
         ckpt.wait()
     if metrics is None:
-        print(f"[train] nothing to do: the run is at step {start_step} of "
+        log(f"[train] nothing to do: the run is at step {start_step} of "
               f"{args.steps}")
         return None
     final = float(metrics["loss"])
-    print(f"[train] done: {args.steps - start_step} steps in "
+    log(f"[train] done: {args.steps - start_step} steps in "
           f"{time.time() - t_train0:.1f}s; final loss {final:.4f}")
     return final
 

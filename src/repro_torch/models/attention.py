@@ -51,6 +51,7 @@ from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import layers as L
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.params import ParamMeta, dense
+from repro_torch.sharding import spmd
 from repro_torch.sharding.plan import Spec
 
 NEG_INF = -1e30
@@ -197,8 +198,10 @@ def _qkv(p, x, kv_x, cfg: ModelConfig, cols: bool = False):
     k = _proj(kv_x, p["wk"])
     v = _proj(kv_x, p["wv"])
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps, cols)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps, cols)
+        # the scales are whole on every rank and read by its heads alone:
+        # inside an spmd.region their gradients sum over the model axis
+        q = rms_norm(q, spmd.enter(p["q_norm"]), cfg.norm_eps, cols)
+        k = rms_norm(k, spmd.enter(p["k_norm"]), cfg.norm_eps, cols)
     return L.tap("q", q), L.tap("k", k), L.tap("v", v)
 
 
@@ -264,9 +267,13 @@ def gqa_apply(p, x, cfg: ModelConfig, positions=None, kv_x=None,
     CPU), where the head dim fits it (:func:`flash_fits`): causal
     self-attention without a window (S == T), and, with ``causal=False``,
     non-causal and cross-attention (no mask, any S and T). Windows keep
-    :func:`_sdpa`."""
+    :func:`_sdpa`. Inside an ``spmd.region`` the weights are this rank's
+    heads, and the output projection's partial sums add up over the model
+    axis."""
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, x if kv_x is None else kv_x, cfg)
+    x = spmd.enter(x)
+    kv_x = x if kv_x is None else spmd.enter(kv_x)
+    q, k, v = _qkv(p, x, kv_x, cfg)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None]
     if not cross:
@@ -280,7 +287,7 @@ def gqa_apply(p, x, cfg: ModelConfig, positions=None, kv_x=None,
     else:
         o = _sdpa(q, k, v, causal_mask(S, k.shape[1], 0, cfg.sliding_window,
                                        x.device))
-    o = _out(o, p["wo"])
+    o = spmd.leave(_out(o, p["wo"]))
     if cross:
         o = o * torch.tanh(p["gate"])
     return o, (k, v)

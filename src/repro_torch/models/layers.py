@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models.params import ParamMeta, dense, torch_dtype
+from repro_torch.sharding import spmd
 
 #: a list that a model step records its named intermediates into, as
 #: ``(name, tensor)`` pairs (``chip_smoke.py``'s row-invariance probe);
@@ -155,7 +156,10 @@ def mlp_params(cfg: ModelConfig, d_ff: Optional[int] = None,
 
 def mlp_apply(p, x, cfg: ModelConfig, cols: bool = False):
     """``p`` holds the weights in x's dtype; ``cols``: each product one
-    column at a time (:func:`by_column`)."""
+    column at a time (:func:`by_column`). Inside an ``spmd.region`` the
+    weights are this rank's columns of the up products and rows of the
+    down product, whose partial outputs sum over the model axis."""
+    x = spmd.enter(x)
     mm = lambda t, w, name: tap(name, matmul(t, w, cols))
     if cfg.mlp_type == "swiglu":
         h = F.silu(mm(x, p["wg"], "gate")) * mm(x, p["wu"], "up")
@@ -163,7 +167,7 @@ def mlp_apply(p, x, cfg: ModelConfig, cols: bool = False):
         h = torch.square(F.relu(mm(x, p["wu"], "up")))
     else:  # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(mm(x, p["wu"], "up"), approximate="tanh")
-    return tap("down", matmul(h, p["wd"], cols))
+    return spmd.leave(tap("down", matmul(h, p["wd"], cols)))
 
 
 # --- embeddings ----------------------------------------------------------------
@@ -178,11 +182,17 @@ def embed_params(cfg: ModelConfig, plan):
 
 
 def embed_apply(p, tokens, cfg: ModelConfig):
-    """``p["embedding"]`` in the compute dtype."""
+    """``p["embedding"]`` in the compute dtype (inside an ``spmd.region``
+    this rank's rows of the vocabulary)."""
+    if spmd.REGION is not None:
+        return spmd.embed(p["embedding"], tokens)
     return p["embedding"][tokens.long()]
 
 
 def unembed_apply(p, x, cfg: ModelConfig):
+    """Logits over the vocabulary (inside an ``spmd.region`` over this
+    rank's share of it)."""
+    x = spmd.enter(x)
     if cfg.tie_embeddings:
         logits = x @ p["embedding"].T
     else:

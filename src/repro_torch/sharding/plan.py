@@ -24,7 +24,11 @@ The plan sizes the model's heads, KV heads and vocabulary
 (``models.model.Model(cfg, plan=...)``). The port places no activation:
 PyTorch places tensors explicitly and has no sharding hint, so
 :meth:`Plan.act` returns its input, and the MoE layer's dispatch groups do
-not split by the data axes as the reference's do under a mesh.
+not split by the data axes as the reference's do under a mesh. The train
+step across ranks (``sharding/spmd.py``, ``train/step.py``) places its
+tensors itself: masters at :meth:`Plan.param_shardings`, gathered per
+microbatch (or once per step with ``hoist_gather``) to
+:meth:`Plan.tp_shardings`.
 """
 from __future__ import annotations
 
@@ -116,15 +120,29 @@ class Plan:
     def param_shardings(self, meta_tree):
         """Per leaf, a :class:`Sharding` on the plan's ``DeviceMesh``:
         ``Shard(dim)`` on each mesh dimension that the leaf's spec names
-        for tensor dimension ``dim``, ``Replicate()`` on the others."""
+        for tensor dimension ``dim``, ``Replicate()`` on the others. An
+        optimizer state's meta tree (``Optimizer.state_meta``) takes it as
+        the parameters' does."""
+        return self.shardings(self.param_specs(meta_tree))
+
+    def tp_shardings(self, meta_tree):
+        """Per leaf, the :class:`Sharding` of its tensor-parallel spec
+        alone (``spec(meta.logical)``: replicated over the data axes),
+        where ``hoist_gather`` and each microbatch gather the masters
+        to."""
+        return self.shardings(pm.tree_map(lambda m: self.spec(m.logical),
+                                           meta_tree))
+
+    def shardings(self, spec_tree):
+        """A tree of :class:`Spec` s as :class:`Sharding` s on the plan's
+        ``DeviceMesh``."""
         from torch.distributed.tensor import Replicate, Shard
         if self.mesh is None or not hasattr(self.mesh, "mesh_dim_names"):
-            raise ValueError("param_shardings needs the plan's mesh to be a "
+            raise ValueError("shardings need the plan's mesh to be a "
                              "DeviceMesh with named dimensions")
         names = self.mesh.mesh_dim_names
 
-        def place(meta):
-            spec = self.param_spec(meta)
+        def place(spec):
             dims = {}
             for dim, entry in enumerate(spec):
                 for ax in (entry if isinstance(entry, tuple)
@@ -134,7 +152,7 @@ class Plan:
                 Shard(dims[ax]) if ax in dims else Replicate()
                 for ax in names))
 
-        return pm.tree_map(place, meta_tree)
+        return pm.tree_map(place, spec_tree)
 
     # -- activation specs ---------------------------------------------------
     @property

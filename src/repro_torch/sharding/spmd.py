@@ -1,0 +1,257 @@
+"""The train step across ranks: tensor parallelism inside the model's
+forward and FSDP over the data axes, on a ``DeviceMesh`` of
+``("data", "model")``.
+
+Parameters and optimizer state are ``DTensor`` s placed by the plan's
+``param_shardings`` (the FSDP placement: the plan's tensor-parallel spec
+plus the largest replicated dimension over the data axis). For a
+microbatch each rank all-gathers its masters over the data axis to their
+tensor-parallel placement (:func:`gather`, whose backward reduce-scatters
+the gradient back to the FSDP placement) and runs the model on its local
+tensors: its share of the heads, the MLP's columns and the vocabulary.
+Inside a :func:`region` the model's layers call Megatron's two operators
+(:func:`enter`: identity forward, all-reduce of the gradient; :func:`leave`:
+all-reduce forward, identity backward) at the edges of each tensor-parallel
+block, look tokens up in a vocabulary-sharded embedding (:func:`embed`) and
+take the loss over vocabulary-sharded logits (``train.loss``). Outside a
+region every one of them is the identity, and serving is untouched.
+
+The collectives are ``torch.distributed`` 's own on the mesh's process
+groups: all-reduce, all-gather and reduce-scatter into tensors. Gloo runs
+each of them on CUDA tensors, which is how several ranks share one card
+(NCCL refuses two ranks on one GPU). ``DTensor.redistribute`` from
+``Shard`` to ``Replicate`` crashed a gloo rank on CUDA tensors on the H100
+(PyTorch 2.11), so no all-gather here goes through DTensor:
+:func:`full_tensor` is the gather the tests and the card's checks use.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple, Optional
+
+import torch
+import torch.distributed as dist
+
+
+class Region(NamedTuple):
+    """The process groups of a forward across ranks: ``tp`` over the
+    model axis (and this rank's index in it), ``dp`` over the data axis
+    (the loss's token count sums over it; None: one rank)."""
+    tp: Optional[object]
+    tp_rank: int
+    dp: Optional[object]
+
+
+#: the region the model's layers read (None: one rank, every operator of
+#: this module the identity); set by :func:`region`
+REGION: Optional[Region] = None
+
+
+@contextlib.contextmanager
+def region(tp_group=None, dp_group=None):
+    """Within the block the model's forward runs tensor-parallel over
+    ``tp_group``; the previous region is restored on exit."""
+    global REGION
+    prev = REGION
+    REGION = Region(tp_group,
+                    dist.get_rank(tp_group) if tp_group is not None else 0,
+                    dp_group)
+    try:
+        yield REGION
+    finally:
+        REGION = prev
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """A reduced copy of ``x`` over ``group`` (x itself untouched)."""
+    y = x.clone()
+    if group is not None:
+        dist.all_reduce(y, op=op, group=group)
+    return y
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _Leave(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def enter(x: torch.Tensor) -> torch.Tensor:
+    """The input of a tensor-parallel block (replicated over the model
+    axis): the identity, whose gradient sums the ranks' partial ones."""
+    if REGION is None or REGION.tp is None:
+        return x
+    return _Enter.apply(x, REGION.tp)
+
+
+def leave(x: torch.Tensor) -> torch.Tensor:
+    """A block's partial output summed over the model axis; each rank's
+    gradient flows back unchanged."""
+    if REGION is None or REGION.tp is None:
+        return x
+    return _Leave.apply(x, REGION.tp)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of a vocabulary-sharded table (this rank's ``V / tp`` rows
+    from ``tp_rank * V / tp``): each rank looks up the tokens in its rows,
+    zeros for the others, and the sum over the model axis is the lookup."""
+    r = REGION
+    n = table.shape[0]
+    local = tokens.long() - r.tp_rank * n
+    mine = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)] * mine[..., None].to(table.dtype)
+    return leave(rows)
+
+
+# --- the data axis: FSDP's gather and scatter -------------------------------
+
+def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``x`` of ``group`` joined along ``dim``, in rank order."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out if dim == 0 else torch.cat(out.chunk(n), dim=dim)
+
+
+def _scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of the sum of ``x`` over ``group``."""
+    n = dist.get_world_size(group)
+    parts = x.chunk(n, dim=dim)
+    out = torch.empty_like(parts[0], memory_format=torch.contiguous_format)
+    dist.reduce_scatter_tensor(out, torch.cat(parts).contiguous(),
+                               group=group)
+    return out
+
+
+def _moves(mesh, src, dst):
+    """(tensor dim, mesh dim's group) of each mesh dimension where ``src``
+    shards a tensor dimension that ``dst`` replicates, in mesh order."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for i, (a, b) in enumerate(zip(src, dst)):
+        if a == b:
+            continue
+        if not (isinstance(a, Shard) and isinstance(b, Replicate)):
+            raise ValueError(f"only Shard -> Replicate moves, got {a} -> "
+                             f"{b}")
+        out.append((a.dim, mesh.get_group(i)))
+    return out
+
+
+def gather_local(local: torch.Tensor, mesh, src, dst) -> torch.Tensor:
+    """This rank's tensor at placements ``dst`` from its shard at ``src``
+    (all-gathers where ``src`` shards a dimension ``dst`` replicates), no
+    gradient."""
+    for dim, group in reversed(_moves(mesh, src, dst)):
+        local = _gather_dim(local, dim, group)
+    return local
+
+
+def scatter_local(g: torch.Tensor, mesh, src, partial) -> torch.Tensor:
+    """A gradient, partial over the mesh dimensions ``partial`` (the data
+    axes: each rank's from its own rows), summed over them and cut to this
+    rank's shard at placements ``src``: a reduce-scatter where ``src``
+    shards a tensor dimension over the mesh dimension, an all-reduce
+    where it replicates."""
+    from torch.distributed.tensor import Shard
+    for i in partial:
+        group = mesh.get_group(i)
+        if isinstance(src[i], Shard):
+            g = _scatter_dim(g, src[i].dim, group)
+        else:
+            g = all_reduce(g, group)
+    return g
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, mesh, src, dst, partial):
+        ctx.args = (mesh, src, partial)
+        return gather_local(local, mesh, src, dst)
+
+    @staticmethod
+    def backward(ctx, g):
+        return scatter_local(g, *ctx.args), None, None, None, None
+
+
+def gather(local: torch.Tensor, mesh, src, dst, partial) -> torch.Tensor:
+    """:func:`gather_local` with a gradient: the backward sums the ranks'
+    gradients over the mesh dimensions ``partial`` back to this rank's
+    shard (:func:`scatter_local`), FSDP's pair of collectives."""
+    return _Gather.apply(local, mesh, src, dst, partial)
+
+
+def check_even(shape, mesh, placements, name: str = "tensor") -> None:
+    """Raise where a placement would cut a dimension into unequal shards
+    (the collectives here move equal ones)."""
+    from torch.distributed.tensor import Shard
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and shape[p.dim] % mesh.size(i):
+            raise ValueError(
+                f"{name}: dimension {p.dim} of {tuple(shape)} does not "
+                f"split evenly over mesh dimension {i} of size "
+                f"{mesh.size(i)}")
+
+
+# --- DTensors from and to full tensors ---------------------------------------
+
+def place(full: torch.Tensor, sharding):
+    """``full`` (the same on every rank) as a ``DTensor`` at
+    ``sharding`` 's mesh and placements: this rank cuts its own shard
+    (chunks in mesh order, as ``DTensor`` lays shards out) and keeps a
+    copy of it alone; no collective runs."""
+    from torch.distributed.tensor import DTensor, Shard
+    coord = sharding.mesh.get_coordinate()
+    local = full
+    for i, p in enumerate(sharding.placements):
+        if isinstance(p, Shard):
+            local = local.chunk(sharding.mesh.size(i), dim=p.dim)[coord[i]]
+    return DTensor.from_local(local.clone(memory_format=torch.contiguous_format),
+                              sharding.mesh, sharding.placements,
+                              run_check=False, shape=full.shape,
+                              stride=full.stride())
+
+
+def zeros(shape, dtype, sharding, device):
+    """A zero ``DTensor`` of global ``shape`` at ``sharding``, each rank
+    allocating its shard alone (even splits, :func:`check_even`)."""
+    from torch.distributed.tensor import DTensor, Shard
+    check_even(shape, sharding.mesh, sharding.placements)
+    local = list(shape)
+    for i, p in enumerate(sharding.placements):
+        if isinstance(p, Shard):
+            local[p.dim] //= sharding.mesh.size(i)
+    full_stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(
+        torch.zeros(local, dtype=dtype, device=device), sharding.mesh,
+        sharding.placements, run_check=False, shape=torch.Size(shape),
+        stride=full_stride)
+
+
+def full_tensor(x) -> torch.Tensor:
+    """The whole tensor of a ``DTensor`` on every rank, gathered with
+    all-gathers into tensors (a plain tensor is returned as it is)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    return gather_local(x.to_local(), mesh, x.placements,
+                        [Replicate()] * mesh.ndim)

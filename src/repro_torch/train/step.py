@@ -13,15 +13,36 @@ gradients are taken by ``torch.autograd.grad`` through
 the loss and the metrics are averaged. The optimizer then writes the new
 masters into ``params`` and ``opt_state`` in place (``Optimizer.update``)
 and the model takes them (``Model.set_weights``), so that ``apply`` and
-serving read the trained weights. The reference's ``hoist_gather`` is a
-mesh option; the port takes no sharding plan, so it is left out, as
-``Model`` leaves out the plan.
+serving read the trained weights.
+
+Under a plan whose mesh is a ``DeviceMesh`` (``Model(cfg, plan=make_plan(
+cfg, mesh))``, every rank of the mesh running the same calls) the step is
+the reference's sharded one: ``params`` and ``opt_state`` are ``DTensor`` s
+at ``plan.param_shardings`` (FSDP: the tensor-parallel spec plus the
+largest replicated dimension over the data axis), ``batch`` is the global
+batch on every rank, and each rank runs its rows of each microbatch
+(the microbatch's rows split over the data axis, as the reference shards
+them) through the model on its share of the heads, the MLP's columns and
+the vocabulary (``sharding/spmd.py``). Per microbatch the masters are
+all-gathered over the data axis to ``plan.tp_shardings`` inside the
+graph, whose backward reduce-scatters the gradient back. With
+``hoist_gather`` (the reference's option, default off; it applies with
+FSDP, a data axis and ``n_accum > 1``) the gather and the cast to
+``cfg.dtype`` happen once per step outside the graph, and each
+microbatch's gradient is reduce-scattered back to the FSDP placement in
+float32 (the reference's ``scatter_grad``). The gradients come back as
+``DTensor`` s at the FSDP placement, the loss and metrics as the batch's,
+and ``Optimizer.update`` runs on the ``DTensor`` s. The sharded step runs
+the dense family (the other families' layers have no tensor-parallel
+operators) and leaves the model's stored weights alone: its forward
+takes the masters it is given.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import params as pm
 from repro_torch.models.model import Model
@@ -94,19 +115,32 @@ def make_grad_fn(model: Model, n_accum: int = 1):
     return grad_fn
 
 
-def make_train_step(model: Model, opt: Optimizer, n_accum: int = 1):
+def _replicated(x):
+    """A metric as a plain tensor (a ``DTensor`` replicated on every
+    rank, as the optimizer's norm is, by its local value)."""
+    from torch.distributed.tensor import DTensor
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def make_train_step(model: Model, opt: Optimizer, n_accum: int = 1,
+                    hoist_gather: bool = False):
     """-> ``train_step``, with its two halves as attributes:
     ``train_step.grads(params, batch) -> (loss, metrics, grads)`` changes
     nothing, so a failed attempt can be run again; ``train_step.update(
     params, opt_state, loss, metrics, grads, step)`` writes ``params`` and
     ``opt_state`` in place, leaf by leaf, so a failure inside it leaves a
-    step half applied and is not to be retried."""
-    grad_fn = make_grad_fn(model, n_accum)
+    step half applied and is not to be retried. ``hoist_gather`` acts on a
+    sharded step only (module docstring)."""
+    sharded = is_sharded(model)
+    grad_fn = (make_sharded_grad_fn(model, n_accum, hoist_gather) if sharded
+               else make_grad_fn(model, n_accum))
 
     def update(params, opt_state, loss, metrics, grads, step):
         params, opt_state, opt_metrics = opt.update(params, grads, opt_state,
                                                     step)
-        model.set_weights(params)
+        if not sharded:
+            model.set_weights(params)
+        opt_metrics = {k: _replicated(v) for k, v in opt_metrics.items()}
         return params, opt_state, {**metrics, **opt_metrics, "loss": loss}
 
     def train_step(params, opt_state, batch, step):
@@ -114,6 +148,114 @@ def make_train_step(model: Model, opt: Optimizer, n_accum: int = 1):
 
     train_step.grads, train_step.update = grad_fn, update
     return train_step
+
+
+# --- the sharded step ------------------------------------------------------------
+
+def is_sharded(model: Model) -> bool:
+    """Whether the model's plan is over a ``DeviceMesh`` (the step runs
+    across its ranks)."""
+    return hasattr(model.plan.mesh, "mesh_dim_names")
+
+
+def _rank_rows(x, rank: int, n: int):
+    b = x.shape[0] // n
+    return x[rank * b:(rank + 1) * b]
+
+
+def make_sharded_grad_fn(model: Model, n_accum: int = 1,
+                         hoist_gather: bool = False):
+    """:func:`make_grad_fn` across the ranks of the plan's ``DeviceMesh``
+    (module docstring): ``grad_fn(params, batch) -> (loss, metrics,
+    grads)`` with ``params`` and the returned ``grads`` trees of
+    ``DTensor`` s at ``plan.param_shardings``, ``batch`` the global batch
+    on every rank, the loss and metrics those of the whole batch."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.layers import cdt
+    from repro_torch.sharding import spmd
+    cfg, plan = model.cfg, model.plan
+    mesh = plan.mesh
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the sharded train step runs the dense family; {cfg.name} is "
+            f"{cfg.family}, whose layers have no tensor-parallel operators")
+    names = mesh.mesh_dim_names
+    if set(names) - {"data", "model"}:
+        raise ValueError(f"the sharded step takes a (data, model) mesh, got "
+                         f"{names}")
+    meta = model.param_meta()
+    fsdp = pm.tree_leaves(plan.param_shardings(meta))
+    tp = pm.tree_leaves(plan.tp_shardings(meta))
+    for m, f, t in zip(pm.tree_leaves(meta), fsdp, tp):
+        spmd.check_even(m.shape, mesh, f.placements)
+        spmd.check_even(m.shape, mesh, t.placements)
+    partial = [names.index("data")] if "data" in names else []
+    tp_group = mesh.get_group("model") if "model" in names else None
+    dp_group = mesh.get_group("data") if "data" in names else None
+    dp_rank = dist.get_rank(dp_group) if dp_group is not None else 0
+    dp_n = dist.get_world_size(dp_group) if dp_group is not None else 1
+    hoist = bool(hoist_gather and n_accum > 1 and plan.fsdp and plan.dp_axes)
+    loss_fn = make_loss_fn(model)
+    dtype = cdt(cfg)
+
+    def mb_grads(leaves, mb, gathered):
+        """One microbatch: (loss share, metric shares, this rank's FSDP
+        gradient of every leaf, float32)."""
+        if gathered is None:  # gather inside the graph
+            xs = [p.detach().requires_grad_(True) for p in leaves]
+            full = [spmd.gather(x, mesh, f.placements, t.placements,
+                                partial) for x, f, t in zip(xs, fsdp, tp)]
+        else:
+            xs = full = [g.detach().requires_grad_(True) for g in gathered]
+        it = iter(full)
+        loss, metrics = loss_fn(pm.tree_map(lambda _: next(it), meta), mb)
+        gs = torch.autograd.grad(loss, xs, allow_unused=True)
+        gs = [torch.zeros_like(x) if g is None else g
+              for x, g in zip(xs, gs)]
+        if gathered is not None:  # the reference's scatter_grad
+            gs = [spmd.scatter_local(g.float(), mesh, f.placements, partial)
+                  for g, f in zip(gs, fsdp)]
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            [g.float() for g in gs]
+
+    def grad_fn(params, batch):
+        B = next(iter(batch.values())).shape[0]
+        if B % (n_accum * dp_n):
+            raise ValueError(f"a batch of {B} rows does not split into "
+                             f"{n_accum} microbatches over {dp_n} data ranks")
+        dts = pm.tree_leaves(params)
+        leaves = [p.to_local() for p in dts]
+        gathered = None
+        if hoist:
+            gathered = [spmd.gather_local(x.to(dtype), mesh, f.placements,
+                                          t.placements)
+                        for x, f, t in zip(leaves, fsdp, tp)]
+        grads, loss, ms = None, 0.0, []
+        with spmd.region(tp_group, dp_group):
+            for mb in _split_batch(batch, n_accum):
+                mine = {k: _rank_rows(v, dp_rank, dp_n)
+                        for k, v in mb.items()}
+                l, m, g = mb_grads(leaves, mine, gathered)
+                grads = g if grads is None else [
+                    a.add_(b) for a, b in zip(grads, g)]
+                loss = loss + l
+                ms.append(m)
+        del gathered
+        # this rank's shares of the loss and metrics, summed over the data
+        # axis; the token count is already the batch's
+        loss = spmd.all_reduce(loss / n_accum, dp_group)
+        metrics = {k: torch.stack([m[k] for m in ms]).mean(0) for k in ms[0]}
+        metrics = {k: v if k == "tokens" else spmd.all_reduce(v, dp_group)
+                   for k, v in metrics.items()}
+        grads = [DTensor.from_local(g / n_accum, p.device_mesh, p.placements,
+                                    run_check=False, shape=p.shape,
+                                    stride=p.stride())
+                 for g, p in zip(grads, dts)]
+        it = iter(grads)
+        return loss, metrics, pm.tree_map(lambda _: next(it), params)
+
+    return grad_fn
 
 
 def make_eval_step(model: Model):

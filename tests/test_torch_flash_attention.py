@@ -99,7 +99,8 @@ def test_cpu_runs_no_kernel_and_other_devices_raise():
     before = FA.flash_attention.launches
     FA.flash_attention(q, k, v)
     assert FA.flash_attention.launches == before
-    with pytest.raises(ValueError, match="CPU or CUDA"):
+    # a meta q (the dry run) takes meta k and v: a CPU k raises
+    with pytest.raises(ValueError, match="k is on cpu, q on meta"):
         FA.flash_attention(q.to("meta"), k, v)
 
 

@@ -1326,3 +1326,80 @@ def test_pipeline_two_ranks_on_the_card(cuda, tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stderr[-3000:]
     assert run.stdout.count("PIPELINE_OK") == 2
+
+
+SHARDED_STEP_ON_THE_CARD = r"""
+import sys
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+KW = dict(num_heads=4, num_kv_heads=2, head_dim=64, d_model=256, d_ff=512,
+          dtype="float32")
+
+
+def work(rank, world, store):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import init_sharded
+    from repro_torch.models import params as pm
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.plan import make_plan
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import make_train_step
+    dev = torch.device("cuda", 0)
+    mesh = make_host_mesh(model=2)  # (data 1, model 2) over the two ranks
+    cfg = registry.get("llama3.2-1b").reduced().replace(**KW)
+    opt = make_optimizer(cfg)
+    model = Model(cfg, plan=make_plan(cfg, mesh))
+    params, state = init_sharded(model, opt, 0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 129), device=dev,
+                         generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    n0 = FA.flash_attention.launches
+    loss, _, grads = make_train_step(model, opt, n_accum=2).grads(params,
+                                                                  batch)
+    launches = FA.flash_attention.launches - n0
+    got = [spmd.full_tensor(x) for x in pm.tree_leaves(grads)]
+    one = Model(cfg).init(0)
+    want_loss, _, want = make_train_step(one, opt, n_accum=2).grads(
+        one.weights(), batch)
+    for a, b in zip(got, pm.tree_leaves(want)):
+        err = float((a.double() - b.double()).abs().max()
+                    / b.double().abs().max())
+        assert err <= 1e-4, err
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    assert launches == cfg.num_layers * 2, launches  # local heads, 2 mbs
+    dist.destroy_process_group()
+    print("SHARDED_OK", rank, flush=True)
+
+
+if __name__ == "__main__":
+    mp.spawn(work, args=(2, sys.argv[1]), nprocs=2)
+"""
+
+
+def test_sharded_step_two_ranks_on_the_card(cuda, tmp_path):
+    """Two gloo ranks on cuda:0 over a (data 1, model 2) mesh, reduced
+    llama3.2-1b with heads of 64 (the flash kernel's), float32: the
+    gradients of the sharded step, each rank's flash kernel on its two
+    query heads and one kv head, equal the one-process step's within 1e-4
+    of each leaf's largest magnitude."""
+    import os
+    import subprocess
+    import sys
+    script = tmp_path / "sharded_card.py"
+    script.write_text(SHARDED_STEP_ON_THE_CARD)
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(__file__), "..", "src"))
+    run = subprocess.run([sys.executable, str(script),
+                          str(tmp_path / "store")], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert run.stdout.count("SHARDED_OK") == 2

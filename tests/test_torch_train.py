@@ -27,6 +27,7 @@ Tolerances, each with its reason:
   version, bit for bit (it is that computation).
 """
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -646,5 +647,10 @@ def test_cli_does_not_retry_the_update(monkeypatch):
 
 
 def test_cli_refuses_model_parallel():
-    with pytest.raises(NotImplementedError, match="SPMD"):
+    """Without a process group (no torchrun environment, none initialised)
+    ``--model-parallel 2`` raises: the CLI never runs one rank in place of
+    many (``tests/test_torch_spmd_train.py`` trains under a world)."""
+    import torch.distributed as dist
+    assert not dist.is_initialized() and "WORLD_SIZE" not in os.environ
+    with pytest.raises(RuntimeError, match="process group"):
         launch.main(["--device", "cpu", "--model-parallel", "2"])
