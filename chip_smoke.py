@@ -128,7 +128,10 @@ Phases, each of which exits non-zero on failure:
    exactly, p_nom within 1e-3), with the admission price's margin against
    ``defer_premium`` per marginal slot at the day's ambients; every
    replay's cap trace and counts equal a CPU replay of the same kind at
-   reduced width (a differing cap prints its margins). float32: thermal-aware
+   reduced width (a differing cap prints its margins; the CPU replays, and
+   phase 10c's CPU drill, run in a spawned process of their own from the
+   start of the script, ``CpuOracles``, off the card's critical path).
+   float32: thermal-aware
    admission against the throughput-only baseline (streams held as in
    path 10, deferrals, higher tokens/J), the paged engine against the
    contiguous one, a hotspot on chip 0 at ticks 9 and 10 whose preempted
@@ -290,7 +293,27 @@ Phases, each of which exits non-zero on failure:
    ``hoist_gather``, 2 steps: step wall, tokens/s, each rank's peak memory
    and flash launches; the
    dry run (``launch/dryrun.run_cell``) of llama3.2-1b's cells on both
-   production meshes, each ok;
+   production meshes, each ok; (d) the sharded step of the moe, ssm and
+   hybrid families: one 4-rank gloo world on cuda:0, float32 at full width
+   and cut depth, B 4, S 1024, 2 microbatches, the FSDP gather hoisted
+   (``hoist_gather``, as the CLI runs it): mamba2-780m (2 layers) and
+   zamba2-1.2b (one hybrid group of 6 mamba layers and the shared block,
+   then 1 tail layer) over ``{data 2, model 2}`` (the scan kernel on 24 of
+   48 and 32 of 64 heads a rank, zamba2's flash kernel on 16 of 32), and
+   mixtral-8x7b (1 MoE layer, 1.71 B parameters, ``ep``: 2 experts a rank)
+   over ``{data 1, model 4}``, where one data rank dispatches the whole
+   microbatch, so the one-process step is its oracle. Each config's loss and
+   every leaf's gathered gradient against the one-process step on the card
+   through the same kernels (``TRAIN_GATE_TOL``; for mamba2 and zamba2
+   plus ``FAM_FLOOR_FACTOR`` times their float32 floor, the one-process
+   step's own distance when every master moves one ulp, leaf by leaf, as a
+   Mamba2 chunk's decay exponent amplifies rounding), scan and flash launches
+   gated (ranks x layers or groups x 2 (remat) x microbatches), rank 0's
+   scan calls (y and the final state) and flash calls held bit for bit
+   against the plain versions, each rank's peak memory and the one-process
+   step's printed. deepseek-v2-236b's sharded step is held on the CPU only
+   (one MoE layer at full width does not fit one card beside its gathered
+   copies);
 14. profile: one warm Table II run, one warm 86-ambient LUT and one warm
    LeNet inference at gamma = 1.35 under ``torch.profiler``: device time
    by kernel, the card's busy time and idle share of the wall time (the
@@ -2350,11 +2373,111 @@ def _hold_decisions(label, got, want, rt, field, day) -> None:
           f"CPU replay's {want.energy_j}")
 
 
-def control_path(torch, card: str) -> dict:
+def _decisions(r, names) -> "types.SimpleNamespace":
+    """What the card's run is held to of a CPU replay or drill: its cap
+    trace, energy and the counts ``names``."""
+    import types
+    return types.SimpleNamespace(caps=np.asarray(r.caps), energy_j=r.energy_j,
+                                 **{n: getattr(r, n) for n in names})
+
+
+def _ctl_engine_kw() -> dict:
+    """The control replays' engine settings (the serve path's)."""
+    return {k: SERVE_KW[k] for k in ("batch_slots", "max_len", "page_size",
+                                     "prefill_chunk", "eos_id")}
+
+
+def control_cpu_replays() -> dict:
+    """The control loop's CPU replays at reduced width, one of each kind of
+    ``CTL_RUNS``: the decisions phase 10b holds the card's to."""
+    from repro_torch import scenarios as sc
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+    day, hot, wl = _ctl_inputs()
+    cpu_rt = _ctl_runtime("cpu")
+    rcfg = registry.get(SERVE_ARCH).reduced().replace(dtype="float32")
+    rmodel = Model(rcfg, device="cpu").init(SERVE_SEED)
+    kw = _ctl_engine_kw()
+    cpu = {}
+    for label, args in CTL_RUNS.items():
+        args = dict(args)
+        cpu[label] = _decisions(sc.serve_replay(
+            hot if label == "preempt" else day, wl, rmodel, runtime=cpu_rt,
+            **dict(kw, paged=args.pop("paged", True), **args)),
+            CTL_DECISIONS)
+    return cpu
+
+
+def fleet_cpu_drill():
+    """The pod-loss drill on the CPU port at reduced width: the decisions
+    phase 10c holds the card's drill to."""
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+    rcfg = registry.get(SERVE_ARCH).reduced().replace(dtype="float32")
+    return _decisions(_drill(Model(rcfg, device="cpu").init(SERVE_SEED),
+                             _fleet_runtime("cpu"), clean=False),
+                      DRILL_DECISIONS)
+
+
+# the CPU oracles of phases 10b and 10c run in a process of their own from
+# the start of the script (~80 s of the host, none of the card)
+ORACLE_DIR = ROOT / "build" / "cpu_oracles"
+ORACLE_THREADS = 4
+
+
+def cpu_oracles_worker(path: str) -> None:
+    """The spawned process's target: both oracles on the CPU, pickled to
+    ``path`` with their seconds."""
+    import pickle
+
+    import torch
+    torch.set_num_threads(ORACLE_THREADS)
+    t0 = time.perf_counter()
+    out = {"control": control_cpu_replays()}
+    out["control_s"] = time.perf_counter() - t0
+    out["drill"] = fleet_cpu_drill()
+    out["seconds"] = time.perf_counter() - t0
+    Path(path).write_bytes(pickle.dumps(out))
+
+
+class CpuOracles:
+    """:func:`cpu_oracles_worker` in a spawned process (daemonic: it ends
+    with the script), started on construction; :meth:`get` waits for it
+    and fails the script if it failed."""
+
+    def __init__(self):
+        import multiprocessing
+        ORACLE_DIR.mkdir(parents=True, exist_ok=True)
+        self.path = ORACLE_DIR / "oracles.pkl"
+        self.path.unlink(missing_ok=True)
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=cpu_oracles_worker, args=(str(self.path),), daemon=True)
+        self.proc.start()
+        self.out = None
+
+    def get(self, name: str):
+        if self.out is None:
+            import pickle
+            t0 = time.perf_counter()
+            self.proc.join()
+            waited = time.perf_counter() - t0
+            check(self.proc.exitcode == 0 and self.path.exists(),
+                  "the CPU oracles' process ran to its end")
+            self.out = pickle.loads(self.path.read_bytes())
+            print(f"CPU oracles (control replays and fleet drill, reduced "
+                  f"width, {ORACLE_THREADS} threads): "
+                  f"{self.out['control_s']:.1f} s and "
+                  f"{self.out['seconds'] - self.out['control_s']:.1f} s in "
+                  f"their own process; the script waited {waited:.1f} s")
+        return self.out[name]
+
+
+def control_path(torch, card: str, oracles: CpuOracles) -> dict:
     """The serving control plane on the card: the RailField against the CPU
     port's, then ``scenarios.serve_replay`` at llama3.2-1b full width
     under the full control loop (float32 pairs, preemption, bf16), each
-    replay's decisions held to a CPU replay at reduced width."""
+    replay's decisions held to a CPU replay at reduced width (run in the
+    oracles' process)."""
     from repro_torch import scenarios as sc
     from repro_torch.configs import registry
     from repro_torch.control import sweep_points
@@ -2396,22 +2519,8 @@ def control_path(torch, card: str) -> dict:
     out["p_nom_max_rel_diff"] = pnom_err
 
     # 2. the CPU replays at reduced width: the decisions to hold
-    rcfg = registry.get(SERVE_ARCH).reduced().replace(dtype="float32")
-    rmodel = Model(rcfg, device="cpu").init(SERVE_SEED)
-    kw = dict(batch_slots=SERVE_KW["batch_slots"],
-              max_len=SERVE_KW["max_len"], page_size=SERVE_KW["page_size"],
-              prefill_chunk=SERVE_KW["prefill_chunk"],
-              eos_id=SERVE_KW["eos_id"])
-    cpu = {}
-    t0 = time.perf_counter()
-    for label, args in CTL_RUNS.items():
-        args = dict(args)
-        cpu[label] = sc.serve_replay(
-            hot if label == "preempt" else day, wl, rmodel, runtime=cpu_rt,
-            **dict(kw, paged=args.pop("paged", True), **args))
-    print(f"control: CPU replays at reduced width in "
-          f"{time.perf_counter() - t0:.1f} s")
-    del rmodel
+    kw = _ctl_engine_kw()
+    cpu = oracles.get("control")
 
     # 3. the card, float32
     cfg = registry.get(SERVE_ARCH)
@@ -2630,12 +2739,13 @@ def _drill(model, rt, clean):
         engine_steps=DRILL_STEPS, paged=True, **SERVE_KW)
 
 
-def fleet_path(torch, card: str) -> dict:
+def fleet_path(torch, card: str, oracles: CpuOracles) -> dict:
     """The control plane's fault, monitor and fleet tier on the card:
     three named days through ``replay``, the pod-loss day through
     ``fleet_replay`` at 2 pods, each held to the CPU port; then the
     pod-loss serving drill at llama3.2-1b full width through
-    ``fleet_serve_replay`` (two paged engines over one host page pool)."""
+    ``fleet_serve_replay`` (two paged engines over one host page pool),
+    held to the CPU drill of the oracles' process."""
     from repro_torch import scenarios as sc
     from repro_torch.configs import registry
     from repro_torch.models.model import Model
@@ -2694,13 +2804,8 @@ def fleet_path(torch, card: str) -> dict:
         "wall_s": wall, "events": got.events, "baseline_solves": solves,
         "loop": _meter_line("fleet_replay FleetLoop", meter, card)}
 
-    # 3. the pod-loss serving drill; the CPU drill at reduced width first
-    rcfg = registry.get(SERVE_ARCH).reduced().replace(dtype="float32")
-    t0 = time.perf_counter()
-    cpu = _drill(Model(rcfg, device="cpu").init(SERVE_SEED),
-                 _fleet_runtime("cpu"), clean=False)
-    print(f"fleet drill: the CPU drill at reduced width in "
-          f"{time.perf_counter() - t0:.1f} s")
+    # 3. the pod-loss serving drill, held to the CPU drill at reduced width
+    cpu = oracles.get("drill")
     cfg = registry.get(SERVE_ARCH)
     n_layers = cfg.num_layers
     prompts = {rid: sc.serve_prompt(rid, n, cfg.vocab_size)
@@ -4531,8 +4636,10 @@ class kernel_taps:
             key = self.key(self.calls, *args)
             self.calls += 1
             if key is not None and key not in self.cases:
+                copy = (tuple(t.detach().clone() for t in out)
+                        if isinstance(out, tuple) else out.detach().clone())
                 self.cases[key] = ([t.detach().clone() for t in args], kw,
-                                   out.detach().clone())
+                                   copy)
             return out
 
         attn.KERNELS[self.name] = tap
@@ -5193,6 +5300,291 @@ def spmd_train_check(torch, card: str) -> dict:
             "world_s": world_s, "dryrun_s": dry_s}
 
 
+# the sharded step of the moe, ssm and hybrid families (phase 13d): one
+# 4-rank gloo world on cuda:0, float32 at full width and cut depth, phase
+# 13c's global batch (B 4, S 1024, 2 microbatches), the FSDP gather
+# hoisted as the CLI runs it; (arch, model axis, the cut). zamba2: one
+# hybrid group of 6 mamba layers and the shared block, then 1 tail layer;
+# mixtral: one MoE layer (1.71 B parameters)
+FAM_RUNS = (("mamba2-780m", 2, {"num_layers": 2}),
+            ("zamba2-1.2b", 2, {"num_layers": 7}),
+            ("mixtral-8x7b", 4, {"num_layers": 1}))
+FAM_SEED = 3
+FAM_DIR = ROOT / "build" / "spmd_families"
+# the recurrent families' float32 floor: the one-process step again with
+# every master moved by one float32 ulp (times a random sign), leaf by
+# leaf the distance to the unmoved step; a sharded leaf passes within
+# TRAIN_GATE_TOL plus FAM_FLOOR_FACTOR times it
+FAM_FLOOR_ULP = 2.0 ** -23
+FAM_FLOOR_FACTOR = 10.0
+
+
+def _fam_calls(cfg) -> dict:
+    """Each kernel's calls on one rank in a step of phase 13d: per layer
+    (mamba) or hybrid group (the shared attention's flash), twice under
+    remat, once per microbatch; mixtral's windowed attention takes
+    ``_sdpa``."""
+    remat = 2 if cfg.remat == "full" else 1
+    groups = cfg.num_layers // cfg.hybrid_attn_every \
+        if cfg.family == "hybrid" else 0
+    scan = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    return {"mamba": scan * remat * SPMD_ACCUM,
+            "flash": groups * remat * SPMD_ACCUM}
+
+
+def hold_scan_taps(torch, cases, n_calls: int, what: str) -> dict:
+    """Each tapped scan call (the kernel's y and final state in the run)
+    against ``mamba_scan_ref`` on the same inputs, bit for bit."""
+    from repro_torch.kernels import mamba_scan as MS
+    check(sorted(cases) == list(range(n_calls)),
+          f"{what}: {n_calls} scan calls tapped")
+    worst = 0.0
+    for i, (args, kw, got) in sorted(cases.items()):
+        want = MS.mamba_scan_ref(*args, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            worst = max(worst, float((g.float() - w.float()).abs().max()))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{what} call {i}: scan kernel == plain bit for bit (y and "
+              f"the final state)")
+    xh, bm = cases[0][0][0], cases[0][0][3]
+    print(f"  scan at the {what}'s shapes, xh={tuple(xh.shape)} "
+          f"B={tuple(bm.shape)} {str(xh.dtype).split('.')[-1]} chunk="
+          f"{cases[0][1].get('chunk')}: {n_calls} calls, "
+          f"max|kernel-plain|={worst:.3e}")
+    return {"xh": list(xh.shape), "B": list(bm.shape),
+            "dtype": str(xh.dtype).split(".")[-1], "calls": n_calls,
+            "max_abs_err": worst}
+
+
+def _fam_floor(torch, one, batch, names, ref) -> dict:
+    """Leaf by leaf, how far the one-process step's gradients move when
+    every master moves by one float32 ulp (``FAM_FLOOR_ULP`` times a random
+    sign): the recurrent families' float32 floor. A perturbation of the
+    steps in a Mamba2 chunk's decay exponent (a cumulative sum of dt A,
+    hundreds in magnitude over 256 steps) comes out of each exp(cs_i -
+    cs_j) hundreds of times larger, and compounds layer by layer."""
+    from repro_torch.models import params as pm
+    from repro_torch.train.step import make_grad_fn
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(FAM_SEED + 1)
+    moved = pm.tree_map(lambda t: t * (1 + FAM_FLOOR_ULP * (torch.randint(
+        0, 2, t.shape, generator=gen, device=DEV) * 2 - 1)), one.weights())
+    _, _, bumped = make_grad_fn(one, SPMD_ACCUM)(moved, batch)
+    return {n: _rel_err(b, a.double()) for n, a, b in zip(
+        names, pm.tree_leaves(ref), pm.tree_leaves(bumped))}
+
+
+def fam_gate(torch, rank: int, meshes: dict, arch: str, tp: int,
+             cut: dict) -> dict:
+    """One config of phase 13d on this rank: the sharded step's float32
+    gradients (rank 0's flash and scan calls tapped), gathered; rank 0
+    then takes the one-process step on the card through the same kernels
+    and holds every leaf against it, and its tapped calls against the
+    plain versions."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.models import params as pm
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.plan import make_plan
+    from repro_torch.train.step import make_grad_fn, make_sharded_grad_fn
+    cfg = registry.get(arch).replace(dtype="float32", **cut)
+    plan = make_plan(cfg, meshes[tp])
+    model = Model(cfg, plan=plan)
+    meta = model.param_meta()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(FAM_SEED)  # Model.init's draws
+    full = pm.materialize(meta, gen, cfg.param_dtype, DEV)
+    it = iter(pm.tree_leaves(plan.param_shardings(meta)))
+    params = pm.tree_map(lambda t: spmd.place(t, next(it)), full)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = _spmd_batch(torch, cfg)
+    grad_fn = make_sharded_grad_fn(model, SPMD_ACCUM, hoist_gather=True)
+    mine = lambda i, *a: i if rank == 0 else None
+    taps = {k: kernel_taps(k, mine) for k in ("flash", "mamba")}
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_init, t0 = t0, time.perf_counter()
+    with taps["flash"], taps["mamba"]:
+        loss, metrics, grads = grad_fn(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    out = {"arch": arch, "layers": cfg.num_layers, "model": tp,
+           "data": 4 // tp, "init_s": t0 - t_init, "wall_s": wall,
+           "loss": float(loss),
+           "moe_aux": float(metrics.get("moe_aux", float("nan"))),
+           "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+           "scan": counts["mamba_scan"], "flash": counts["flash_attention"],
+           "params": model.n_params()}
+    t0 = time.perf_counter()
+    names = _leaf_names(grads)
+    got = []
+    for g in pm.tree_leaves(grads):
+        f = spmd.full_tensor(g)
+        if rank == 0:
+            got.append(f.cpu())
+        del f
+    out["gather_s"] = time.perf_counter() - t0
+    del grads, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        calls = _fam_calls(cfg)
+        label = f"sharded {arch} step"
+        out["flash_vs_plain"] = (hold_flash_taps(
+            torch, taps["flash"].cases, calls["flash"], label)
+            if calls["flash"] else None)
+        out["scan_vs_plain"] = (hold_scan_taps(
+            torch, taps["mamba"].cases, calls["mamba"], label)
+            if calls["mamba"] else None)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        one = Model(registry.get(arch).replace(dtype="float32", **cut)) \
+            .init(FAM_SEED)
+        loss1, m1, ref = make_grad_fn(one, SPMD_ACCUM)(one.weights(), batch)
+        torch.cuda.synchronize()
+        out["one_process_s"] = time.perf_counter() - t0
+        out["one_process_peak_mib"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 20
+        floors = {}
+        if cfg.family in ("ssm", "hybrid"):
+            floors = _fam_floor(torch, one, batch, names, ref)
+        del one
+        errs = {}
+        for n, a, b in zip(names, got, pm.tree_leaves(ref)):
+            errs[n] = _rel_err(a.to(DEV), b.double())
+        del ref, got
+        worst = max(errs, key=errs.get)
+        out.update(leaf_rel_errs=errs, floors=floors,
+                   one_process_loss=float(loss1),
+                   one_process_moe_aux=float(m1.get("moe_aux",
+                                                    float("nan"))),
+                   loss_rel_err=abs(float(loss) - float(loss1))
+                   / abs(float(loss1)),
+                   worst_rel_err=errs[worst], worst_leaf=worst)
+    del taps
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def fam_worker(rank: int, world: int, store: str) -> None:
+    """One rank of phase 13d (``torch.multiprocessing.spawn`` target): a
+    gloo group on cuda:0, each config of FAM_RUNS in turn; writes its
+    results under FAM_DIR."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        meshes = {tp: make_host_mesh(model=tp)
+                  for tp in sorted({tp for _, tp, _ in FAM_RUNS})}
+        out = [fam_gate(torch, rank, meshes, arch, tp, cut)
+               for arch, tp, cut in FAM_RUNS]
+        (FAM_DIR / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def spmd_families_check(torch, card: str) -> dict:
+    """Phase 13d: the sharded train step of the moe, ssm and hybrid
+    families over 4 gloo ranks on the card (FAM_RUNS), each config's loss
+    and every leaf's gradient against the one-process step on the card
+    (``TRAIN_GATE_TOL``, phase 13c's gate; for mamba2 and zamba2 plus
+    ``FAM_FLOOR_FACTOR`` times their float32 floor, :func:`_fam_floor`),
+    the launches of the scan and flash kernels gated, rank 0's calls of
+    each held bit for bit against the plain versions."""
+    import shutil
+
+    import torch.multiprocessing as mp
+    from repro_torch.configs import registry
+    shutil.rmtree(FAM_DIR, ignore_errors=True)
+    FAM_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.spawn(fam_worker, args=(SPMD_WORLD, str(FAM_DIR / "store")),
+             nprocs=SPMD_WORLD)
+    world_s = time.perf_counter() - t0
+    ranks = [json.loads((FAM_DIR / f"rank{r}.json").read_text())
+             for r in range(SPMD_WORLD)]
+    shutil.rmtree(FAM_DIR, ignore_errors=True)
+    runs, held = [], {"flash": [], "scan": []}
+    launches = {"flash": 0, "scan": 0}
+    for i, (arch, tp, cut) in enumerate(FAM_RUNS):
+        r0 = ranks[0][i]
+        cfg = registry.get(arch).replace(**cut)
+        calls = _fam_calls(cfg)
+        got = {k: sum(rr[i][k] for rr in ranks) for k in ("scan", "flash")}
+        want = {"scan": SPMD_WORLD * calls["mamba"],
+                "flash": SPMD_WORLD * calls["flash"]}
+        peaks = [round(rr[i]["peak_mib"], 1) for rr in ranks]
+        print(f"[{card}] sharded step {arch} {cfg.num_layers} layers "
+              f"({r0['params']:,} parameters) float32 {{data "
+              f"{r0['data']}, model {tp}}} B={SPMD_B} S={SPMD_S} "
+              f"n_accum={SPMD_ACCUM}: loss {r0['loss']:.6f} (one process "
+              f"{r0['one_process_loss']:.6f}, rel {r0['loss_rel_err']:.3e})"
+              + (f", moe_aux {r0['moe_aux']:.6f} (one process "
+                 f"{r0['one_process_moe_aux']:.6f})" if cfg.is_moe else "")
+              + f", worst leaf rel err {r0['worst_rel_err']:.3e} at "
+              f"{r0['worst_leaf']} (tol {TRAIN_GATE_TOL:g}), scan launches "
+              f"{got['scan']} (gate {want['scan']}), flash launches "
+              f"{got['flash']} (gate {want['flash']}), rank walls "
+              f"{[round(rr[i]['wall_s'], 3) for rr in ranks]} s, peak "
+              f"memory per rank {peaks} MiB, the one-process step's "
+              f"{r0['one_process_peak_mib']:.1f} MiB")
+        floors = r0["floors"]
+        over = {n: e for n, e in r0["leaf_rel_errs"].items()
+                if e > TRAIN_GATE_TOL + FAM_FLOOR_FACTOR * floors.get(n, 0.0)}
+        if floors:
+            ratio = max(e / max(floors[n], 1e-30)
+                        for n, e in r0["leaf_rel_errs"].items())
+            print(f"  float32 floor of {arch} (one-process step, masters "
+                  f"moved one ulp): largest {max(floors.values()):.3e}; "
+                  f"the sharded step's distance over the floor, largest "
+                  f"{ratio:.3f} (gate: {TRAIN_GATE_TOL:g} + "
+                  f"{FAM_FLOOR_FACTOR:g} x the floor, leaf by leaf)")
+        check(not over and r0["loss_rel_err"] <= TRAIN_GATE_TOL
+              and np.isfinite(r0["loss"]),
+              f"sharded {arch} step == one-process step"
+              + (f" (over the gate: {over})" if over else ""))
+        check(got == want, f"sharded {arch} step: scan and flash launches "
+                           f"== {want}")
+        for k, tap in (("flash", "flash_vs_plain"), ("scan", "scan_vs_plain")):
+            check((r0[tap] is not None) == bool(want[k]),
+                  f"sharded {arch} step: rank 0's {k} calls held against "
+                  f"the plain version")
+            if r0[tap] is not None:
+                held[k].append(dict(r0[tap], arch=arch))
+            launches[k] += got[k]
+        runs.append({k: r0[k] for k in (
+            "arch", "layers", "model", "data", "params", "loss",
+            "one_process_loss", "loss_rel_err", "worst_rel_err",
+            "worst_leaf", "moe_aux", "one_process_moe_aux", "init_s",
+            "gather_s", "one_process_s", "one_process_peak_mib")}
+            | {"walls_s": [rr[i]["wall_s"] for rr in ranks],
+               "peak_mib": peaks, "launches": got,
+               "floor_max": max(floors.values()) if floors else None,
+               "floors_top": dict(sorted(floors.items(),
+                                         key=lambda kv: -kv[1])[:5]),
+               "worst_leaves": dict(sorted(
+                   r0["leaf_rel_errs"].items(), key=lambda kv: -kv[1])[:5])})
+    print(f"[{card}] phase 13d: world spawned and run in {world_s:.1f} s")
+    return {"runs": runs, "held": held, "launches": launches,
+            "world_s": world_s}
+
+
 def spmd_path(torch, card: str) -> dict:
     out = {"pipeline": pipeline_check(torch, card)}
     gc.collect()
@@ -5229,6 +5621,7 @@ def main() -> int:
         return out
 
     card = timed("device", device_phase, torch)
+    oracles = CpuOracles()
     timed("build", lambda: sass_phase(build_phase()))
     k = timed("stencil vs plain", kernel_phase, torch)
     mg = timed("fused solve vs plain", mg_kernel_phase, torch)
@@ -5241,10 +5634,10 @@ def main() -> int:
     serve = timed("serve path", serve_path, torch)
     gc.collect()
     torch.cuda.empty_cache()
-    control = timed("control loop", control_path, torch, card)
+    control = timed("control loop", control_path, torch, card, oracles)
     gc.collect()
     torch.cuda.empty_cache()
-    fleet = timed("fleet tier", fleet_path, torch, card)
+    fleet = timed("fleet tier", fleet_path, torch, card, oracles)
     gc.collect()
     torch.cuda.empty_cache()
     mix = timed("mixtral serve path", mixtral_path, torch)
@@ -5261,6 +5654,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     exp = timed("expandable serve path", expandable_path, torch, serve)
     spmd = timed("spmd on one card", spmd_path, torch, card)
+    fam = timed("spmd families", spmd_families_check, torch, card)
     timed("profile", profile_phase, torch,
           mp["runs"]["table2_mkDelayWorker32B"]["fused_launches"],
           osp["params"], osp["fig8_probs"])
@@ -5275,6 +5669,7 @@ def main() -> int:
     print(f"train path: {json.dumps(train)}")
     print(f"expandable serve path: {json.dumps(exp)}")
     print(f"spmd on one card: {json.dumps(spmd)}")
+    print(f"spmd families: {json.dumps(fam)}")
     print(f"phase times (s): {json.dumps(took)}")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/csrc/"
@@ -5350,7 +5745,8 @@ def main() -> int:
                            + train["run"]["counts"]["flash_attention"]
                            + spmd["pipeline"]["launches"]
                            + spmd["train"]["flash_gate"]
-                           + sum(spmd["train"]["timed_flash"]),
+                           + sum(spmd["train"]["timed_flash"])
+                           + fam["launches"]["flash"],
                            att["max_abs_err"]["flash_attention"], rep_flash,
                            att["rows"]["flash_attention"]),
              launches_by_path={
@@ -5363,17 +5759,25 @@ def main() -> int:
                  ["flash_attention"],
                  "pipeline": spmd["pipeline"]["launches"],
                  "sharded_train_gate": spmd["train"]["flash_gate"],
-                 "sharded_train_bf16": sum(spmd["train"]["timed_flash"])},
+                 "sharded_train_bf16": sum(spmd["train"]["timed_flash"]),
+                 "sharded_families_gate": fam["launches"]["flash"]},
              sharded_train_vs_plain=spmd["train"]["flash_vs_plain"],
+             sharded_families_vs_plain=fam["held"]["flash"],
              per_train_step=train["run"]["per_step_flash"],
              grad_rel_err=train["flash_grads"]["worst"],
              per_prefill={n: p["flash_per_prefill"] for n, p in mmp.items()},
              per_decode_step={n: p["flash_per_decode_step"]
                               for n, p in mmp.items()}),
-        _kernel_entry("mamba_scan", src + "mamba_scan.cu",
-                      "src/repro/kernels/mamba_scan.py:70",
-                      rec["mamba2-780m"]["gate_counts"]["mamba_scan"],
-                      scan["max_abs_err"], rep_scan, scan["rows"]),
+        dict(_kernel_entry("mamba_scan", src + "mamba_scan.cu",
+                           "src/repro/kernels/mamba_scan.py:70",
+                           rec["mamba2-780m"]["gate_counts"]["mamba_scan"]
+                           + fam["launches"]["scan"],
+                           scan["max_abs_err"], rep_scan, scan["rows"]),
+             launches_by_path={
+                 "mamba2_serve_gate":
+                     rec["mamba2-780m"]["gate_counts"]["mamba_scan"],
+                 "sharded_families_gate": fam["launches"]["scan"]},
+             sharded_families_vs_plain=fam["held"]["scan"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

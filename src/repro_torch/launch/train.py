@@ -23,6 +23,11 @@ reference's ``build`` does on its host mesh: ``make_host_mesh(model=N)``
 over the world, the plan, ``Model(cfg, plan=...)`` and the sharded step
 (``train/step.py``: tensor parallelism over N ranks, FSDP over the rest),
 each rank drawing the same weights from the seed and keeping its shards.
+It runs the dense, moe (mixtral-8x7b, deepseek-v2-236b: the experts over
+the model axis, or inside each expert where N does not divide their
+count), ssm (mamba2-780m) and hybrid (zamba2-1.2b) families, the Mamba2
+scan on each rank's heads; the vlm and audio families raise
+``NotImplementedError``.
 Under ``torchrun`` (the environment's ``WORLD_SIZE``) the CLI joins the
 group itself: gloo when the ranks share a card (or run on the CPU), NCCL
 when each has its own. One card, four ranks, tensor parallelism 2:
@@ -165,14 +170,22 @@ def _energy_loop(args, device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    help="a registry config, e.g. llama3.2-1b, "
+                    "mixtral-8x7b, deepseek-v2-236b, mamba2-780m, "
+                    "zamba2-1.2b")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--no-smoke", dest="smoke", action="store_false")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--n-accum", type=int, default=1)
-    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="tensor-parallel ranks of a process group (torchrun"
+                    "), FSDP over the rest: the dense, moe, ssm and hybrid "
+                    "families (attention and MLA on local heads, MoE "
+                    "experts over the ranks or inside each expert, Mamba2 "
+                    "on local heads); vlm and audio raise")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=10)
     ap.add_argument("--resume", action="store_true")

@@ -559,13 +559,15 @@ def mla_params(cfg: ModelConfig, plan):
 
 
 def _mla_q(p, x, cfg: ModelConfig, positions):
-    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope)), the rope part rotated."""
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope)), the rope part rotated;
+    the input of ``q_up`` (the normed latent, or x) enters an
+    ``spmd.region`` (:func:`mla_apply`)."""
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     if cfg.q_lora_rank:
         cq = rms_norm(x @ p["q_down"], p["q_norm"], cfg.norm_eps)
-        q = _proj(cq, p["q_up"])
+        q = _proj(spmd.enter(cq), p["q_up"])
     else:
-        q = _proj(x, p["q_up"])
+        q = _proj(spmd.enter(x), p["q_up"])
     return q[..., :nope], apply_rope(q[..., nope:], positions, cfg,
                                      dim=rope_d)
 
@@ -583,19 +585,26 @@ def _mla_ckv(p, x, cfg: ModelConfig, positions):
 def mla_apply(p, x, cfg: ModelConfig, positions=None):
     """Train/prefill: the compressed KV expanded per head, causal
     :func:`_sdpa` (q/k heads of nope + rope, v heads of v_head_dim); returns
-    (out, (c_kv, k_rope)) for cache seeding."""
+    (out, (c_kv, k_rope)) for cache seeding. Inside an ``spmd.region``
+    ``q_up``, ``k_up``, ``v_up`` and ``wo`` are this rank's heads; the
+    latents of the whole ``q_down`` and ``kv_down`` (after their norms) and
+    ``k_rope``, which every rank's heads read, enter the region there (so
+    the gradients of the down projections, their norms and x sum over the
+    model axis once), and the output projection's partial sums add up over
+    the model axis. Without ``q_lora_rank`` x itself enters ``q_up``."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None]
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
     c_kv, k_rope = _mla_ckv(p, x, cfg, positions)
-    k_nope = _proj(c_kv, p["k_up"])
-    v = _proj(c_kv, p["v_up"])
+    c_in, k_rope_in = spmd.enter(c_kv), spmd.enter(k_rope)
+    k_nope = _proj(c_in, p["k_up"])
+    v = _proj(c_in, p["v_up"])
     q = torch.cat([q_nope, q_rope], -1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+    k = torch.cat([k_nope, k_rope_in[:, :, None, :].expand(
         *k_nope.shape[:3], k_rope.shape[-1])], -1)
     o = _sdpa(q, k, v, causal_mask(S, S, 0, device=x.device))
-    return _out(o, p["wo"]), (c_kv, k_rope)
+    return spmd.leave(_out(o, p["wo"])), (c_kv, k_rope)
 
 
 def mla_cache_spec(plan, seq_axis=None):

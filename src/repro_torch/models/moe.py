@@ -11,9 +11,22 @@ padded chunk tails included, compete for it, as in the reference.
 
 The experts' SwiGLU runs as batched products over (experts, capacity)
 buffers: plain ``torch.matmul``, which the reference computes outside any
-kernel too. One card has no data sharding, so a dispatch group is the
-reference's group on its one shard (``n_dp = 1``), and the reference's
-``lax.scan`` over groups is a Python loop here.
+kernel too. The reference's ``lax.scan`` over groups is a Python loop here.
+
+Inside an ``sharding.spmd.region`` (the train step across ranks) the layer
+is the reference's under its plan. Each data rank dispatches its own rows
+in groups of its own (the reference's shard-local grouping, whose
+capacity is a data shard's group's), and the router's mean probabilities
+and z-loss are means over every data rank's groups (``spmd.all_sum`` over
+the data axis: the reference's ``router_topk`` over ``(n_dp, gs, E)``
+logits). The router runs whole on every rank of the model axis; the
+experts are this rank's share (``plan.expert_mode``): E / tp whole experts
+(``ep``) or ``moe_d_ff / tp`` columns of every expert (``tp``). The
+tokens and combine weights enter the experts' path (``spmd.enter``), the
+rank fills only its experts' slots, and the combined output, partial in
+both modes, sums over the model axis (``spmd.leave``). Outside a region
+(serving, one process) a dispatch group is the reference's on one shard
+(``n_dp = 1``).
 """
 from __future__ import annotations
 
@@ -27,6 +40,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamMeta, dense
+from repro_torch.sharding import spmd
 
 _SINK: contextvars.ContextVar = contextvars.ContextVar("moe_routes",
                                                       default=None)
@@ -83,7 +97,12 @@ def router_topk(logits, k: int):
     """Softmax-then-top-k with renormalized weights (+ aux losses).
 
     logits (..., E) -> weights and indices (..., k), aux and z scalars
-    (means over all leading dims), all float32."""
+    (means over all leading dims), all float32. Inside an
+    ``spmd.region`` with a data axis the means run over every data rank's
+    logits of the same shape (each rank's mean, averaged with
+    ``spmd.all_sum``: the gradient of the product of means reaches every
+    rank's probabilities), so aux and z are the whole batch's on every
+    rank."""
     probs = torch.softmax(logits.float(), dim=-1)
     w, idx, _ = _topk_sorted(probs, k)
     w = w / (w.sum(-1, keepdim=True) + 1e-9)
@@ -91,8 +110,13 @@ def router_topk(logits, k: int):
     lead = tuple(range(logits.dim() - 1))
     me = probs.mean(dim=lead)
     ce = F.one_hot(idx, E).float().sum(-2).mean(dim=lead) / k
-    aux = E * torch.sum(me * ce)
     z = torch.logsumexp(logits.float(), -1).square().mean()
+    n_dp = spmd.size("data")
+    if n_dp > 1:
+        me = spmd.all_sum(me, "data") / n_dp
+        ce = spmd.all_reduce(ce, spmd.REGION.dp) / n_dp
+        z = spmd.all_sum(z, "data") / n_dp
+    aux = E * torch.sum(me * ce)
     return w, idx, aux, z
 
 
@@ -118,25 +142,36 @@ def _positions(idx, E: int):
 def _experts(p, x, w, flat_e, pos, keep, cap: int, cfg: ModelConfig):
     """The kept routes of x (n, T, D) through their experts' SwiGLU, route
     (e, pos) in slot ``e * cap + pos`` of (E, cap) buffers, combined with
-    the router's weights w (n, T, k) -> (n, T, D)."""
+    the router's weights w (n, T, k) -> (n, T, D). Inside an
+    ``spmd.region`` the weights are this rank's: E_loc = E / tp experts
+    from ``tp_rank * E_loc`` (``ep``: the buffers hold those experts'
+    slots alone, the other routes drop out here) or every expert's columns
+    (``tp``); either way the result is this rank's part of the sum over
+    the model axis, and x and w enter the region."""
     n, T, D = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     dt = x.dtype
+    E_loc = p["wg"].shape[0]
+    if E_loc < E:  # ep: this rank's experts alone
+        e0 = spmd.REGION.tp_rank * E_loc
+        keep = keep & (flat_e >= e0) & (flat_e < e0 + E_loc)
+        flat_e = flat_e - e0
+    x, w = spmd.enter(x), spmd.enter(w)
     slot = torch.where(keep, flat_e * cap + pos,
-                       torch.full_like(pos, E * cap))  # (n, T*k)
+                       torch.full_like(pos, E_loc * cap))  # (n, T*k)
     # each kept route's token into its slot; the dropped ones (zeros) all
     # land in the overflow row, which is cut off
     xs = x.repeat_interleave(k, dim=1) * keep[..., None].to(dt)
-    buf = x.new_zeros((n, E * cap + 1, D))
+    buf = x.new_zeros((n, E_loc * cap + 1, D))
     buf.scatter_(1, slot[..., None].expand(n, T * k, D), xs)
-    buf = buf[:, :-1].reshape(n, E, cap, D)
+    buf = buf[:, :-1].reshape(n, E_loc, cap, D)
 
     # the experts' SwiGLU, batched over groups x experts
     h = F.silu(buf @ p["wg"]) * (buf @ p["wu"])
-    out_buf = h @ p["wd"]  # (n, E, cap, D)
+    out_buf = h @ p["wd"]  # (n, E_loc, cap, D)
 
-    flat = out_buf.reshape(n, E * cap, D)
-    safe = torch.clamp(slot, max=E * cap - 1)
+    flat = out_buf.reshape(n, E_loc * cap, D)
+    safe = torch.clamp(slot, max=E_loc * cap - 1)
     gathered = torch.gather(flat, 1, safe[..., None].expand(n, T * k, D))
     gathered = gathered * (keep[..., None]
                            * w.reshape(n, T * k)[..., None]).to(dt)
@@ -196,8 +231,10 @@ def moe_apply(p, x, cfg: ModelConfig, cols: bool = False
               ) -> Tuple[torch.Tensor, Dict]:
     """x (B, S, D) -> (out, {moe_aux, moe_z}) with shared experts added.
     The B * S tokens are dispatched in groups of ``cfg.moe_group_size``
-    (one group when 0 or larger than B * S). A row's routes depend on the
-    other rows of its group (they share the capacity). ``cols`` (a decode
+    (one group when 0 or larger than B * S; inside an ``spmd.region`` B
+    is this data rank's rows, so its groups are shard-local, as the
+    reference's under a mesh). A row's routes depend on the other rows of
+    its group (they share the capacity). ``cols`` (a decode
     chunk of 2..16 rows, ``L.by_column``) in one group: the group's
     routes, the rest a column at a time (:func:`_dispatch_cols`), and the
     shared experts as the MLP (:func:`L.mlp_apply`)."""
@@ -218,7 +255,7 @@ def moe_apply(p, x, cfg: ModelConfig, cols: bool = False
             outs.append(o)
             auxs.append(aux)
             zs.append(z)
-        out = torch.cat(outs, dim=0).reshape(B, S, D)
+        out = spmd.leave(torch.cat(outs, dim=0).reshape(B, S, D))
     out = L.tap("experts", out)
     if cfg.num_shared_experts:
         out = out + L.mlp_apply(p["shared"], x, cfg, cols)

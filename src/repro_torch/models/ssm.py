@@ -13,6 +13,17 @@ and C as they are (head h reads group h // (H / G)) and returns the final
 state beside y. :func:`ssm_decode` is plain tensor math, as in the
 reference, and updates its state in place. Weights arrive in the compute
 dtype (``Model``'s cast copy); ``A_log`` and the norm scale stay float32.
+
+Inside an ``sharding.spmd.region`` (the train step across ranks)
+:func:`ssm_apply` runs this rank's ``H / tp`` heads: ``wz``, ``wx``,
+``wdt``, the conv, ``A_log``, ``D``, ``dt_bias`` and the norm scale come
+cut to its ``d_inner / tp`` channels and heads by the plan (the conv is
+depthwise: no collective), ``x`` enters the block, the whole ``wB`` and
+``wC`` enter too (each rank's heads read them, so their gradients sum over
+the model axis) and are cut to the groups its heads read, the gated
+norm's mean over the whole ``d_inner`` sums each rank's squares
+(``spmd.all_sum``), and the partial products of the row-parallel ``wo``
+sum over the model axis (``spmd.leave``).
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ParamMeta, dense
+from repro_torch.sharding import spmd
 from repro_torch.sharding.plan import Spec
 
 
@@ -116,25 +128,66 @@ def ssd_chunked(xh, dt, A, B, C, chunk: int):
     return y, s
 
 
+def _local_groups(w, cfg: ModelConfig, tp: int):
+    """The B or C projection ``w`` (d, G, N) cut to the groups that this
+    rank's heads read (head h reads group h // (H / G)): G / tp groups from
+    ``tp_rank * G / tp`` where tp divides G, the one group ``tp_rank //
+    (tp / G)`` where G divides tp (G = 1: the whole ``w``); else a rank's
+    heads would read groups at offsets the scan's rule does not give, and
+    this raises."""
+    G = cfg.ssm_ngroups
+    if tp == 1 or G == 1:
+        return w
+    r = spmd.REGION.tp_rank
+    if G % tp == 0:
+        g = G // tp
+        return w[:, r * g:(r + 1) * g]
+    if tp % G == 0:
+        g = r // (tp // G)
+        return w[:, g:g + 1]
+    raise ValueError(f"{cfg.name}: {G} B/C groups over {tp} tensor-parallel "
+                     f"ranks: neither divides the other, so a rank's heads "
+                     f"do not read whole groups")
+
+
+def _gated_norm(y, scale, cfg: ModelConfig, tp: int):
+    """The gated RMS norm over the whole ``d_inner``: inside an
+    ``spmd.region`` y holds this rank's channels, and the sum of squares
+    adds up over the model axis."""
+    if tp == 1:
+        return rms_norm(y, scale, cfg.norm_eps)
+    dt = y.dtype
+    y = y.float()
+    ss = spmd.all_sum(y.square().sum(-1, keepdim=True))
+    y = y * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)
+    return (y * scale.float()).to(dt)
+
+
 def ssm_apply(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """Train/prefill. x (B, S, D) -> (out, {"ssm": final state, "conv": the
-    raw pre-conv tail}) — the state that seeds decode."""
+    raw pre-conv tail}) — the state that seeds decode. Inside an
+    ``spmd.region`` the heads, channels and state are this rank's (module
+    docstring)."""
     Bsz, S, _ = x.shape
-    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    H, P = p["A_log"].shape[0], cfg.ssm_head_dim  # this rank's heads
+    tp = cfg.ssm_heads // H
+    x = spmd.enter(x)
     z = x @ p["wz"]
     xr_raw = x @ p["wx"]
     xin = F.silu(_causal_conv(xr_raw, p["conv_w"], p["conv_b"],
                               cfg.ssm_conv))
-    Bm = _group_proj(x, p["wB"]).contiguous()
-    Cm = _group_proj(x, p["wC"]).contiguous()
+    wB = _local_groups(spmd.enter(p["wB"]), cfg, tp)
+    wC = _local_groups(spmd.enter(p["wC"]), cfg, tp)
+    Bm = _group_proj(x, wB).contiguous()
+    Cm = _group_proj(x, wC).contiguous()
     dt = _softplus(x @ p["wdt"] + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
     xh = xin.reshape(Bsz, S, H, P)
     y, state = attn.KERNELS["mamba"](xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
     y = y + xh * p["D"][None, None, :, None]
-    y = y.reshape(Bsz, S, cfg.d_inner)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["wo"]
+    y = y.reshape(Bsz, S, H * P)
+    y = _gated_norm(y * F.silu(z), p["norm"], cfg, tp)
+    out = spmd.leave(y @ p["wo"])
     conv_raw = xr_raw.transpose(1, 2)[:, :, -(cfg.ssm_conv - 1):]
     return out, {"ssm": state, "conv": conv_raw.contiguous()}
 

@@ -23,12 +23,12 @@ placements on a ``DeviceMesh``.
 The plan sizes the model's heads, KV heads and vocabulary
 (``models.model.Model(cfg, plan=...)``). The port places no activation:
 PyTorch places tensors explicitly and has no sharding hint, so
-:meth:`Plan.act` returns its input, and the MoE layer's dispatch groups do
-not split by the data axes as the reference's do under a mesh. The train
-step across ranks (``sharding/spmd.py``, ``train/step.py``) places its
-tensors itself: masters at :meth:`Plan.param_shardings`, gathered per
-microbatch (or once per step with ``hoist_gather``) to
-:meth:`Plan.tp_shardings`.
+:meth:`Plan.act` returns its input. The train step across ranks
+(``sharding/spmd.py``, ``train/step.py``) places its tensors itself:
+masters at :meth:`Plan.param_shardings`, gathered per microbatch (or once
+per step with ``hoist_gather``) to :meth:`Plan.tp_shardings`, and each
+data rank's rows of a microbatch, which form the MoE layer's dispatch
+groups by data shard as the reference's do under a mesh.
 """
 from __future__ import annotations
 

@@ -13,8 +13,29 @@ Inside a :func:`region` the model's layers call Megatron's two operators
 (:func:`enter`: identity forward, all-reduce of the gradient; :func:`leave`:
 all-reduce forward, identity backward) at the edges of each tensor-parallel
 block, look tokens up in a vocabulary-sharded embedding (:func:`embed`) and
-take the loss over vocabulary-sharded logits (``train.loss``). Outside a
-region every one of them is the identity, and serving is untouched.
+take the loss over vocabulary-sharded logits (``train.loss``). Where every
+rank reads a sum whole that each holds a part of, the third operator,
+:func:`all_sum`, all-reduces both ways. Where each sits:
+
+- ``enter``: the input of the attention, MLP and Mamba2 blocks (the SSM's
+  ``x``), the MoE experts' tokens and combine weights (not the router's
+  input: the router, its top-k and its losses run whole on every rank),
+  MLA's latents (``q_down`` / ``kv_down`` after their norms, ``k_rope``),
+  and whole weights that each rank's heads read alone (qk-norm's scales,
+  the SSM's ``wB`` and ``wC``): each one's gradient sums over the model
+  axis.
+- ``leave``: after each row-parallel output projection (attention's and
+  MLA's ``wo``, the MLP's down product, the SSM's ``wo``), after the
+  experts' combine (a rank's experts, ``ep``, or every expert's columns,
+  ``tp``), the embedding lookup and the loss's log-sum-exp and gold logit.
+- ``all_sum`` over the model axis: the Mamba2 gated norm's sum of squares
+  over ``d_inner`` split across the ranks; over the data axis: the MoE
+  router's mean probabilities and its z-loss over the dispatch groups of
+  every data rank (the reference's ``router_topk`` over ``(n_dp, gs, E)``
+  logits), with the aux terms counted once in the summed loss.
+
+Outside a region every one of them is the identity, and serving is
+untouched.
 
 The collectives are ``torch.distributed`` 's own on the mesh's process
 groups: all-reduce, all-gather and reduce-scatter into tensors. Gloo runs
@@ -40,6 +61,13 @@ class Region(NamedTuple):
     tp: Optional[object]
     tp_rank: int
     dp: Optional[object]
+
+    def group(self, axis: str):
+        """The group of ``axis``, "model" or "data" (None: one rank)."""
+        if axis not in ("model", "data"):
+            raise ValueError(f"a region's axes are model and data, not "
+                             f"{axis!r}")
+        return self.tp if axis == "model" else self.dp
 
 
 #: the region the model's layers read (None: one rank, every operator of
@@ -105,6 +133,35 @@ def leave(x: torch.Tensor) -> torch.Tensor:
     if REGION is None or REGION.tp is None:
         return x
     return _Leave.apply(x, REGION.tp)
+
+
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+def size(axis: str = "model") -> int:
+    """The ranks of the current region's ``axis`` (1 outside a region)."""
+    group = None if REGION is None else REGION.group(axis)
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def all_sum(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """The sum of the ranks' ``x`` over the region's ``axis`` ("model" or
+    "data"), whose gradient is the sum of the ranks' gradients too: for a
+    value that every rank reads whole, built from parts each rank holds
+    (neither :func:`enter` nor :func:`leave` alone: the first sums only
+    the gradient, the second only the value)."""
+    group = None if REGION is None else REGION.group(axis)
+    if group is None:
+        return x
+    return _AllSum.apply(x, group)
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

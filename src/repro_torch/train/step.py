@@ -32,10 +32,23 @@ FSDP, a data axis and ``n_accum > 1``) the gather and the cast to
 microbatch's gradient is reduce-scattered back to the FSDP placement in
 float32 (the reference's ``scatter_grad``). The gradients come back as
 ``DTensor`` s at the FSDP placement, the loss and metrics as the batch's,
-and ``Optimizer.update`` runs on the ``DTensor`` s. The sharded step runs
-the dense family (the other families' layers have no tensor-parallel
-operators) and leaves the model's stored weights alone: its forward
-takes the masters it is given.
+and ``Optimizer.update`` runs on the ``DTensor`` s. The sharded step
+leaves the model's stored weights alone: its forward takes the masters it
+is given.
+
+The sharded step runs the dense, moe, ssm and hybrid families; each
+layer places its tensor-parallel operators itself (``sharding/spmd.py``
+lists where ``enter``, ``leave`` and ``all_sum`` sit): attention and MLA
+on their local heads, the MLP on its columns, the MoE experts over the
+model axis (``ep``) or inside each expert (``tp``) behind a router that
+runs whole on every rank, and Mamba2 on its local heads (the scan kernel
+on ``H / tp`` of them). Each rank's rows form their own MoE dispatch
+groups, as the reference's under a mesh, so at more than one data rank
+the MoE losses are the reference's sharded step's, not the one-process
+step's. The MoE aux and z terms are the whole batch's on every data rank
+(``models/moe.py``), so each rank's loss adds its ``1 / dp`` share of
+them, and they are reported at the batch's value, not summed over the
+data axis. The vlm and audio families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,6 +59,7 @@ import torch.distributed as dist
 
 from repro_torch.models import params as pm
 from repro_torch.models.model import Model
+from repro_torch.sharding import spmd
 from repro_torch.train.loss import lm_loss
 from repro_torch.train.optimizer import Optimizer
 
@@ -65,8 +79,11 @@ def make_loss_fn(model: Model):
         loss, metrics = lm_loss(logits, labels)
         cfg = model.cfg
         if cfg.is_moe:
-            loss = loss + cfg.router_aux_coef * aux["moe_aux"] \
-                        + cfg.router_z_coef * aux["moe_z"]
+            # inside an spmd.region aux and z are the batch's on every data
+            # rank, whose losses sum over the data axis: each adds its share
+            n_dp = spmd.size("data")
+            loss = loss + cfg.router_aux_coef * aux["moe_aux"] / n_dp \
+                        + cfg.router_z_coef * aux["moe_z"] / n_dp
             metrics = {**metrics, **aux}
         return loss, metrics
 
@@ -158,6 +175,13 @@ def is_sharded(model: Model) -> bool:
     return hasattr(model.plan.mesh, "mesh_dim_names")
 
 
+#: the families whose layers have no tensor-parallel operators
+UNSHARDED = ("vlm", "audio")
+#: metrics that are the whole batch's on every data rank (the others are
+#: each rank's share of it and sum over the data axis)
+BATCH_METRICS = ("tokens", "moe_aux", "moe_z")
+
+
 def _rank_rows(x, rank: int, n: int):
     b = x.shape[0] // n
     return x[rank * b:(rank + 1) * b]
@@ -173,13 +197,14 @@ def make_sharded_grad_fn(model: Model, n_accum: int = 1,
     from torch.distributed.tensor import DTensor
 
     from repro_torch.models.layers import cdt
-    from repro_torch.sharding import spmd
     cfg, plan = model.cfg, model.plan
     mesh = plan.mesh
-    if cfg.family != "dense":
+    if cfg.family in UNSHARDED:
         raise NotImplementedError(
-            f"the sharded train step runs the dense family; {cfg.name} is "
-            f"{cfg.family}, whose layers have no tensor-parallel operators")
+            f"the sharded train step runs the dense, moe, ssm and hybrid "
+            f"families; {cfg.name} is {cfg.family}, and the vlm and audio "
+            f"families (the cross blocks and their gate, whisper's encoder) "
+            f"have no tensor-parallel operators yet")
     names = mesh.mesh_dim_names
     if set(names) - {"data", "model"}:
         raise ValueError(f"the sharded step takes a (data, model) mesh, got "
@@ -243,10 +268,11 @@ def make_sharded_grad_fn(model: Model, n_accum: int = 1,
                 ms.append(m)
         del gathered
         # this rank's shares of the loss and metrics, summed over the data
-        # axis; the token count is already the batch's
+        # axis; the token count and the MoE losses are already the batch's
         loss = spmd.all_reduce(loss / n_accum, dp_group)
         metrics = {k: torch.stack([m[k] for m in ms]).mean(0) for k in ms[0]}
-        metrics = {k: v if k == "tokens" else spmd.all_reduce(v, dp_group)
+        metrics = {k: v if k in BATCH_METRICS
+                   else spmd.all_reduce(v, dp_group)
                    for k, v in metrics.items()}
         grads = [DTensor.from_local(g / n_accum, p.device_mesh, p.placements,
                                     run_check=False, shape=p.shape,
