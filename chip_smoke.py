@@ -202,18 +202,19 @@ Phases, each of which exits non-zero on failure:
    only after the capacity dropped routes of that request's own real
    tokens (the reference's engine departs there too: a verify chunk's
    rows share the capacity); an extend and a decode step profiled;
-10f. multimodal paths: llama-3.2-vision-11b (40 self + 8 gated cross
-   blocks over 1601 image tokens) and whisper-small (12 encoder + 12
-   decoder layers over 1500 frames) at full width and depth with random
-   weights from a seed, served through ``serve/step``: 4 requests of 37 to
+10f. multimodal paths: llama-3.2-vision-11b (gated cross blocks over
+   1601 image tokens) and whisper-small (encoder layers over 1500 frames)
+   at full width with random weights from a seed, the bf16 runs at half
+   depth (``MM_BF16_DEPTH``: 20 self + 4 cross blocks; 6 encoder + 6
+   decoder layers), served through ``serve/step``: 4 requests of 37 to
    256 tokens with 0.1 N(0, 1) embeddings, a prefill step each, then 32
    greedy decode steps of all four. The reduced model's logits on the card
    equal the CPU port's (1e-4); the float32 gate (depth cut: 5 + 1 and
    1 + 1 layers, 8 decode steps): the streams through the kernels equal
    those under
    ``plain_kernels()`` or part at a top-2 margin under 1e-4, flash
-   launches counted; bf16: flash launches per prefill (48, 36) and per
-   decode step (8, 12), times, peak memory, a decode step profiled, and
+   launches counted; bf16: flash launches per prefill (24, 18) and per
+   decode step (4, 6), times, peak memory, a decode step profiled, and
    each prefill's logits within 0.06 of the plain path with top-1 above
    0.95;
 10g. the §V study: the reference's ``accuracy_vs_rail`` on llama3.2-1b at
@@ -227,9 +228,11 @@ Phases, each of which exits non-zero on failure:
    max_len 1024, prompts of 37 to 256 tokens and one of 512, one more
    after 4 ticks, 32 new tokens each) and zamba2-1.2b (4 slots, four
    prompts and one late, 16 new tokens) at full width with random weights
-   from a seed. The float32 gate: the engine through the kernels (the scan
-   kernel launched layers x prefills times; zamba2's flash kernel groups x
-   prefills times) serves the same greedy streams as the same engine under
+   from a seed. The float32 gate, at half depth (``REC_F32_LAYERS``: 24
+   of mamba2's 48 layers, 20 of zamba2's 38): the engine through the
+   kernels (the scan kernel launched layers x prefills times; zamba2's
+   flash kernel groups x prefills times) serves the same greedy streams
+   as the same engine under
    ``plain_kernels()``, or a printed near-tie (top-2 margin under 1e-4) at
    the first differing token. Then bf16 with its times, launches and peak
    memory, and a ``preempt_to`` mid-run whose resumed streams equal the
@@ -246,7 +249,7 @@ Phases, each of which exits non-zero on failure:
    layers, float32, B 1, S 2048, every leaf's gradient through the
    kernels against the same step through ``_sdpa`` and every leaf's norm
    above 0; the full-width run: llama3.2-1b, 4 of its 16 layers (the
-   sharded bf16 run of 13c keeps all 16), bf16 over float32
+   sharded bf16 run of 13c 8), bf16 over float32
    masters, remat, AdamW (warmup 5), 6 steps of global batch 8 as 2
    microbatches of 4 at 4096 tokens, per step loss, grad norm, wall,
    tokens/s, peak memory and flash launches (gated: 16), the losses finite
@@ -280,8 +283,10 @@ Phases, each of which exits non-zero on failure:
    logits; (b) ``ft.elastic.rescale`` of llama3.2-1b at full width with 2
    layers from a checkpoint the phase writes, under a world-1 gloo group
    on the card: every leaf a DTensor equal bit for bit to the saved
-   tensor; (c) the train step across ranks (``train/step.py``'s sharded
-   step): a 4-rank gloo world on cuda:0 over a ``{data 2, model 2}`` mesh,
+   tensor; (a), (c), (d) and (e) run in one 4-rank gloo world on cuda:0,
+   spawned once ((a) on ranks 0 and 1 of it); (c) the train step across
+   ranks (``train/step.py``'s
+   sharded step) over a ``{data 2, model 2}`` mesh,
    llama3.2-1b at full width, each rank's flash kernel on its 16 query and
    4 kv heads; float32 at 2 layers, global B 4, S 1024, 2 microbatches,
    ``hoist_gather`` off and on: the loss and every leaf's gathered
@@ -289,7 +294,7 @@ Phases, each of which exits non-zero on failure:
    kernels (``TRAIN_GATE_TOL``), flash launches gated (ranks x layers x 2
    (remat) x microbatches), each rank's bytes of parameter and optimizer
    shards equal to the dry run's ``argument_bytes_per_device`` less the
-   batch and the step; bf16 over float32 masters at 16 layers with
+   batch and the step; bf16 over float32 masters at 8 layers with
    ``hoist_gather``, 2 steps: step wall, tokens/s, each rank's peak memory
    and flash launches; the
    dry run (``launch/dryrun.run_cell``) of llama3.2-1b's cells on both
@@ -311,9 +316,24 @@ Phases, each of which exits non-zero on failure:
    gated (ranks x layers or groups x 2 (remat) x microbatches), rank 0's
    scan calls (y and the final state) and flash calls held bit for bit
    against the plain versions, each rank's peak memory and the one-process
-   step's printed. deepseek-v2-236b's sharded step is held on the CPU only
-   (one MoE layer at full width does not fit one card beside its gathered
-   copies);
+   step's printed; the gradients are gathered to rank 0's host alone
+   (``rank0_leaves``). deepseek-v2-236b's sharded step is held on the CPU
+   only (one MoE layer at full width does not fit one card beside its
+   gathered copies); (e) the sharded step of the vlm and audio families,
+   float32 at full width, hoisted, the cross gates opened (``MM_GATE``):
+   llama-3.2-vision-11b cut to one group (5 self-attention blocks and the
+   gated cross block over 1601 image tokens, 2.36 B parameters) over
+   ``{data 2, model 2}`` at B 4, S 1024; whisper-small whole (12 encoder
+   layers over 1500 frames, 12 decoder layers) at B 8 over ``{data 2,
+   model 2}`` and ``{pod 2, data 2, model 1}``. Each run's loss and every
+   leaf's gradient against the one-process step on the card
+   (``TRAIN_GATE_TOL``), flash launches gated (ranks x blocks x 2 (remat)
+   x microbatches), rank 0's calls held bit for bit against the plain
+   version (vlm's self and cross calls, whisper's encoder, decoder and
+   cross calls of the first microbatch's forward); then whisper's sharded
+   state saved across ranks (rank 0 writes), the next step taken, the
+   state restored with ``shardings`` on every rank and that step taken
+   again: its loss and every leaf bit for bit the uninterrupted run's;
 14. profile: one warm Table II run, one warm 86-ambient LUT and one warm
    LeNet inference at gamma = 1.35 under ``torch.profiler``: device time
    by kernel, the card's busy time and idle share of the wall time (the
@@ -329,6 +349,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -564,6 +585,17 @@ def _graph_ms(torch, fn, calls: int = 20) -> float:
     graph.replay()
     torch.cuda.synchronize()
     return _events_ms(torch, graph.replay, 3) / calls
+
+
+def _timed_call(torch, fn):
+    """-> (fn's output, the one call's time in ms, CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def _time_once_ms(torch, fn) -> float:
@@ -1617,8 +1649,12 @@ def attention_kernel_phase(torch) -> dict:
             e64 = {}
             for window in ((0, 48) if name == "decode" else (win,)):
                 got = PA.paged_attention(*args, window=window)
-                want = PA.paged_attention_ref(*args, window=window)
-                torch.cuda.synchronize()
+                # the plain version's time is this call's: it repeats the
+                # kernel's arithmetic op by op and takes up to seconds
+                want, ms = _timed_call(torch, lambda: PA.paged_attention_ref(
+                    *args, window=window))
+                if window == win:
+                    p_ms = ms
                 e = err(got, want)
                 worst["paged_attention"][dt] = max(
                     worst["paged_attention"].get(dt, 0.0), e)
@@ -1644,9 +1680,6 @@ def attention_kernel_phase(torch) -> dict:
                           f"its rows bit for bit")
             k_ms = _time_ms(torch, lambda: PA.paged_attention(
                 *args, window=win))
-            # the plain version is warm: it ran just above on these inputs
-            p_ms = _events_ms(torch, lambda: PA.paged_attention_ref(
-                *args, window=win), 1)
             l_ms = _time_ms(torch, paged_library_call(torch, *args, win))
             bound, by = paged_bound(torch, dt, q, k, ids, bt, pos, win)
             rows["paged_attention"].append(dict(
@@ -1666,8 +1699,8 @@ def attention_kernel_phase(torch) -> dict:
                             device=DEV).to(tdt[dt])
             for causal in (True, False):
                 got = FA.flash_attention(q, k, v, causal=causal)
-                want = FA.flash_attention_ref(q, k, v, causal=causal)
-                torch.cuda.synchronize()
+                want, p_ms = _timed_call(torch, lambda: FA.flash_attention_ref(
+                    q, k, v, causal=causal))  # the plain's time, as above
                 e = err(got, want)
                 worst["flash_attention"][dt] = max(
                     worst["flash_attention"].get(dt, 0.0), e)
@@ -1679,8 +1712,6 @@ def attention_kernel_phase(torch) -> dict:
                 e64 = vs64(dt, got, want, attention64(
                     torch, q, k, v, mask[None].expand(FLASH_B, S, S)))
                 k_ms = _time_ms(torch, lambda: FA.flash_attention(
-                    q, k, v, causal=causal))
-                p_ms = _time_once_ms(torch, lambda: FA.flash_attention_ref(
                     q, k, v, causal=causal))
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
                 l_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -1703,13 +1734,11 @@ def attention_kernel_phase(torch) -> dict:
                             device=DEV).to(tdt[dt])
             run = lambda: FA.flash_attention(q, k, v, causal=False)
             got = run()
-            want = FA.flash_attention_ref(q, k, v, causal=False)
-            torch.cuda.synchronize()
+            want, p_ms = _timed_call(torch, lambda: FA.flash_attention_ref(
+                q, k, v, causal=False))  # the plain's time, as above
             check(torch.equal(got, want), f"flash {label} {dt} S={S} T={T}: "
                                           f"kernel == plain bit for bit")
             k_ms, alone = _time_ms(torch, run), _graph_ms(torch, run)
-            p_ms = _time_once_ms(torch, lambda: FA.flash_attention_ref(
-                q, k, v, causal=False))
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             l_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, enable_gqa=True))
@@ -2213,10 +2242,22 @@ def serve_path(torch) -> dict:
     out["prefill_counts"] = counts
     del last_k
     p_ms = _time_ms(torch, step, 3)
-    with attn.plain_kernels():
-        pp_ms = _time_once_ms(torch, step)
-    print(f"prefill step bf16: {p_ms:.3f} ms through the kernel, {pp_ms:.3f}"
-          f" ms through the plain version")
+
+    def full(plain):
+        """The logits of every position (the step returns the last)."""
+        with attn.plain_kernels() if plain else contextlib.nullcontext():
+            return m16.prefill({"tokens": toks}, max_len=PREFILL_S)[0]
+
+    # one call each, timed: a plain prefill is ~16 x 2 s of the float64
+    # tensor-core model, so its gate's call is its timing too
+    got, k_ms = _timed_call(torch, lambda: full(False))
+    want, pp_ms = _timed_call(torch, lambda: full(True))
+    out["prefill_gate"] = bf16_gate(torch, "bf16 prefill, every position",
+                                    got, want)
+    del got, want
+    print(f"prefill step bf16: {p_ms:.3f} ms through the kernel; the "
+          f"prefill of every position's logits {k_ms:.3f} ms through the "
+          f"kernel, {pp_ms:.3f} ms through the plain version")
     prof = _profile(torch, f"bf16 prefill step B={PREFILL_B} S={PREFILL_S}",
                     step)
     share = _share(prof, "flash_attention")
@@ -2224,15 +2265,8 @@ def serve_path(torch) -> dict:
           f"device time ({prof['busy_ms'] * share:.3f} ms)")
     out["prefill_profile"] = dict(busy_ms=prof["busy_ms"],
                                   wall_ms=prof["wall_ms"], flash_share=share)
-
-    def full(plain):
-        """The logits of every position (the step returns the last)."""
-        with attn.plain_kernels() if plain else contextlib.nullcontext():
-            return m16.prefill({"tokens": toks}, max_len=PREFILL_S)[0]
-
-    out["prefill_gate"] = bf16_gate(torch, "bf16 prefill, every position",
-                                    full(False), full(True))
-    out["prefill_ms"] = {"kernel": p_ms, "plain": pp_ms}
+    out["prefill_ms"] = {"kernel": p_ms, "full_kernel": k_ms,
+                         "full_plain": pp_ms}
     return out
 
 # --- the serving control loop (scenarios.serve_replay) -----------------------------
@@ -3590,6 +3624,12 @@ MM_F32_DEPTH = {"vlm": dict(num_layers=5),
 # 20.3 s of the vlm's 49 s and 11.9 s of whisper's 45 s on the H100); the
 # bf16 runs decode MM_NEW
 MM_F32_NEW = 8
+# the bf16 runs' depth, cut to half (to pay for phase 13e: the prefill
+# gates' plain bf16 attention, a float64 model of the tensor cores, took
+# most of each path): vlm 4 groups of 5 self + 1 cross block, whisper 6
+# encoder and 6 decoder layers
+MM_BF16_DEPTH = {"vlm": dict(num_layers=20),
+                 "whisper": dict(num_layers=6, encoder_layers=6)}
 
 
 def mm_inputs(torch, cfg):
@@ -3701,16 +3741,19 @@ def _mm_flash(cfg):
 def mm_path(torch, name: str) -> dict:
     """One multimodal model at full width through ``serve/step``: the card
     against the CPU port at reduced width, the float32 gate (the kernels
-    against their plain versions, depth cut), and the bf16 run at full
-    depth with the flash launches per prefill and decode step and the
-    prefill held to the plain path (|d logits| <= 0.06, top-1 > 0.95)."""
+    against their plain versions, depth cut), and the bf16 run at half
+    depth (``MM_BF16_DEPTH``) with the flash launches per prefill and
+    decode step and the prefill held to the plain path (|d logits| <=
+    0.06, top-1 > 0.95)."""
     from repro_torch.configs import registry
     from repro_torch.models import attention as attn
     from repro_torch.models.model import Model
     cfg = registry.get(MM_ARCHS[name])
     vlm = cfg.family == "vlm"
-    per_prefill, n_cross = _mm_flash(cfg)
-    out = {"arch": cfg.name, "flash_per_prefill": per_prefill,
+    c16 = cfg.replace(param_dtype="bfloat16", **MM_BF16_DEPTH[name])
+    per_prefill, n_cross = _mm_flash(c16)
+    out = {"arch": cfg.name, "bf16_depth": MM_BF16_DEPTH[name],
+           "flash_per_prefill": per_prefill,
            "flash_per_decode_step": n_cross}
 
     out["card_vs_cpu_logits_max_abs_err"] = _mm_card_vs_cpu(
@@ -3757,10 +3800,10 @@ def mm_path(torch, name: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 2. bf16 at full depth: launches, times, peak memory; the prefills
+    # 2. bf16 at half depth: launches, times, peak memory; the prefills
     # held to the plain path
     torch.cuda.reset_peak_memory_stats()
-    m16 = Model(cfg.replace(param_dtype="bfloat16")).init(MM_SEED)
+    m16 = Model(c16).init(MM_SEED)
     prompts, key, emb = mm_inputs(torch, cfg)
     mm_serve(torch, m16, prompts[:1], key, emb, new=2)  # warm-up
     k16 = mm_serve(torch, m16, prompts, key, emb,
@@ -4046,6 +4089,10 @@ REC_SERVE = {
                     [37, 128, 256, 512], 100, 3, 16),
 }
 PROFILE_PREFILL_S = 512
+# the float32 gate's depth, cut to half (to pay for phase 13e: the plain
+# scan took most of each path): mamba2 24 of 48 layers, zamba2 3 of its 6
+# hybrid groups and the 2 tail layers; the bf16 runs take the full depth
+REC_F32_LAYERS = {"mamba2-780m": 24, "zamba2-1.2b": 20}
 
 
 def rec_prompts(vocab: int, lengths, late: int, seed: int):
@@ -4080,23 +4127,27 @@ def recurrent_serve(torch, arch: str, profile: bool) -> dict:
         tokens=sum(len(v) for v in streams.values()))
     out = {}
 
-    # 1. the float32 gate: the kernels against their plain versions
+    # 1. the float32 gate: the kernels against their plain versions, at
+    # REC_F32_LAYERS
     t0 = time.perf_counter()
-    m32 = Model(cfg.replace(dtype="float32")).init(SERVE_SEED)
-    print(f"serve: {arch} ({m32.n_params()} parameters, {cfg.num_layers} "
-          f"mamba layers, {groups} shared-attention groups) float32 from seed "
-          f"{SERVE_SEED} in {time.perf_counter() - t0:.1f} s")
+    c32 = cfg.replace(dtype="float32", num_layers=REC_F32_LAYERS[arch])
+    groups32 = (c32.num_layers // c32.hybrid_attn_every
+                if cfg.family == "hybrid" else 0)
+    m32 = Model(c32).init(SERVE_SEED)
+    print(f"serve: {arch} ({m32.n_params()} parameters, {c32.num_layers} "
+          f"mamba layers, {groups32} shared-attention groups) float32 from "
+          f"seed {SERVE_SEED} in {time.perf_counter() - t0:.1f} s")
     eng = Engine(m32, **kw)
     reset_counts()
     got, ticks, wall = run(eng)
     counts = read_counts()
     print(f"serve {arch} float32 gate through the kernels: wall {wall:.3f} "
           f"s, {len(ticks)} ticks, launches {counts}")
-    check(counts["mamba_scan"] == layers * n_req,
-          f"{arch}: scan launches == {layers} mamba layers x {n_req} "
-          f"prefills")
-    check(counts["flash_attention"] == groups * n_req,
-          f"{arch}: flash launches == {groups} shared-attention groups x "
+    check(counts["mamba_scan"] == c32.num_layers * n_req,
+          f"{arch}: scan launches == {c32.num_layers} mamba layers x "
+          f"{n_req} prefills")
+    check(counts["flash_attention"] == groups32 * n_req,
+          f"{arch}: flash launches == {groups32} shared-attention groups x "
           f"{n_req} prefills")
     out["gate_counts"] = counts
     out["gate"] = dict(times(ticks, got), wall_s=wall)
@@ -4844,52 +4895,48 @@ def _pipe_setup(torch):
     return model, blocks, stage, x
 
 
-def pipe_worker(rank: int, world: int, store: str) -> None:
-    """One rank of the pipeline (``torch.multiprocessing.spawn`` target):
-    a gloo group, this rank's half of the blocks on cuda:0, one warm-up
-    and PIPE_RUNS timed runs, each with the launch counts set to 0 just
-    before it and read just after; writes its timings (and rank 0 the
-    output) under PIPE_DIR."""
-    import torch
+def pipe_run(torch, rank: int, group) -> list:
+    """Phase 13a on one rank of the world's first PIPE_P ranks (``group``,
+    a gloo group over them): this rank's half of the blocks on cuda:0, one
+    warm-up and PIPE_RUNS timed runs, each with the launch counts set to
+    0 just before it and read just after; rank 0 writes the output under
+    SPMD_DIR. -> this rank's timings."""
     import torch.distributed as dist
     from repro_torch.sharding.pipeline import pipeline_apply
-    dist.init_process_group("gloo", store=dist.FileStore(store, world),
-                            rank=rank, world_size=world)
-    try:
-        _, blocks, stage, x = _pipe_setup(torch)
-        per = len(blocks) // world
-        mine = blocks[rank * per:(rank + 1) * per]
-        busy = [0.0]
+    _, blocks, stage, x = _pipe_setup(torch)
+    per = len(blocks) // PIPE_P
+    mine = blocks[rank * per:(rank + 1) * per]
+    busy = [0.0]
 
-        def timed_stage(ps, h):
-            t0 = time.perf_counter()
-            y = stage(ps, h)
-            torch.cuda.synchronize()
-            busy[0] += time.perf_counter() - t0
-            return y
+    def timed_stage(ps, h):
+        t0 = time.perf_counter()
+        y = stage(ps, h)
+        torch.cuda.synchronize()
+        busy[0] += time.perf_counter() - t0
+        return y
 
-        runs = []
-        for i in range(PIPE_RUNS + 1):
-            busy[0] = 0.0
-            dist.barrier()
-            torch.cuda.synchronize()
-            reset_counts()
-            t0 = time.perf_counter()
-            y = pipeline_apply(timed_stage, mine, x, dist.group.WORLD,
-                               PIPE_M)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = read_counts()
-            if i:
-                runs.append({"wall_s": wall, "busy_s": busy[0],
-                             "idle_share": 1 - busy[0] / wall,
-                             "flash": counts["flash_attention"],
-                             "launches": counts})
-        if rank == 0:
-            torch.save(y.cpu(), PIPE_DIR / "out.pt")
-        (PIPE_DIR / f"rank{rank}.json").write_text(json.dumps(runs))
-    finally:
-        dist.destroy_process_group()
+    runs = []
+    for i in range(PIPE_RUNS + 1):
+        busy[0] = 0.0
+        dist.barrier(group)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        y = pipeline_apply(timed_stage, mine, x, group, PIPE_M)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if i:
+            runs.append({"wall_s": wall, "busy_s": busy[0],
+                         "idle_share": 1 - busy[0] / wall,
+                         "flash": counts["flash_attention"],
+                         "launches": counts})
+    if rank == 0:
+        torch.save(y.cpu(), SPMD_DIR / "pipe_out.pt")
+    del blocks, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
 
 
 def hold_flash_taps(torch, cases, n_calls: int, what="pipeline") -> dict:
@@ -4916,26 +4963,16 @@ def hold_flash_taps(torch, cases, n_calls: int, what="pipeline") -> dict:
             "max_abs_err": worst}
 
 
-def pipeline_check(torch, card: str) -> dict:
+def pipeline_check(torch, card: str, ranks: list, got) -> dict:
     """Phase 13a: the GPipe pipeline of llama3.2-1b's 16 blocks over a
     2-rank gloo group on cuda:0 (8 + 8 blocks, B 8, S 1024, 4
-    microbatches), its output equal bit for bit to the same blocks run in
-    one process over the same microbatches, whose 16 flash calls on the
-    first microbatch are held bit for bit against the plain version; the
-    whole-batch run reported beside it on the logits
-    (test_torch_models.py's bf16 bound)."""
-    import shutil
-
-    import torch.multiprocessing as mp
-    shutil.rmtree(PIPE_DIR, ignore_errors=True)
-    PIPE_DIR.mkdir(parents=True)
-    t0 = time.perf_counter()
-    mp.spawn(pipe_worker, args=(PIPE_P, str(PIPE_DIR / "store")),
-             nprocs=PIPE_P)
-    spawn_s = time.perf_counter() - t0
-    ranks = [json.loads((PIPE_DIR / f"rank{r}.json").read_text())
-             for r in range(PIPE_P)]
-    got = torch.load(PIPE_DIR / "out.pt").to(DEV)
+    microbatches; ``ranks``: each pipeline rank's timings from
+    :func:`spmd_world`, ``got``: its output), the output equal bit for bit
+    to the same blocks run in one process over the same microbatches,
+    whose 16 flash calls on the first microbatch are held bit for bit
+    against the plain version; the whole-batch run reported beside it on
+    the logits (test_torch_models.py's bf16 bound)."""
+    got = got.to(DEV)
     model, blocks, stage, x = _pipe_setup(torch)
     n_blocks = len(blocks)
     # each block's flash call on the first microbatch, at the pipeline's
@@ -4975,12 +5012,10 @@ def pipeline_check(torch, card: str) -> dict:
     check(all(sum(f[i] for f in flash) == n_blocks * PIPE_M
               for i in range(PIPE_RUNS)),
           f"flash launches == {n_blocks} blocks x {PIPE_M} microbatches")
-    shutil.rmtree(PIPE_DIR, ignore_errors=True)
     return {"equal": equal, "flash_vs_plain": flash_held,
             "d_logits_whole_batch": d_logits,
             "top1_whole_batch": top1, "bubble_bound": bubble,
-            "spawn_s": spawn_s, "launches": sum(f[0] for f in flash),
-            "ranks": ranks}
+            "launches": sum(f[0] for f in flash), "ranks": ranks}
 
 
 RESCALE_LAYERS = 2
@@ -5039,11 +5074,13 @@ def rescale_check(torch, card: str) -> dict:
 
 # the train step across ranks (phase 13c): 4 gloo ranks on cuda:0 as
 # {data 2, model 2}; the float32 gate at 2 layers, hoist_gather off and on,
-# then bf16 over float32 masters at full depth
+# then bf16 over float32 masters at 8 of the 16 layers (cut from 16 to
+# pay for phase 13e)
 SPMD_WORLD, SPMD_MODEL = 4, 2
 SPMD_B, SPMD_S, SPMD_ACCUM = 4, 1024, 2
-SPMD_GATE_LAYERS, SPMD_RUN_STEPS = 2, 2
-SPMD_DIR = ROOT / "build" / "spmd_train"
+SPMD_GATE_LAYERS, SPMD_RUN_STEPS, SPMD_RUN_LAYERS = 2, 2, 8
+# phases 13c, 13d and 13e run in one spawned world (a spawn each cost ~15 s)
+SPMD_DIR = ROOT / "build" / "spmd_world"
 
 
 def _spmd_batch(torch, cfg):
@@ -5140,7 +5177,7 @@ def spmd_gate(torch, rank: int, mesh) -> dict:
 
 
 def spmd_timed(torch, rank: int, mesh) -> dict:
-    """bf16 over float32 masters at full depth, ``hoist_gather`` on (one
+    """bf16 over float32 masters at SPMD_RUN_LAYERS, ``hoist_gather`` on (one
     bf16 gather a step in place of a float32 one a microbatch: 14.0-15.6 s
     a step without it on the H100, against 7.1-9.3 s with it in the
     float32 gate's 2 layers): SPMD_RUN_STEPS steps, each with the counts
@@ -5156,7 +5193,7 @@ def spmd_timed(torch, rank: int, mesh) -> dict:
     from repro_torch.sharding.plan import make_plan
     from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.step import make_train_step
-    cfg = registry.get(TRAIN_ARCH)
+    cfg = registry.get(TRAIN_ARCH).replace(num_layers=SPMD_RUN_LAYERS)
     opt = make_optimizer(cfg)
     model = Model(cfg, plan=make_plan(cfg, mesh))
     params, state = init_sharded(model, opt, TRAIN_SEED)
@@ -5191,45 +5228,12 @@ def spmd_timed(torch, rank: int, mesh) -> dict:
     return out
 
 
-def spmd_train_worker(rank: int, world: int, store: str) -> None:
-    """One rank of phase 13c (``torch.multiprocessing.spawn`` target): a
-    gloo group on cuda:0, the gate and the timed run; writes its results
-    under SPMD_DIR."""
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.launch.mesh import make_host_mesh
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(store, world),
-                            rank=rank, world_size=world)
-    try:
-        mesh = make_host_mesh(model=SPMD_MODEL)
-        out = {"gate": spmd_gate(torch, rank, mesh),
-               "timed": spmd_timed(torch, rank, mesh)}
-        (SPMD_DIR / f"rank{rank}.json").write_text(json.dumps(out))
-    finally:
-        dist.destroy_process_group()
-
-
-def spmd_train_check(torch, card: str) -> dict:
+def spmd_train_check(torch, card: str, ranks: list) -> dict:
     """Phase 13c: the sharded train step over 4 gloo ranks on the card
-    (module docstring), then the dry run of llama3.2-1b's cells."""
-    import shutil
-
-    import torch.multiprocessing as mp
-
+    (module docstring; ``ranks``: each rank's results of it from
+    :func:`spmd_world`), then the dry run of llama3.2-1b's cells."""
     from repro_torch.configs import registry
     from repro_torch.launch import dryrun
-    shutil.rmtree(SPMD_DIR, ignore_errors=True)
-    SPMD_DIR.mkdir(parents=True)
-    t0 = time.perf_counter()
-    mp.spawn(spmd_train_worker, args=(SPMD_WORLD, str(SPMD_DIR / "store")),
-             nprocs=SPMD_WORLD)
-    world_s = time.perf_counter() - t0
-    ranks = [json.loads((SPMD_DIR / f"rank{r}.json").read_text())
-             for r in range(SPMD_WORLD)]
-    shutil.rmtree(SPMD_DIR, ignore_errors=True)
     gate = ranks[0]["gate"]
     want_flash = SPMD_WORLD * SPMD_GATE_LAYERS * 2 * SPMD_ACCUM
     for hoist, run in gate["runs"].items():
@@ -5284,8 +5288,8 @@ def spmd_train_check(torch, card: str) -> dict:
     dry_s = time.perf_counter() - t0
     check(all(c["ok"] for c in cells), "dry run: llama3.2-1b's cells ok")
     print(f"[{card}] dry run of {TRAIN_ARCH}: {len(cells)} cells ok in "
-          f"{dry_s:.1f} s on the host; world spawned and run in "
-          f"{world_s:.1f} s")
+          f"{dry_s:.1f} s on the host; 13c in the world "
+          f"{ranks[0]['world_s']:.1f} s")
     return {"gate": gate["runs"], "flash_vs_plain": held,
             "shard_bytes": [r["gate"]["shard_bytes"] for r in ranks],
             "dryrun_bytes": gate["dryrun_bytes"],
@@ -5297,7 +5301,7 @@ def spmd_train_check(torch, card: str) -> dict:
                 "shape", "mesh", "ok", "argument_bytes_per_device",
                 "output_bytes_per_device", "run_s", "flops_model")}
                 for c in cells],
-            "world_s": world_s, "dryrun_s": dry_s}
+            "world_s": ranks[0]["world_s"], "dryrun_s": dry_s}
 
 
 # the sharded step of the moe, ssm and hybrid families (phase 13d): one
@@ -5310,7 +5314,6 @@ FAM_RUNS = (("mamba2-780m", 2, {"num_layers": 2}),
             ("zamba2-1.2b", 2, {"num_layers": 7}),
             ("mixtral-8x7b", 4, {"num_layers": 1}))
 FAM_SEED = 3
-FAM_DIR = ROOT / "build" / "spmd_families"
 # the recurrent families' float32 floor: the one-process step again with
 # every master moved by one float32 ulp (times a random sign), leaf by
 # leaf the distance to the unmoved step; a sharded leaf passes within
@@ -5426,12 +5429,7 @@ def fam_gate(torch, rank: int, meshes: dict, arch: str, tp: int,
            "params": model.n_params()}
     t0 = time.perf_counter()
     names = _leaf_names(grads)
-    got = []
-    for g in pm.tree_leaves(grads):
-        f = spmd.full_tensor(g)
-        if rank == 0:
-            got.append(f.cpu())
-        del f
+    got = rank0_leaves(torch, grads)
     out["gather_s"] = time.perf_counter() - t0
     del grads, params
     gc.collect()
@@ -5477,49 +5475,18 @@ def fam_gate(torch, rank: int, meshes: dict, arch: str, tp: int,
     return out
 
 
-def fam_worker(rank: int, world: int, store: str) -> None:
-    """One rank of phase 13d (``torch.multiprocessing.spawn`` target): a
-    gloo group on cuda:0, each config of FAM_RUNS in turn; writes its
-    results under FAM_DIR."""
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.launch.mesh import make_host_mesh
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(store, world),
-                            rank=rank, world_size=world)
-    try:
-        meshes = {tp: make_host_mesh(model=tp)
-                  for tp in sorted({tp for _, tp, _ in FAM_RUNS})}
-        out = [fam_gate(torch, rank, meshes, arch, tp, cut)
-               for arch, tp, cut in FAM_RUNS]
-        (FAM_DIR / f"rank{rank}.json").write_text(json.dumps(out))
-    finally:
-        dist.destroy_process_group()
-
-
-def spmd_families_check(torch, card: str) -> dict:
+def spmd_families_check(torch, card: str, ranks: list) -> dict:
     """Phase 13d: the sharded train step of the moe, ssm and hybrid
-    families over 4 gloo ranks on the card (FAM_RUNS), each config's loss
+    families over 4 gloo ranks on the card (FAM_RUNS; ``ranks``: each
+    rank's results of it from :func:`spmd_world`), each config's loss
     and every leaf's gradient against the one-process step on the card
     (``TRAIN_GATE_TOL``, phase 13c's gate; for mamba2 and zamba2 plus
     ``FAM_FLOOR_FACTOR`` times their float32 floor, :func:`_fam_floor`),
     the launches of the scan and flash kernels gated, rank 0's calls of
     each held bit for bit against the plain versions."""
-    import shutil
-
-    import torch.multiprocessing as mp
     from repro_torch.configs import registry
-    shutil.rmtree(FAM_DIR, ignore_errors=True)
-    FAM_DIR.mkdir(parents=True)
-    t0 = time.perf_counter()
-    mp.spawn(fam_worker, args=(SPMD_WORLD, str(FAM_DIR / "store")),
-             nprocs=SPMD_WORLD)
-    world_s = time.perf_counter() - t0
-    ranks = [json.loads((FAM_DIR / f"rank{r}.json").read_text())
-             for r in range(SPMD_WORLD)]
-    shutil.rmtree(FAM_DIR, ignore_errors=True)
+    world_s = ranks[0]["world_s"]
+    ranks = [r["runs"] for r in ranks]
     runs, held = [], {"flash": [], "scan": []}
     launches = {"flash": 0, "scan": 0}
     for i, (arch, tp, cut) in enumerate(FAM_RUNS):
@@ -5580,19 +5547,461 @@ def spmd_families_check(torch, card: str) -> dict:
                                          key=lambda kv: -kv[1])[:5]),
                "worst_leaves": dict(sorted(
                    r0["leaf_rel_errs"].items(), key=lambda kv: -kv[1])[:5])})
-    print(f"[{card}] phase 13d: world spawned and run in {world_s:.1f} s")
+    print(f"[{card}] phase 13d: {world_s:.1f} s in the world")
+    return {"runs": runs, "held": held, "launches": launches,
+            "world_s": world_s}
+
+
+def rank0_leaves(torch, tree):
+    """Every leaf of a tree of ``DTensor`` s whole on rank 0's host (None
+    on the other ranks): each rank copies its shard to the host and a gloo
+    gather of the host shards brings them to rank 0 (gloo gathers no CUDA
+    tensor), which joins them by placement, mesh dimension by mesh
+    dimension (pod before data: the reference's pod-major split). A
+    quarter of the bytes of an all-gather to every rank."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.models import params as pm
+    rank, n = dist.get_rank(), dist.get_world_size()
+    out = [] if rank == 0 else None
+    for x in pm.tree_leaves(tree):
+        local = x.to_local().cpu()
+        parts = [torch.empty_like(local) for _ in range(n)] \
+            if rank == 0 else None
+        dist.gather(local, parts, dst=0)
+        del local
+        if rank == 0:
+            mesh = x.device_mesh
+            ranks = mesh.mesh.tolist()
+
+            def join(node, i):
+                if i == mesh.ndim:
+                    return parts[node]
+                p = x.placements[i]
+                if isinstance(p, Shard):
+                    return torch.cat([join(c, i + 1) for c in node], p.dim)
+                return join(node[0], i + 1)
+            out.append(join(ranks, 0))
+        del parts
+    return out
+
+
+# the sharded step of the vlm and audio families (phase 13e), in the same
+# world, float32 at full width with the FSDP gather hoisted, the cross
+# gates opened (MM_GATE: the init's zero gates shut every cross-attention's
+# gradient). (arch, mesh, the cut, global batch): llama-3.2-vision-11b cut
+# to one group (5 self-attention blocks and its gated cross block over
+# 1601 image tokens, 2.36 B parameters) at 13c's batch; whisper-small whole
+# (12 + 12 layers over 1500 frames) at B 8, on both meshes: its rows split
+# over the 4 data ranks of {pod 2, data 2, model 1}. whisper's state on
+# {data 2, model 2} then takes the checkpoint round trip (MM_CKPT_DIR)
+MM_SPMD_RUNS = (("llama-3.2-vision-11b", "d2m2", {"num_layers": 5}, 4),
+                ("whisper-small", "d2m2", {}, 8),
+                ("whisper-small", "p2d2m1", {}, 8))
+MM_SPMD_SEED, MM_GATE = 4, 0.5
+MM_SPMD_MESHES = {"d2m2": (("data", "model"), (2, 2)),
+                  "p2d2m1": (("pod", "data", "model"), (2, 2, 1))}
+MM_CKPT_DIR = ROOT / "build" / "spmd_ckpt"
+# the step after the save, taken twice, at (B, S): its bit-for-bit
+# equality needs no long batch
+MM_CKPT_BATCH = (4, 256)
+
+
+def _mm_calls(cfg) -> dict:
+    """A rank's flash calls in a step of phase 13e, every block's attention
+    twice (remat: a vlm group, a whisper layer), once per microbatch; and
+    the kinds of call the taps hold, one call each (vlm: self and cross;
+    whisper: encoder, decoder self and cross)."""
+    remat = 2 if cfg.remat == "full" else 1
+    if cfg.family == "vlm":
+        fwd = cfg.num_layers + cfg.num_layers // cfg.cross_attn_every
+    else:
+        fwd = cfg.encoder_layers + 2 * cfg.num_layers
+    return {"per_step": fwd * remat * SPMD_ACCUM,
+            "kinds": 2 if cfg.family == "vlm" else 3}
+
+
+def kind_taps(rank: int) -> kernel_taps:
+    """Rank 0's first flash call of each kind, (q's shape, k's shape), keyed
+    0, 1, ... in the order the step first makes them."""
+    seen = []
+
+    def key(i, q, k, *rest):
+        kind = (tuple(q.shape), tuple(k.shape))
+        if rank or kind in seen:
+            return None
+        seen.append(kind)
+        return len(seen) - 1
+    return kernel_taps("flash", key)
+
+
+def _mm_batch(torch, cfg, B: int, S: int = SPMD_S, seed: int = 5) -> dict:
+    """Tokens and the frontend's stub inputs (0.1 N(0, 1) float32) from a
+    generator seeded with ``seed`` on the card."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), device=DEV,
+                         generator=g)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    key, shape = (("image_embeds", (B, cfg.num_image_tokens, cfg.d_model))
+                  if cfg.family == "vlm" else
+                  ("audio_frames", (B, cfg.encoder_frames, cfg.d_model)))
+    out[key] = 0.1 * torch.randn(shape, device=DEV, generator=g)
+    return out
+
+
+def _mm_weights(torch, cfg, meta):
+    """``Model.init`` 's draws from MM_SPMD_SEED, every cross gate at
+    MM_GATE."""
+    from repro_torch.models import params as pm
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(MM_SPMD_SEED)
+    full = pm.materialize(meta, gen, cfg.param_dtype, DEV)
+
+    def open_gates(tree):
+        return {k: v.fill_(MM_GATE) if k == "gate" else open_gates(v)
+                for k, v in tree.items()} if isinstance(tree, dict) else tree
+    return open_gates(full)
+
+
+def _state_equal(torch, a, b) -> bool:
+    """Two trees of ``DTensor`` s with equal local shards, bit for bit."""
+    from repro_torch.models import params as pm
+    return all(x.placements == y.placements
+               and torch.equal(x.to_local(), y.to_local())
+               for x, y in zip(pm.tree_leaves(a), pm.tree_leaves(b)))
+
+
+def mm_ckpt_round_trip(torch, rank, model, opt, params, state, loss,
+                       metrics, grads) -> dict:
+    """After the gate: the step's update, the sharded state saved across
+    ranks (rank 0 writes), the next step, then the state restored with
+    ``shardings`` on every rank and that step again: its loss and every
+    leaf of the parameters and the optimizer state equal the
+    uninterrupted run's, bit for bit."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.train.step import make_train_step
+    step = make_train_step(model, opt, n_accum=SPMD_ACCUM, hoist_gather=True)
+    params, state, _ = step.update(params, state, loss, metrics, grads, 0)
+    if rank == 0:
+        shutil.rmtree(MM_CKPT_DIR, ignore_errors=True)
+    dist.barrier()
+    mgr = CheckpointManager(str(MM_CKPT_DIR), keep_last=1,
+                            across_ranks=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(1, {"params": params, "opt": state})
+    save_s = time.perf_counter() - t0
+    batch = _mm_batch(torch, model.cfg, *MM_CKPT_BATCH, seed=6)
+    params, state, m = step(params, state, batch, 1)
+    loss1 = float(m["loss"])
+    t0 = time.perf_counter()
+    mgr.wait()
+    wait_s = time.perf_counter() - t0
+    meta = model.param_meta()
+    t0 = time.perf_counter()
+    back, at = mgr.restore({"params": params, "opt": state}, shardings={
+        "params": model.plan.param_shardings(meta),
+        "opt": model.plan.param_shardings(opt.state_meta(meta))})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    p2, s2, m2 = step(back["params"], back["opt"], batch, 1)
+    ok = at == 1 and float(m2["loss"]) == loss1 \
+        and _state_equal(torch, p2, params) and _state_equal(torch, s2, state)
+    nbytes = os.path.getsize(MM_CKPT_DIR / "step_00000001" / "arrays.npz") \
+        if rank == 0 else 0
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(MM_CKPT_DIR, ignore_errors=True)
+    return {"ok": bool(ok), "loss": loss1, "resumed_loss": float(m2["loss"]),
+            "save_s": save_s, "write_wait_s": wait_s,
+            "restore_s": restore_s, "bytes": nbytes}
+
+
+def mm_gate(torch, rank: int, mesh, arch: str, cut: dict, B: int,
+            ckpt: bool) -> dict:
+    """One run of phase 13e on this rank: the sharded step's float32
+    gradients (rank 0's flash calls tapped, launches counted), gathered
+    to rank 0's host; with ``ckpt`` the checkpoint round trip after it."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.models import params as pm
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.plan import make_plan
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import make_sharded_grad_fn
+    cfg = registry.get(arch).replace(dtype="float32", **cut)
+    plan = make_plan(cfg, mesh)
+    model = Model(cfg, plan=plan, device=DEV)
+    meta = model.param_meta()
+    t0 = time.perf_counter()
+    full = _mm_weights(torch, cfg, meta)
+    it = iter(pm.tree_leaves(plan.param_shardings(meta)))
+    params = pm.tree_map(lambda t: spmd.place(t, next(it)), full)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = _mm_batch(torch, cfg, B)
+    grad_fn = make_sharded_grad_fn(model, SPMD_ACCUM, hoist_gather=True)
+    calls = _mm_calls(cfg)
+    taps = kind_taps(rank)
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_init, t0 = t0, time.perf_counter()
+    with taps:
+        loss, metrics, grads = grad_fn(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    out = {"arch": arch, "layers": cfg.num_layers, "mesh": dict(zip(
+        mesh.mesh_dim_names, mesh.shape)), "B": B, "init_s": t0 - t_init,
+        "wall_s": wall, "loss": float(loss),
+        "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+        "flash": counts["flash_attention"], "launches": counts,
+        "params": model.n_params(), "heads": plan.num_heads // plan.tp,
+        "kv_heads": plan.num_kv_heads // plan.tp}
+    t0 = time.perf_counter()
+    got = rank0_leaves(torch, grads)
+    out["gather_s"] = time.perf_counter() - t0
+    out["names"] = _leaf_names(grads)
+    if ckpt:
+        opt = make_optimizer(cfg)
+        state_meta = opt.state_meta(meta)
+        it = iter(pm.tree_leaves(plan.param_shardings(state_meta)))
+        state = pm.tree_map(lambda m: spmd.zeros(
+            m.shape, pm.torch_dtype(m.dtype), next(it), DEV), state_meta)
+        out["ckpt"] = mm_ckpt_round_trip(torch, rank, model, opt, params,
+                                         state, loss, metrics, grads)
+        del state
+    del grads, params
+    if rank == 0:
+        out["flash_vs_plain"] = hold_flash_taps(
+            torch, taps.cases, calls["kinds"],
+            f"sharded {arch} step on {out['mesh']}")
+        out["flash_vs_plain"]["kinds"] = [
+            (tuple(a[0].shape), tuple(a[1].shape), kw.get("causal"))
+            for _, (a, kw, _) in sorted(taps.cases.items())]
+    del taps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, got, batch
+
+
+def mm_hold(torch, arch: str, cut: dict, batch, runs) -> None:
+    """Rank 0: the one-process step on the card through the same kernels,
+    on the same weights and batch, and every run's gathered gradients
+    (``runs``: (result, leaves)) against it, leaf by leaf."""
+    from repro_torch.configs import registry
+    from repro_torch.models import params as pm
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import make_grad_fn
+    cfg = registry.get(arch).replace(dtype="float32", **cut)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    one = Model(cfg, device=DEV)
+    one.set_weights(_mm_weights(torch, cfg, one.param_meta()))
+    loss1, _, ref = make_grad_fn(one, SPMD_ACCUM)(one.weights(), batch)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    del one
+    ref = pm.tree_leaves(ref)
+    for out, got in runs:
+        errs = {n: _rel_err(a.to(DEV), b.double())
+                for n, a, b in zip(out["names"], got, ref)}
+        worst = max(errs, key=errs.get)
+        out.update(one_process_loss=float(loss1), one_process_s=one_s,
+                   one_process_peak_mib=peak,
+                   loss_rel_err=abs(out["loss"] - float(loss1))
+                   / abs(float(loss1)),
+                   worst_rel_err=errs[worst], worst_leaf=worst,
+                   worst_leaves=dict(sorted(errs.items(),
+                                            key=lambda kv: -kv[1])[:5]))
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mm_spmd_runs(torch, rank: int) -> dict:
+    """This rank's part of phase 13e: MM_SPMD_RUNS in turn, rank 0 holding
+    each arch's runs against its one-process step once they are done."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    meshes = {k: DeviceMesh(DEV, torch.arange(SPMD_WORLD).reshape(sizes),
+                            mesh_dim_names=names)
+              for k, (names, sizes) in MM_SPMD_MESHES.items()}
+    results, pending = [], []
+    for i, (arch, mesh, cut, B) in enumerate(MM_SPMD_RUNS):
+        out, got, batch = mm_gate(torch, rank, meshes[mesh], arch, cut, B,
+                                  ckpt=(arch, mesh) == ("whisper-small",
+                                                        "d2m2"))
+        results.append(out)
+        pending.append((out, got))
+        last = i + 1 == len(MM_SPMD_RUNS) or MM_SPMD_RUNS[i + 1][0] != arch
+        if last:
+            if rank == 0:
+                mm_hold(torch, arch, cut, batch, pending)
+            pending = []
+            dist.barrier()
+        del got, batch
+    for out in results:
+        del out["names"]
+    return {"runs": results}
+
+
+def spmd_worker(rank: int, world: int, store: str) -> None:
+    """One rank of phases 13a, 13c, 13d and 13e
+    (``torch.multiprocessing.spawn`` target): a gloo group on cuda:0, the
+    pipeline on ranks 0 and 1, then 13c's gate and timed run, each config
+    of FAM_RUNS and each run of MM_SPMD_RUNS in turn; writes its results,
+    each phase's wall in the world beside them, under SPMD_DIR."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        out, t0 = {}, time.perf_counter()
+        pipe = dist.new_group(list(range(PIPE_P)))
+        out["13a"] = pipe_run(torch, rank, pipe) if rank < PIPE_P else None
+        dist.barrier()
+        out["13a_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+        mesh = make_host_mesh(model=SPMD_MODEL)
+        out["13c"] = {"gate": spmd_gate(torch, rank, mesh),
+                      "timed": spmd_timed(torch, rank, mesh)}
+        out["13c"]["world_s"], t0 = time.perf_counter() - t0, \
+            time.perf_counter()
+        meshes = {tp: make_host_mesh(model=tp)
+                  for tp in sorted({tp for _, tp, _ in FAM_RUNS})}
+        out["13d"] = {"runs": [fam_gate(torch, rank, meshes, arch, tp, cut)
+                               for arch, tp, cut in FAM_RUNS]}
+        out["13d"]["world_s"], t0 = time.perf_counter() - t0, \
+            time.perf_counter()
+        out["13e"] = mm_spmd_runs(torch, rank)
+        out["13e"]["world_s"] = time.perf_counter() - t0
+        (SPMD_DIR / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def spmd_world(torch) -> tuple:
+    """Phases 13a, 13c, 13d and 13e's 4-rank gloo world on cuda:0, spawned
+    once -> (each rank's results, the spawn's wall in s, the pipeline's
+    output on the host)."""
+    import shutil
+
+    import torch.multiprocessing as mp
+    shutil.rmtree(SPMD_DIR, ignore_errors=True)
+    SPMD_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.spawn(spmd_worker, args=(SPMD_WORLD, str(SPMD_DIR / "store")),
+             nprocs=SPMD_WORLD)
+    world_s = time.perf_counter() - t0
+    ranks = [json.loads((SPMD_DIR / f"rank{r}.json").read_text())
+             for r in range(SPMD_WORLD)]
+    pipe_out = torch.load(SPMD_DIR / "pipe_out.pt")
+    shutil.rmtree(SPMD_DIR, ignore_errors=True)
+    return ranks, world_s, pipe_out
+
+
+def spmd_multimodal_check(card: str, ranks: list) -> dict:
+    """Phase 13e: the sharded train step of the vlm and audio families
+    over 4 gloo ranks on the card (MM_SPMD_RUNS; ``ranks``: each rank's
+    results of it from :func:`spmd_world`): each run's loss and every
+    leaf's gathered gradient against the one-process step on the card
+    (``TRAIN_GATE_TOL``), the flash launches gated, rank 0's tapped flash
+    calls held bit for bit against the plain version, and whisper's
+    checkpoint round trip bit for bit."""
+    from repro_torch.configs import registry
+    world_s = ranks[0]["13e"]["world_s"]
+    runs, held, launches = [], [], 0
+    for i, (arch, mesh, cut, B) in enumerate(MM_SPMD_RUNS):
+        r0 = ranks[0]["13e"]["runs"][i]
+        cfg = registry.get(arch).replace(**cut)
+        want = SPMD_WORLD * _mm_calls(cfg)["per_step"]
+        flash = sum(rr["13e"]["runs"][i]["flash"] for rr in ranks)
+        peaks = [round(rr["13e"]["runs"][i]["peak_mib"], 1) for rr in ranks]
+        print(f"[{card}] sharded step {arch} {cfg.num_layers} layers "
+              f"({r0['params']:,} parameters) float32 {r0['mesh']} B={B} "
+              f"S={SPMD_S} n_accum={SPMD_ACCUM}, {r0['heads']} of "
+              f"{cfg.num_heads} heads and {r0['kv_heads']} of "
+              f"{cfg.num_kv_heads} kv heads a rank: loss {r0['loss']:.6f} "
+              f"(one process {r0['one_process_loss']:.6f}, rel "
+              f"{r0['loss_rel_err']:.3e}), worst leaf rel err "
+              f"{r0['worst_rel_err']:.3e} at {r0['worst_leaf']} (tol "
+              f"{TRAIN_GATE_TOL:g}), flash launches {flash} (gate {want}), "
+              f"rank walls "
+              f"{[round(rr['13e']['runs'][i]['wall_s'], 3) for rr in ranks]}"
+              f" s, gather to rank 0 {r0['gather_s']:.1f} s, peak memory "
+              f"per rank {peaks} MiB, the one-process step's "
+              f"{r0['one_process_peak_mib']:.1f} MiB in "
+              f"{r0['one_process_s']:.1f} s")
+        check(r0["worst_rel_err"] <= TRAIN_GATE_TOL
+              and r0["loss_rel_err"] <= TRAIN_GATE_TOL
+              and np.isfinite(r0["loss"]),
+              f"sharded {arch} step on {r0['mesh']} == one-process step")
+        check(flash == want, f"sharded {arch} step on {r0['mesh']}: flash "
+                             f"launches == {want}")
+        held.append(dict(r0["flash_vs_plain"], arch=arch, mesh=r0["mesh"]))
+        print(f"  rank 0's flash calls held bit for bit, one of each kind "
+              f"(q, kv, causal): {r0['flash_vs_plain']['kinds']}")
+        launches += flash
+        runs.append({k: r0[k] for k in (
+            "arch", "layers", "mesh", "B", "params", "heads", "kv_heads",
+            "loss", "one_process_loss", "loss_rel_err", "worst_rel_err",
+            "worst_leaf", "worst_leaves", "init_s", "gather_s",
+            "one_process_s", "one_process_peak_mib")}
+            | {"walls_s": [rr["13e"]["runs"][i]["wall_s"] for rr in ranks],
+               "peak_mib": peaks, "flash": flash})
+        if "ckpt" in r0:
+            ck = [rr["13e"]["runs"][i]["ckpt"] for rr in ranks]
+            print(f"[{card}] {arch} sharded checkpoint on {r0['mesh']}: "
+                  f"{ck[0]['bytes'] / 2 ** 20:.1f} MiB written by rank 0, "
+                  f"save {ck[0]['save_s']:.2f} s (the gather and the host "
+                  f"copy), write waited {ck[0]['write_wait_s']:.2f} s after "
+                  f"the next step, restore {ck[0]['restore_s']:.2f} s; the "
+                  f"resumed step's loss {ck[0]['resumed_loss']:.6f} "
+                  f"(uninterrupted {ck[0]['loss']:.6f}); every rank's state "
+                  f"equal bit for bit: {[c['ok'] for c in ck]}")
+            check(all(c["ok"] for c in ck), f"{arch}: the step after a "
+                  f"sharded checkpoint's restore == the uninterrupted "
+                  f"step, bit for bit, on every rank")
+            runs[-1]["ckpt"] = ck[0]
+    print(f"[{card}] phase 13e: {world_s:.1f} s in the world")
     return {"runs": runs, "held": held, "launches": launches,
             "world_s": world_s}
 
 
 def spmd_path(torch, card: str) -> dict:
-    out = {"pipeline": pipeline_check(torch, card)}
+    """Phase 13b in this process, then 13a, 13c, 13d and 13e in one
+    spawned world, then each one's checks."""
+    out = {"rescale": rescale_check(torch, card)}
     gc.collect()
     torch.cuda.empty_cache()
-    out["rescale"] = rescale_check(torch, card)
+    ranks, out["world_s"], pipe_out = spmd_world(torch)
+    print(f"[{card}] phases 13a, 13c-13e: world spawned and run in "
+          f"{out['world_s']:.1f} s (13a {ranks[0]['13a_s']:.1f} s)")
+    out["pipeline"] = pipeline_check(
+        torch, card, [r["13a"] for r in ranks[:PIPE_P]], pipe_out)
+    del pipe_out
     gc.collect()
     torch.cuda.empty_cache()
-    out["train"] = spmd_train_check(torch, card)
+    out["train"] = spmd_train_check(torch, card,
+                                    [r["13c"] for r in ranks])
+    out["families"] = spmd_families_check(torch, card,
+                                          [r["13d"] for r in ranks])
+    out["multimodal"] = spmd_multimodal_check(card, ranks)
     return out
 
 
@@ -5654,7 +6063,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     exp = timed("expandable serve path", expandable_path, torch, serve)
     spmd = timed("spmd on one card", spmd_path, torch, card)
-    fam = timed("spmd families", spmd_families_check, torch, card)
+    fam, mms = spmd["families"], spmd["multimodal"]
     timed("profile", profile_phase, torch,
           mp["runs"]["table2_mkDelayWorker32B"]["fused_launches"],
           osp["params"], osp["fig8_probs"])
@@ -5669,7 +6078,6 @@ def main() -> int:
     print(f"train path: {json.dumps(train)}")
     print(f"expandable serve path: {json.dumps(exp)}")
     print(f"spmd on one card: {json.dumps(spmd)}")
-    print(f"spmd families: {json.dumps(fam)}")
     print(f"phase times (s): {json.dumps(took)}")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/csrc/"
@@ -5746,7 +6154,7 @@ def main() -> int:
                            + spmd["pipeline"]["launches"]
                            + spmd["train"]["flash_gate"]
                            + sum(spmd["train"]["timed_flash"])
-                           + fam["launches"]["flash"],
+                           + fam["launches"]["flash"] + mms["launches"],
                            att["max_abs_err"]["flash_attention"], rep_flash,
                            att["rows"]["flash_attention"]),
              launches_by_path={
@@ -5760,9 +6168,11 @@ def main() -> int:
                  "pipeline": spmd["pipeline"]["launches"],
                  "sharded_train_gate": spmd["train"]["flash_gate"],
                  "sharded_train_bf16": sum(spmd["train"]["timed_flash"]),
-                 "sharded_families_gate": fam["launches"]["flash"]},
+                 "sharded_families_gate": fam["launches"]["flash"],
+                 "sharded_multimodal_gate": mms["launches"]},
              sharded_train_vs_plain=spmd["train"]["flash_vs_plain"],
              sharded_families_vs_plain=fam["held"]["flash"],
+             sharded_multimodal_vs_plain=mms["held"],
              per_train_step=train["run"]["per_step_flash"],
              grad_rel_err=train["flash_grads"]["worst"],
              per_prefill={n: p["flash_per_prefill"] for n, p in mmp.items()},

@@ -15,6 +15,16 @@ so a checkpoint restores onto any mesh: ``restore`` puts each leaf on its
 ``like_tree`` leaf's device, or with ``shardings`` (a tree of
 ``sharding.plan.Sharding``, as ``Plan.param_shardings`` gives it) places it
 as a ``DTensor`` on the current mesh (``ft.elastic.rescale``).
+
+A tree of ``DTensor`` s (the sharded train step's state) is saved whole
+too: each leaf is gathered (``sharding.spmd.full_tensor``, a collective
+that every rank of its mesh joins). With ``across_ranks`` every rank of
+the process group keeps a manager of the same directory and calls it at
+the same steps: each gathers every leaf, rank 0 alone copies them to the
+host, writes and prunes, ``wait`` holds every rank until rank 0's write
+is done, and ``latest_step`` is rank 0's reading on every rank. The
+format is the one-process one, so a checkpoint moves between world
+sizes.
 """
 from __future__ import annotations
 
@@ -28,6 +38,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.sharding import spmd
 
 
 def _items(tree, prefix=()):
@@ -65,8 +78,17 @@ def _host(key: str, leaf) -> np.ndarray:
     return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
 
 
-def _flatten(tree) -> Dict[str, np.ndarray]:
-    return {k: _host(k, v) for k, v in _items(tree)}
+def _flatten(tree, keep: bool = True) -> Dict[str, np.ndarray]:
+    """Host copies of the leaves by key path, each ``DTensor`` gathered
+    first; with ``keep`` False the gathers run (a rank must join each) and
+    nothing is copied."""
+    flat = {}
+    for k, v in _items(tree):
+        v = spmd.full_tensor(v)
+        if keep:
+            flat[k] = _host(k, v)
+        del v
+    return flat
 
 
 def _structure(tree) -> str:
@@ -124,50 +146,61 @@ def _place(a: np.ndarray, sh):
 
 class CheckpointManager:
     def __init__(self, directory: str, keep_last: int = 3,
-                 async_save: bool = True):
+                 async_save: bool = True, across_ranks: bool = False):
+        """``across_ranks``: one manager on each rank of the initialised
+        process group, rank 0 the writer (module docstring)."""
         self.dir = directory
         self.keep_last = keep_last
         self.async_save = async_save
+        self.across_ranks = across_ranks
+        self.writer = not across_ranks or dist.get_rank() == 0
         self._thread: Optional[threading.Thread] = None
         os.makedirs(directory, exist_ok=True)
 
     # --- save ---------------------------------------------------------------
     def save(self, step: int, tree, metadata: Optional[Dict[str, Any]] = None):
         self.wait()  # fence the previous async save
-        flat = _flatten(tree)  # the host copy happens now
-        structure = _structure(tree)
-
-        def _write():
-            path = os.path.join(self.dir, f"step_{step:08d}")
-            tmp = path + ".tmp"
-            os.makedirs(tmp, exist_ok=True)
-            npz_path = os.path.join(tmp, "arrays.npz")
-            np.savez(npz_path, **flat)
-            manifest = {
-                "step": step,
-                "treedef": structure,
-                "keys": sorted(flat.keys()),
-                "sha256": _sha256(npz_path),
-                "time": time.time(),
-                "metadata": metadata or {},
-            }
-            with open(os.path.join(tmp, "manifest.json"), "w") as f:
-                json.dump(manifest, f, indent=1)
-            if os.path.exists(path):
-                shutil.rmtree(path)
-            os.rename(tmp, path)
-            self._prune()
-
+        flat = _flatten(tree, self.writer)  # the host copy happens now
+        if not self.writer:
+            return
+        args = (step, flat, _structure(tree), metadata or {})
         if self.async_save:
-            self._thread = threading.Thread(target=_write, daemon=True)
+            self._thread = threading.Thread(target=self._write, args=args,
+                                            daemon=True)
             self._thread.start()
         else:
-            _write()
+            self._write(*args)
+
+    def _write(self, step: int, flat, structure: str, metadata):
+        """``step_<k>/`` from the host copies, renamed into place whole,
+        then the oldest pruned."""
+        path = os.path.join(self.dir, f"step_{step:08d}")
+        tmp = path + ".tmp"
+        os.makedirs(tmp, exist_ok=True)
+        npz_path = os.path.join(tmp, "arrays.npz")
+        np.savez(npz_path, **flat)
+        manifest = {
+            "step": step,
+            "treedef": structure,
+            "keys": sorted(flat.keys()),
+            "sha256": _sha256(npz_path),
+            "time": time.time(),
+            "metadata": metadata,
+        }
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.rename(tmp, path)
+        self._prune()
 
     def wait(self):
+        """Until the last save is written (across ranks: on every rank)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.across_ranks:
+            dist.barrier()
 
     def _prune(self):
         steps = self.all_steps()
@@ -184,8 +217,15 @@ class CheckpointManager:
         return sorted(out)
 
     def latest_step(self) -> Optional[int]:
-        steps = self.all_steps()
-        return steps[-1] if steps else None
+        """The newest step on disk (across ranks: rank 0's reading, the
+        same on every rank)."""
+        steps = self.all_steps() if self.writer else None
+        latest = steps[-1] if steps else None
+        if self.across_ranks:
+            box = [latest]
+            dist.broadcast_object_list(box, src=0)
+            latest = box[0]
+        return latest
 
     def restore(self, like_tree, step: Optional[int] = None,
                 shardings=None, verify: bool = True) -> Tuple[Any, int]:

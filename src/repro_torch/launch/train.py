@@ -23,11 +23,12 @@ reference's ``build`` does on its host mesh: ``make_host_mesh(model=N)``
 over the world, the plan, ``Model(cfg, plan=...)`` and the sharded step
 (``train/step.py``: tensor parallelism over N ranks, FSDP over the rest),
 each rank drawing the same weights from the seed and keeping its shards.
-It runs the dense, moe (mixtral-8x7b, deepseek-v2-236b: the experts over
-the model axis, or inside each expert where N does not divide their
-count), ssm (mamba2-780m) and hybrid (zamba2-1.2b) families, the Mamba2
-scan on each rank's heads; the vlm and audio families raise
-``NotImplementedError``.
+It runs every family: dense, moe (mixtral-8x7b, deepseek-v2-236b: the
+experts over the model axis, or inside each expert where N does not
+divide their count), ssm (mamba2-780m) and hybrid (zamba2-1.2b), the
+Mamba2 scan on each rank's heads, vlm (llama-3.2-vision-11b) and audio
+(whisper-small), their stub inputs split over the data ranks as the
+tokens are.
 Under ``torchrun`` (the environment's ``WORLD_SIZE``) the CLI joins the
 group itself: gloo when the ranks share a card (or run on the CPU), NCCL
 when each has its own. One card, four ranks, tensor parallelism 2:
@@ -36,8 +37,11 @@ when each has its own. One card, four ranks, tensor parallelism 2:
 
 Under torchrun even ``--model-parallel 1`` trains across the world (FSDP
 alone); without a process group ``--model-parallel`` above 1 raises: the
-CLI never runs one rank in place of many. Across ranks it keeps no
-checkpoint and prints from rank 0.
+CLI never runs one rank in place of many. Across ranks it prints from
+rank 0, and ``--checkpoint-dir`` keeps the one-process format: every rank
+gathers the state and rank 0 writes it (``CheckpointManager(...,
+across_ranks=True)``); ``--resume`` places the saved arrays at the plan's
+placements on every rank, so a checkpoint moves between world sizes.
 """
 from __future__ import annotations
 
@@ -173,7 +177,7 @@ def main(argv=None):
     ap.add_argument("--arch", default="llama3.2-1b",
                     help="a registry config, e.g. llama3.2-1b, "
                     "mixtral-8x7b, deepseek-v2-236b, mamba2-780m, "
-                    "zamba2-1.2b")
+                    "zamba2-1.2b, llama-3.2-vision-11b, whisper-small")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--no-smoke", dest="smoke", action="store_false")
     ap.add_argument("--steps", type=int, default=30)
@@ -185,7 +189,7 @@ def main(argv=None):
                     "), FSDP over the rest: the dense, moe, ssm and hybrid "
                     "families (attention and MLA on local heads, MoE "
                     "experts over the ranks or inside each expert, Mamba2 "
-                    "on local heads); vlm and audio raise")
+                    "on local heads) and the vlm and audio families")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=10)
     ap.add_argument("--resume", action="store_true")
@@ -207,9 +211,6 @@ def main(argv=None):
     if (args.model_parallel > 1 or dist.is_initialized()
             or "WORLD_SIZE" in os.environ):
         mesh = join_world(args.model_parallel, device)
-        if args.checkpoint_dir:
-            raise ValueError("--checkpoint-dir keeps one process's tensors; "
-                             "across ranks the CLI keeps no checkpoint")
     lead = mesh is None or dist.get_rank() == 0
     log = print if lead else (lambda *a, **k: None)
     cfg, model, opt, train_step, params, opt_state = build(
@@ -222,14 +223,23 @@ def main(argv=None):
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                     global_batch=args.batch)
     start_step = 0
-    ckpt = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir \
-        else None
-    if ckpt and args.resume and ckpt.latest_step() is not None:
-        restored, start_step = ckpt.restore({"params": params,
-                                             "opt": opt_state})
+    ckpt = CheckpointManager(args.checkpoint_dir,
+                             across_ranks=mesh is not None) \
+        if args.checkpoint_dir else None
+    latest = ckpt.latest_step() if ckpt and args.resume else None
+    if latest is not None:
+        shardings = None
+        if mesh is not None:  # the saved arrays at the plan's placements
+            meta = model.param_meta()
+            shardings = {"params": model.plan.param_shardings(meta),
+                         "opt": model.plan.param_shardings(
+                             opt.state_meta(meta))}
+        restored, start_step = ckpt.restore(
+            {"params": params, "opt": opt_state}, latest, shardings)
         params, opt_state = restored["params"], restored["opt"]
-        model.set_weights(params)
-        print(f"[train] resumed from step {start_step}")
+        if mesh is None:
+            model.set_weights(params)
+        log(f"[train] resumed from step {start_step}")
 
     it = make_iterator(cfg, dc, start_step=start_step, device=device)
     injector = FailureInjector(

@@ -17,14 +17,27 @@ model width; only the transformer backbone is real.
   gated cross over the encoder's output, MLP). The cache ``self``
   (L, B, T, ...) and ``cross`` (L, B, encoder_frames, Hkv, D).
 
-The reference's ``lax.scan`` over stacked layers is a Python loop here. The
-attention is ``models/attention``'s: causal self-attention, the encoder's
+The reference's ``lax.scan`` over stacked layers is a Python loop here;
+activation checkpointing (``cfg.remat == "full"``) wraps a vlm group (its
+self-attention blocks and its cross block) and a whisper layer, as the
+reference's ``_maybe_remat`` wraps its scan bodies. The attention is
+``models/attention``'s: causal self-attention, the encoder's
 non-causal attention and every cross step (prefill and decode) run on the
 flash-attention kernel where the head dim fits it (vlm 128, whisper 64);
 the decode's self-attention is ``gqa_decode`` on the contiguous cache. The
 serving engine does not take these families (it feeds its model tokens
 only); ``serve/step``'s prefill and decode steps over a batch dict serve
 them, as in the reference.
+
+Inside an ``spmd.region`` (the sharded train step) every attention and MLP
+block runs on this rank's heads and columns (``gqa_apply``,
+``mlp_apply``): the cross-attention's K/V projections read the image
+embeddings or the encoder's output through ``spmd.enter``, so the encoder
+output's gradient sums over the model axis at each of the decoder's cross
+blocks before it flows back through the encoder (the image embeddings
+take none); the cross block's gate multiplies the output after its
+``spmd.leave``, so every rank reads the whole output and the gate's
+gradient is whole on every rank, as a norm scale's is.
 """
 from __future__ import annotations
 
@@ -108,6 +121,17 @@ def vlm_params(cfg: ModelConfig, plan):
     }
 
 
+def _vlm_group(sp, cp, x, img, cfg: ModelConfig):
+    """One group: its self-attention blocks, then its cross block ->
+    (x, each self block's K/V, the cross K/V)."""
+    kvs = []
+    for i in range(depth(sp)):
+        x, _, kv = attn_block_apply(layer(sp, i), x, cfg, collect_kv=True)
+        kvs.append(kv)
+    x, ckv = cross_block_apply(cp, x, img, cfg)
+    return x, kvs, ckv
+
+
 def _vlm_forward(params, tokens, image_embeds, cfg, max_len=None,
                  lengths=None, plan=None):
     """The forward; with ``max_len`` also the seeded decode cache."""
@@ -117,18 +141,11 @@ def _vlm_forward(params, tokens, image_embeds, cfg, max_len=None,
     bp = params["blocks"]
     selfs, cks, cvs = [], [], []
     for g in range(depth(bp["cross"])):
-        group = []
-        sp = layer(bp["groups"], g)
-        for i in range(depth(sp)):
-            x, _, kv = run_block(attn_block_apply, cfg, layer(sp, i), x,
-                                 cfg, collect_kv=True)
-            if max_len:
-                group.append(_seeded(cfg, kv, B, max_len, L.cdt(cfg),
-                                     lengths, plan))
-        x, (ck, cv) = run_block(cross_block_apply, cfg,
-                                layer(bp["cross"], g), x, img, cfg)
+        x, kvs, (ck, cv) = run_block(_vlm_group, cfg, layer(bp["groups"], g),
+                                     layer(bp["cross"], g), x, img, cfg)
         if max_len:
-            selfs.append(_stack(group))
+            selfs.append(_stack([_seeded(cfg, kv, B, max_len, L.cdt(cfg),
+                                         lengths, plan) for kv in kvs]))
             cks.append(ck)
             cvs.append(cv)
     x = L.norm_apply(params["final_ln"], x, cfg)

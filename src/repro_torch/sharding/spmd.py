@@ -1,11 +1,11 @@
 """The train step across ranks: tensor parallelism inside the model's
 forward and FSDP over the data axes, on a ``DeviceMesh`` of
-``("data", "model")``.
+``("data", "model")`` or ``("pod", "data", "model")``.
 
 Parameters and optimizer state are ``DTensor`` s placed by the plan's
 ``param_shardings`` (the FSDP placement: the plan's tensor-parallel spec
-plus the largest replicated dimension over the data axis). For a
-microbatch each rank all-gathers its masters over the data axis to their
+plus the largest replicated dimension over the data axes). For a
+microbatch each rank all-gathers its masters over the data axes to their
 tensor-parallel placement (:func:`gather`, whose backward reduce-scatters
 the gradient back to the FSDP placement) and runs the model on its local
 tensors: its share of the heads, the MLP's columns and the vocabulary.
@@ -29,13 +29,15 @@ rank reads a sum whole that each holds a part of, the third operator,
   experts' combine (a rank's experts, ``ep``, or every expert's columns,
   ``tp``), the embedding lookup and the loss's log-sum-exp and gold logit.
 - ``all_sum`` over the model axis: the Mamba2 gated norm's sum of squares
-  over ``d_inner`` split across the ranks; over the data axis: the MoE
+  over ``d_inner`` split across the ranks; over the data axes: the MoE
   router's mean probabilities and its z-loss over the dispatch groups of
   every data rank (the reference's ``router_topk`` over ``(n_dp, gs, E)``
   logits), with the aux terms counted once in the summed loss.
 
 Outside a region every one of them is the identity, and serving is
-untouched.
+untouched. A region's "data" group spans every data axis of the mesh
+(:func:`dp_group`: ``pod`` and ``data`` together on a 3-D mesh), so the
+loss's token count and the router's sums cover every data rank.
 
 The collectives are ``torch.distributed`` 's own on the mesh's process
 groups: all-reduce, all-gather and reduce-scatter into tensors. Gloo runs
@@ -48,6 +50,7 @@ each of them on CUDA tensors, which is how several ranks share one card
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -56,14 +59,15 @@ import torch.distributed as dist
 
 class Region(NamedTuple):
     """The process groups of a forward across ranks: ``tp`` over the
-    model axis (and this rank's index in it), ``dp`` over the data axis
+    model axis (and this rank's index in it), ``dp`` over the data axes
     (the loss's token count sums over it; None: one rank)."""
     tp: Optional[object]
     tp_rank: int
     dp: Optional[object]
 
     def group(self, axis: str):
-        """The group of ``axis``, "model" or "data" (None: one rank)."""
+        """The group of ``axis``, "model" or "data" (every data axis;
+        None: one rank)."""
         if axis not in ("model", "data"):
             raise ValueError(f"a region's axes are model and data, not "
                              f"{axis!r}")
@@ -176,7 +180,39 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return leave(rows)
 
 
-# --- the data axis: FSDP's gather and scatter -------------------------------
+# --- the data axes: their group, FSDP's gather and scatter -------------------
+
+#: the groups :func:`dp_group` built, by (id of the mesh, axes): (the mesh,
+#: the group), so that each is built once
+_DP_GROUPS: dict = {}
+
+
+def dp_group(mesh, axes):
+    """The process group over the mesh dimensions ``axes`` together (the
+    data axes, ``plan.dp_axes``) that holds this rank: the mesh's own group
+    for one axis, None for none. For two, every rank builds one group for
+    each coordinate of the other dimensions, in the same order (as
+    ``torch.distributed.new_group`` asks), and keeps its own."""
+    axes = tuple(axes)
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = (id(mesh), axes)
+    if key not in _DP_GROUPS:
+        names = mesh.mesh_dim_names
+        dims = [names.index(a) for a in axes]
+        rest = [i for i in range(mesh.ndim) if i not in dims]
+        ranks = mesh.mesh.permute(*rest, *dims).reshape(
+            -1, math.prod(mesh.size(i) for i in dims))
+        me, mine = dist.get_rank(), None
+        for row in ranks.tolist():
+            group = dist.new_group(row)
+            if me in row:
+                mine = group
+        _DP_GROUPS[key] = (mesh, mine)
+    return _DP_GROUPS[key][1]
+
 
 def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The ranks' ``x`` of ``group`` joined along ``dim``, in rank order."""
@@ -254,6 +290,28 @@ def gather(local: torch.Tensor, mesh, src, dst, partial) -> torch.Tensor:
     gradients over the mesh dimensions ``partial`` back to this rank's
     shard (:func:`scatter_local`), FSDP's pair of collectives."""
     return _Gather.apply(local, mesh, src, dst, partial)
+
+
+class _Hoisted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, full, mesh, src, partial):
+        ctx.args = (mesh, src, partial)
+        return full
+
+    @staticmethod
+    def backward(ctx, g):
+        return scatter_local(g.float(), *ctx.args), None, None, None, None
+
+
+def hoisted(local: torch.Tensor, full: torch.Tensor, mesh, src,
+            partial) -> torch.Tensor:
+    """``full``, a gather of ``local`` made before the graph
+    (``hoist_gather``), read in the graph as ``local`` 's: the backward
+    reduce-scatters its gradient in float32 to ``local`` 's shard
+    (:func:`scatter_local`, the reference's ``scatter_grad``), leaf by leaf
+    as the backward produces them, so no more than one leaf's gathered
+    gradient is held at once."""
+    return _Hoisted.apply(local, full, mesh, src, partial)
 
 
 def check_even(shape, mesh, placements, name: str = "tensor") -> None:

@@ -19,43 +19,49 @@ Under a plan whose mesh is a ``DeviceMesh`` (``Model(cfg, plan=make_plan(
 cfg, mesh))``, every rank of the mesh running the same calls) the step is
 the reference's sharded one: ``params`` and ``opt_state`` are ``DTensor`` s
 at ``plan.param_shardings`` (FSDP: the tensor-parallel spec plus the
-largest replicated dimension over the data axis), ``batch`` is the global
+largest replicated dimension over the data axes), ``batch`` is the global
 batch on every rank, and each rank runs its rows of each microbatch
-(the microbatch's rows split over the data axis, as the reference shards
-them) through the model on its share of the heads, the MLP's columns and
-the vocabulary (``sharding/spmd.py``). Per microbatch the masters are
-all-gathered over the data axis to ``plan.tp_shardings`` inside the
-graph, whose backward reduce-scatters the gradient back. With
+(every batch leaf's rows, the frontend's image embeddings or audio frames
+as the tokens, split over the data axes, as the reference shards them)
+through the model on its share of the heads, the MLP's columns and the
+vocabulary (``sharding/spmd.py``). The mesh is ``(data, model)`` or
+``(pod, data, model)``: the data axes are ``plan.dp_axes``, and over two
+of them a leaf's FSDP dimension and the batch's rows split over their
+product, pod-major, as the reference's ``zero_spec`` and batch spec do.
+Per microbatch the masters are all-gathered over the data axes to
+``plan.tp_shardings`` inside the graph, whose backward reduce-scatters
+the gradient back. With
 ``hoist_gather`` (the reference's option, default off; it applies with
 FSDP, a data axis and ``n_accum > 1``) the gather and the cast to
 ``cfg.dtype`` happen once per step outside the graph, and each
 microbatch's gradient is reduce-scattered back to the FSDP placement in
-float32 (the reference's ``scatter_grad``). The gradients come back as
+float32 (the reference's ``scatter_grad``), leaf by leaf as the backward
+produces it (``spmd.hoisted``). The gradients come back as
 ``DTensor`` s at the FSDP placement, the loss and metrics as the batch's,
 and ``Optimizer.update`` runs on the ``DTensor`` s. The sharded step
 leaves the model's stored weights alone: its forward takes the masters it
 is given.
 
-The sharded step runs the dense, moe, ssm and hybrid families; each
-layer places its tensor-parallel operators itself (``sharding/spmd.py``
-lists where ``enter``, ``leave`` and ``all_sum`` sit): attention and MLA
-on their local heads, the MLP on its columns, the MoE experts over the
-model axis (``ep``) or inside each expert (``tp``) behind a router that
-runs whole on every rank, and Mamba2 on its local heads (the scan kernel
-on ``H / tp`` of them). Each rank's rows form their own MoE dispatch
-groups, as the reference's under a mesh, so at more than one data rank
-the MoE losses are the reference's sharded step's, not the one-process
-step's. The MoE aux and z terms are the whole batch's on every data rank
-(``models/moe.py``), so each rank's loss adds its ``1 / dp`` share of
-them, and they are reported at the batch's value, not summed over the
-data axis. The vlm and audio families raise ``NotImplementedError``.
+The sharded step runs every family; each layer places its
+tensor-parallel operators itself (``sharding/spmd.py`` lists where
+``enter``, ``leave`` and ``all_sum`` sit): attention and MLA on their
+local heads, the cross-attention's K/V of the image embeddings or of
+whisper's encoder output on them too, the MLP on its columns, the MoE
+experts over the model axis (``ep``) or inside each expert (``tp``)
+behind a router that runs whole on every rank, and Mamba2 on its local
+heads (the scan kernel on ``H / tp`` of them). Each rank's rows form
+their own MoE dispatch groups, as the reference's under a mesh, so at
+more than one data rank the MoE losses are the reference's sharded
+step's, not the one-process step's. The MoE aux and z terms are the
+whole batch's on every data rank (``models/moe.py``), so each rank's
+loss adds its ``1 / dp`` share of them, and they are reported at the
+batch's value, not summed over the data axes.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.models import params as pm
 from repro_torch.models.model import Model
@@ -175,8 +181,6 @@ def is_sharded(model: Model) -> bool:
     return hasattr(model.plan.mesh, "mesh_dim_names")
 
 
-#: the families whose layers have no tensor-parallel operators
-UNSHARDED = ("vlm", "audio")
 #: metrics that are the whole batch's on every data rank (the others are
 #: each rank's share of it and sum over the data axis)
 BATCH_METRICS = ("tokens", "moe_aux", "moe_z")
@@ -199,27 +203,25 @@ def make_sharded_grad_fn(model: Model, n_accum: int = 1,
     from repro_torch.models.layers import cdt
     cfg, plan = model.cfg, model.plan
     mesh = plan.mesh
-    if cfg.family in UNSHARDED:
-        raise NotImplementedError(
-            f"the sharded train step runs the dense, moe, ssm and hybrid "
-            f"families; {cfg.name} is {cfg.family}, and the vlm and audio "
-            f"families (the cross blocks and their gate, whisper's encoder) "
-            f"have no tensor-parallel operators yet")
     names = mesh.mesh_dim_names
-    if set(names) - {"data", "model"}:
-        raise ValueError(f"the sharded step takes a (data, model) mesh, got "
-                         f"{names}")
+    if set(names) - {"pod", "data", "model"}:
+        raise ValueError(f"the sharded step takes a (data, model) or (pod, "
+                         f"data, model) mesh, got {names}")
     meta = model.param_meta()
     fsdp = pm.tree_leaves(plan.param_shardings(meta))
     tp = pm.tree_leaves(plan.tp_shardings(meta))
     for m, f, t in zip(pm.tree_leaves(meta), fsdp, tp):
         spmd.check_even(m.shape, mesh, f.placements)
         spmd.check_even(m.shape, mesh, t.placements)
-    partial = [names.index("data")] if "data" in names else []
+    # the data axes, pod-major: the mesh dimensions a gradient sums over,
+    # and this rank's index among the data ranks (its rows of the batch)
+    partial = [names.index(a) for a in plan.dp_axes]
     tp_group = mesh.get_group("model") if "model" in names else None
-    dp_group = mesh.get_group("data") if "data" in names else None
-    dp_rank = dist.get_rank(dp_group) if dp_group is not None else 0
-    dp_n = dist.get_world_size(dp_group) if dp_group is not None else 1
+    dp_group = spmd.dp_group(mesh, plan.dp_axes)
+    coord = mesh.get_coordinate()
+    dp_rank, dp_n = 0, 1
+    for i in partial:
+        dp_rank, dp_n = dp_rank * mesh.size(i) + coord[i], dp_n * mesh.size(i)
     hoist = bool(hoist_gather and n_accum > 1 and plan.fsdp and plan.dp_axes)
     loss_fn = make_loss_fn(model)
     dtype = cdt(cfg)
@@ -227,20 +229,18 @@ def make_sharded_grad_fn(model: Model, n_accum: int = 1,
     def mb_grads(leaves, mb, gathered):
         """One microbatch: (loss share, metric shares, this rank's FSDP
         gradient of every leaf, float32)."""
+        xs = [p.detach().requires_grad_(True) for p in leaves]
         if gathered is None:  # gather inside the graph
-            xs = [p.detach().requires_grad_(True) for p in leaves]
             full = [spmd.gather(x, mesh, f.placements, t.placements,
                                 partial) for x, f, t in zip(xs, fsdp, tp)]
-        else:
-            xs = full = [g.detach().requires_grad_(True) for g in gathered]
+        else:  # the reference's scatter_grad, leaf by leaf
+            full = [spmd.hoisted(x, g, mesh, f.placements, partial)
+                    for x, g, f in zip(xs, gathered, fsdp)]
         it = iter(full)
         loss, metrics = loss_fn(pm.tree_map(lambda _: next(it), meta), mb)
         gs = torch.autograd.grad(loss, xs, allow_unused=True)
         gs = [torch.zeros_like(x) if g is None else g
               for x, g in zip(xs, gs)]
-        if gathered is not None:  # the reference's scatter_grad
-            gs = [spmd.scatter_local(g.float(), mesh, f.placements, partial)
-                  for g, f in zip(gs, fsdp)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             [g.float() for g in gs]
 

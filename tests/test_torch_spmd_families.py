@@ -55,7 +55,7 @@ from repro_torch.configs import registry
 from repro_torch.models import params as pm
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import make_optimizer
-from repro_torch.train.step import make_sharded_grad_fn, make_train_step
+from repro_torch.train.step import make_train_step
 
 B, S, N_ACCUM = 8, 32, 2
 TOL = 1e-5
@@ -531,13 +531,3 @@ def test_cli_trains_at_model_parallel_2(runs, arch):
     ranks, _, _ = runs
     losses = [float(r[f"cli/{arch}"]) for r in ranks]
     assert np.isfinite(losses[0]) and losses == [losses[0]] * 4
-
-
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-small"])
-def test_vlm_and_audio_still_raise(arch):
-    """The sharded step refuses the two families whose layers have no
-    tensor-parallel operators, naming both."""
-    cfg = registry.get(arch).reduced()
-    model = Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="vlm and audio"):
-        make_sharded_grad_fn(model)
