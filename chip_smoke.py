@@ -248,7 +248,7 @@ Phases, each of which exits non-zero on failure:
    mamba2 shape; the gradient gate: llama3.2-1b at full width with 2
    layers, float32, B 1, S 2048, every leaf's gradient through the
    kernels against the same step through ``_sdpa`` and every leaf's norm
-   above 0; the full-width run: llama3.2-1b, 4 of its 16 layers (the
+   above 0; the full-width run: llama3.2-1b, 2 of its 16 layers (the
    sharded bf16 run of 13c 8), bf16 over float32
    masters, remat, AdamW (warmup 5), 6 steps of global batch 8 as 2
    microbatches of 4 at 4096 tokens, per step loss, grad norm, wall,
@@ -334,6 +334,18 @@ Phases, each of which exits non-zero on failure:
    state saved across ranks (rank 0 writes), the next step taken, the
    state restored with ``shardings`` on every rank and that step taken
    again: its loss and every leaf bit for bit the uninterrupted run's;
+   (f) sequence parallelism (``make_plan(..., sequence_parallel=True)``:
+   the residual stream split along the sequence over the model axis), in
+   the same world: 13c's float32 gate (llama3.2-1b, 2 layers, ``{data 2,
+   model 2}``), 13d's three configs and 13e's whisper-small on ``{data 2,
+   model 2}`` each taken again from the same weights and batch with the
+   flag, hoisted, every leaf's gradient held against the same run's
+   without it on the ranks' shards (no gather: the placements are the
+   same), within 13c's gate and, for mamba2 and zamba2, 13d's; the loss
+   too; flash and scan launches equal to the run's without the flag;
+   rank 0's flash and scan calls held bit for bit against the plain
+   versions; then 13c's bf16 run continues one step with the flag: step
+   wall, tokens/s, each rank's peak memory beside the run without it;
 14. profile: one warm Table II run, one warm 86-ambient LUT and one warm
    LeNet inference at gamma = 1.35 under ``torch.profiler``: device time
    by kernel, the card's busy time and idle share of the wall time (the
@@ -468,14 +480,10 @@ def sass_counts(lib) -> dict:
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                          text=True, check=True).stdout
-    counts, fn = {}, None
-    for line in out.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = dict.fromkeys(SASS_OPS, 0)
-        elif fn is not None:
-            for op in SASS_OPS:
-                counts[fn][op] += f" {op}" in line
+    counts = {}
+    for block in out.split("Function :")[1:]:
+        fn, _, body = block.partition("\n")
+        counts[fn.strip()] = {op: body.count(f" {op}") for op in SASS_OPS}
     return counts
 
 
@@ -494,7 +502,10 @@ def build_phase() -> dict:
 def sass_phase(libs) -> dict:
     """The tensor-core instructions of every built kernel; the int8 kernels
     must run on IMMA with no dp4a left."""
-    sass = {name: sass_counts(libs[name]) for name in KERNEL_SOURCES}
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        sass = dict(zip(KERNEL_SOURCES, pool.map(
+            sass_counts, (libs[name] for name in KERNEL_SOURCES))))
     for name, fns in sass.items():
         for fn, ops in fns.items():
             if any(ops.values()):
@@ -4259,10 +4270,10 @@ TRAIN_GATE_LAYERS, TRAIN_GATE_B, TRAIN_GATE_S = 2, 1, 2048
 TRAIN_GATE_TOL = 1e-4
 # the full-width run: train_4k's length, global batch 8 as 2 microbatches
 # of 4, AdamW warming up over 5 steps; the checkpoint after step 3. Depth
-# cut to 4 layers to keep the script inside its limit (16 layers: 166.6 s
-# of it, ~84 s the 14.8 GB checkpoint's round trip)
+# cut to keep the script inside its limit (16 layers: 166.6 s of it, ~84 s
+# the 14.8 GB checkpoint's round trip; 4 layers 61.2 s; 2 since phase 13f)
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4096, 8, 2, 6
-TRAIN_RUN_LAYERS = 4
+TRAIN_RUN_LAYERS = 2
 TRAIN_WARMUP, TRAIN_SAVE_AT = 5, 3
 TRAIN_PROFILED = 2  # a warm step before the save
 TRAIN_DIR = ROOT / "build" / "train_ckpt"
@@ -5079,6 +5090,7 @@ def rescale_check(torch, card: str) -> dict:
 SPMD_WORLD, SPMD_MODEL = 4, 2
 SPMD_B, SPMD_S, SPMD_ACCUM = 4, 1024, 2
 SPMD_GATE_LAYERS, SPMD_RUN_STEPS, SPMD_RUN_LAYERS = 2, 2, 8
+SEQ_RUN_STEPS = 1  # phase 13f's bf16 steps with sequence parallelism
 # phases 13c, 13d and 13e run in one spawned world (a spawn each cost ~15 s)
 SPMD_DIR = ROOT / "build" / "spmd_world"
 
@@ -5155,6 +5167,9 @@ def spmd_gate(torch, rank: int, mesh) -> dict:
         out["runs"][str(hoist)] = {"wall_s": wall, "loss": float(loss),
                                    "flash": counts["flash_attention"],
                                    "launches": counts}
+        if hoist:  # phase 13f: the same step with the flag
+            out["seq"] = seq_gate(torch, rank, cfg, mesh, params, batch,
+                                  grads, float(loss), {"flash": n_calls})
         del grads
     del params, state
     if rank == 0:  # the one-process step on the card, the same kernels
@@ -5176,17 +5191,42 @@ def spmd_gate(torch, rank: int, mesh) -> dict:
     return out
 
 
+def _timed_steps(torch, rank: int, step_fn, params, state, batch,
+                 layers: int, first: int, n: int, label: str):
+    """``n`` steps of ``step_fn`` from step ``first``, each with the counts
+    set to 0 just before it: wall (host clock after the loss is read),
+    tokens/s, loss and flash launches per step; rank 0's flash calls on
+    the first microbatch's forward of the first step held against the
+    plain version after it."""
+    import torch.distributed as dist
+    steps, held = [], None
+    for i in range(n):
+        taps = kernel_taps("flash", lambda c, *a: c if rank == 0 and i == 0
+                           and c < layers else None)
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with taps:
+            params, state, metrics = step_fn(params, state, batch, first + i)
+            loss = float(metrics["loss"])
+        wall = time.perf_counter() - t0
+        steps.append({"wall_s": wall, "tokens_per_s": SPMD_B * SPMD_S / wall,
+                      "loss": loss, "flash": read_counts()["flash_attention"]})
+        if taps.cases:
+            held = hold_flash_taps(torch, taps.cases, layers, label)
+        del taps
+    return params, state, steps, held
+
+
 def spmd_timed(torch, rank: int, mesh) -> dict:
     """bf16 over float32 masters at SPMD_RUN_LAYERS, ``hoist_gather`` on (one
     bf16 gather a step in place of a float32 one a microbatch: 14.0-15.6 s
     a step without it on the H100, against 7.1-9.3 s with it in the
-    float32 gate's 2 layers): SPMD_RUN_STEPS steps, each with the counts
-    set to 0 just before it; wall (host clock after the loss is read),
-    tokens/s, this rank's peak memory. Rank 0's flash calls on the first
-    microbatch's forward of step 0 are held against the plain version
-    after the step."""
-    import torch.distributed as dist
-
+    float32 gate's 2 layers): SPMD_RUN_STEPS steps (:func:`_timed_steps`)
+    and this rank's peak memory; then (phase 13f) SEQ_RUN_STEPS more with
+    sequence parallelism, from where those left the state, their peak
+    memory apart."""
     from repro_torch.configs import registry
     from repro_torch.launch.train import init_sharded
     from repro_torch.models.model import Model
@@ -5198,30 +5238,26 @@ def spmd_timed(torch, rank: int, mesh) -> dict:
     model = Model(cfg, plan=make_plan(cfg, mesh))
     params, state = init_sharded(model, opt, TRAIN_SEED)
     batch = _spmd_batch(torch, cfg)
-    step_fn = make_train_step(model, opt, n_accum=SPMD_ACCUM,
-                              hoist_gather=True)
     layers = cfg.num_layers
-    torch.cuda.reset_peak_memory_stats()
-    steps, held = [], None
-    for i in range(SPMD_RUN_STEPS):
-        taps = kernel_taps("flash", lambda c, *a: c if rank == 0 and i == 0
-                           and c < layers else None)
-        dist.barrier()
-        torch.cuda.synchronize()
-        reset_counts()
+    out = {"layers": layers}
+    for sp in (False, True):
+        model = Model(cfg, plan=make_plan(cfg, mesh, sequence_parallel=sp))
+        step_fn = make_train_step(model, opt, n_accum=SPMD_ACCUM,
+                                  hoist_gather=True)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with taps:
-            params, state, metrics = step_fn(params, state, batch, i)
-            loss = float(metrics["loss"])
-        wall = time.perf_counter() - t0
-        steps.append({"wall_s": wall, "tokens_per_s": SPMD_B * SPMD_S / wall,
-                      "loss": loss, "flash": read_counts()["flash_attention"]})
-        if taps.cases:
-            held = hold_flash_taps(torch, taps.cases, layers,
-                                   "sharded bf16 step")
-        del taps
-    out = {"layers": layers, "steps": steps, "flash_vs_plain": held,
-           "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+        params, state, steps, held = _timed_steps(
+            torch, rank, step_fn, params, state, batch, layers,
+            SPMD_RUN_STEPS * sp, SEQ_RUN_STEPS if sp else SPMD_RUN_STEPS,
+            "sharded bf16 step" + (" with sequence parallelism" if sp
+                                   else ""))
+        run = {"steps": steps, "flash_vs_plain": held,
+               "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+               "total_s": time.perf_counter() - t0}
+        if sp:
+            out["seq"] = run
+        else:
+            out.update(run)
     del params, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -5427,6 +5463,10 @@ def fam_gate(torch, rank: int, meshes: dict, arch: str, tp: int,
            "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
            "scan": counts["mamba_scan"], "flash": counts["flash_attention"],
            "params": model.n_params()}
+    calls = _fam_calls(cfg)
+    out["seq"] = seq_gate(torch, rank, cfg, meshes[tp], params, batch, grads,
+                          float(loss), {"flash": calls["flash"],
+                                        "mamba": calls["mamba"]})
     t0 = time.perf_counter()
     names = _leaf_names(grads)
     got = rank0_leaves(torch, grads)
@@ -5435,7 +5475,6 @@ def fam_gate(torch, rank: int, meshes: dict, arch: str, tp: int,
     gc.collect()
     torch.cuda.empty_cache()
     if rank == 0:
-        calls = _fam_calls(cfg)
         label = f"sharded {arch} step"
         out["flash_vs_plain"] = (hold_flash_taps(
             torch, taps["flash"].cases, calls["flash"], label)
@@ -5549,6 +5588,165 @@ def spmd_families_check(torch, card: str, ranks: list) -> dict:
                    r0["leaf_rel_errs"].items(), key=lambda kv: -kv[1])[:5])})
     print(f"[{card}] phase 13d: {world_s:.1f} s in the world")
     return {"runs": runs, "held": held, "launches": launches,
+            "world_s": world_s}
+
+
+# sequence parallelism (phase 13f), in the same world: 13c's float32 gate
+# (llama3.2-1b, 2 layers, {data 2, model 2}), 13d's three configs and 13e's
+# whisper-small on {data 2, model 2}, each taken again from the same
+# weights and batch under make_plan(..., sequence_parallel=True), hoisted,
+# and held against the same run without the flag on the ranks' shards (the
+# flag moves activations only, so the gradients come back at the same
+# placements): no gather to rank 0. Then 13c's bf16 run continues for
+# SEQ_RUN_STEPS steps with the flag (spmd_timed)
+def seq_gate(torch, rank: int, cfg, mesh, params, batch, base, base_loss,
+             holds: dict, kinds: bool = False) -> dict:
+    """One run of phase 13f on this rank: the sharded step with sequence
+    parallelism from ``params`` and ``batch`` (hoisted), the counts set to
+    0 just before it; every leaf's gradient against ``base`` (the same
+    step's without the flag) on this rank's shard, each leaf's largest
+    distance and magnitude max-reduced over the world, so every rank holds
+    each leaf's relative error. Rank 0's calls of each kernel in
+    ``holds`` ({"flash" or "mamba": calls}; with ``kinds`` the first flash
+    call of each kind, :func:`kind_taps`) held against the plain versions
+    bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.models import params as pm
+    from repro_torch.models.model import Model
+    from repro_torch.sharding.plan import make_plan
+    from repro_torch.train.step import make_sharded_grad_fn
+    t_start = time.perf_counter()
+    model = Model(cfg, plan=make_plan(cfg, mesh, sequence_parallel=True))
+    grad_fn = make_sharded_grad_fn(model, SPMD_ACCUM, hoist_gather=True)
+    taps = {k: kind_taps(rank) if kinds and k == "flash" else kernel_taps(
+        k, lambda i, *a: i if rank == 0 else None) for k, n in holds.items()
+        if n}
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for t in taps.values():
+            stack.enter_context(t)
+        loss, _, grads = grad_fn(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    names = _leaf_names(grads)
+    stats = torch.stack([torch.stack([
+        (a.to_local().double() - b.to_local().double()).abs().max(),
+        b.to_local().double().abs().max()])
+        for a, b in zip(pm.tree_leaves(grads), pm.tree_leaves(base))])
+    del grads
+    dist.all_reduce(stats, op=dist.ReduceOp.MAX)
+    errs = dict(zip(names, (stats[:, 0] / stats[:, 1]).tolist()))
+    worst = max(errs, key=errs.get)
+    out = {"arch": cfg.name, "wall_s": wall, "loss": float(loss),
+           "loss_rel_err": abs(float(loss) - base_loss) / abs(base_loss),
+           "peak_mib": peak, "flash": counts["flash_attention"],
+           "scan": counts["mamba_scan"], "leaf_rel_errs": errs,
+           "worst_rel_err": errs[worst], "worst_leaf": worst, "held": {}}
+    if rank == 0:
+        label = f"sharded {cfg.name} step with sequence parallelism"
+        for k, tap in taps.items():
+            hold = hold_flash_taps if k == "flash" else hold_scan_taps
+            out["held"][k] = hold(torch, tap.cases, holds[k], label)
+    del taps
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["total_s"] = time.perf_counter() - t_start
+    return out
+
+
+def spmd_seq_check(card: str, ranks: list) -> dict:
+    """Phase 13f (``ranks``: every rank's results of phases 13c-13e from
+    :func:`spmd_world`): each run with sequence parallelism against the
+    same run without it, every leaf within 13c's gate (``TRAIN_GATE_TOL``;
+    for mamba2 and zamba2 13d's, plus ``FAM_FLOOR_FACTOR`` times their
+    one-ulp floor from 13d), the loss too; its flash and scan launches
+    equal to those of the run without the flag; rank 0's calls held; then
+    the bf16 steps with the flag beside 13c's."""
+    fam = [r["13d"]["runs"] for r in ranks]
+    whisper = next(i for i, (arch, mesh, _, _) in enumerate(MM_SPMD_RUNS)
+                   if (arch, mesh) == ("whisper-small", "d2m2"))
+    gates = [("13c", [r["13c"]["gate"]["seq"] for r in ranks], {},
+              {"flash": sum(r["13c"]["gate"]["runs"]["True"]["flash"]
+                            for r in ranks), "scan": 0})]
+    for i, (arch, tp, cut) in enumerate(FAM_RUNS):
+        gates.append((f"13d {arch}", [f[i]["seq"] for f in fam],
+                      fam[0][i]["floors"],
+                      {"flash": sum(f[i]["flash"] for f in fam),
+                       "scan": sum(f[i]["scan"] for f in fam)}))
+    mm = [r["13e"]["runs"][whisper] for r in ranks]
+    gates.append(("13e whisper-small", [m["seq"] for m in mm], {},
+                  {"flash": sum(m["flash"] for m in mm), "scan": 0}))
+    runs, held, launches, world_s = [], {"flash": [], "scan": []}, \
+        {"flash": 0, "scan": 0}, 0.0
+    for what, rr, floors, want in gates:
+        r0 = rr[0]
+        got = {k: sum(r[k] for r in rr) for k in ("flash", "scan")}
+        over = {n: e for n, e in r0["leaf_rel_errs"].items()
+                if e > TRAIN_GATE_TOL + FAM_FLOOR_FACTOR * floors.get(n, 0.0)}
+        print(f"[{card}] phase 13f, {what} with sequence parallelism: loss "
+              f"{r0['loss']:.6f} (rel {r0['loss_rel_err']:.3e} from the "
+              f"step without it), worst leaf rel err "
+              f"{r0['worst_rel_err']:.3e} at {r0['worst_leaf']} (gate "
+              f"{TRAIN_GATE_TOL:g}" + (f" + {FAM_FLOOR_FACTOR:g} x the "
+                                       f"floor" if floors else "")
+              + f"), flash launches {got['flash']} (gate {want['flash']}), "
+              f"scan launches {got['scan']} (gate {want['scan']}), rank "
+              f"walls {[round(r['wall_s'], 3) for r in rr]} s, peak memory "
+              f"per rank {[round(r['peak_mib'], 1) for r in rr]} MiB")
+        check(not over and r0["loss_rel_err"] <= TRAIN_GATE_TOL,
+              f"13f {what}: sequence parallelism == the step without it"
+              + (f" (over the gate: {over})" if over else ""))
+        check(got == want, f"13f {what}: launches {got} == {want}")
+        for k in ("flash", "scan"):
+            tap = r0["held"].get("mamba" if k == "scan" else k)
+            check((tap is not None) == bool(want[k]),
+                  f"13f {what}: rank 0's {k} calls held")
+            if tap is not None:
+                held[k].append(dict(tap, run=what))
+            launches[k] += got[k]
+        world_s += r0["total_s"]
+        runs.append({k: r0[k] for k in (
+            "arch", "loss", "loss_rel_err", "worst_rel_err", "worst_leaf")}
+            | {"what": what, "walls_s": [r["wall_s"] for r in rr],
+               "peak_mib": [r["peak_mib"] for r in rr], "launches": got})
+    timed = [r["13c"]["timed"] for r in ranks]
+    layers = timed[0]["layers"]
+    for r, t in enumerate(timed):
+        for name, run in (("without", t), ("with", t["seq"])):
+            print(f"[{card}] sharded bf16 step, {layers} layers, hoisted, "
+                  f"{name} sequence parallelism, rank {r}: "
+                  + ", ".join(f"step {i} {s['wall_s']:.3f} s "
+                              f"({s['tokens_per_s']:.1f} tokens/s, flash "
+                              f"{s['flash']}, loss {s['loss']:.4f})"
+                              for i, s in enumerate(run["steps"]))
+                  + f"; peak {run['peak_mib']:.1f} MiB")
+    seq_flash = [sum(t["seq"]["steps"][i]["flash"] for t in timed)
+                 for i in range(SEQ_RUN_STEPS)]
+    check(all(np.isfinite(s["loss"]) for t in timed
+              for s in t["seq"]["steps"]), "13f bf16: finite losses")
+    check(seq_flash == [SPMD_WORLD * layers * 2 * SPMD_ACCUM]
+          * SEQ_RUN_STEPS, "13f bf16: flash launches == ranks x layers x "
+                           "2 x microbatches a step")
+    check(timed[0]["seq"]["flash_vs_plain"] is not None,
+          "13f bf16: rank 0's flash calls held against the plain version")
+    held["flash"].append(dict(timed[0]["seq"]["flash_vs_plain"],
+                              run="13f bf16"))
+    world_s += timed[0]["seq"]["total_s"]
+    print(f"[{card}] phase 13f: {world_s:.1f} s in the world")
+    return {"runs": runs, "held": held, "launches": launches,
+            "bf16": {"steps": [t["seq"]["steps"] for t in timed],
+                     "peak_mib": [t["seq"]["peak_mib"] for t in timed],
+                     "without_steps": [t["steps"] for t in timed],
+                     "without_peak_mib": [t["peak_mib"] for t in timed],
+                     "flash": seq_flash},
             "world_s": world_s}
 
 
@@ -5723,10 +5921,12 @@ def mm_ckpt_round_trip(torch, rank, model, opt, params, state, loss,
 
 
 def mm_gate(torch, rank: int, mesh, arch: str, cut: dict, B: int,
-            ckpt: bool) -> dict:
+            ckpt: bool, seq: bool) -> dict:
     """One run of phase 13e on this rank: the sharded step's float32
     gradients (rank 0's flash calls tapped, launches counted), gathered
-    to rank 0's host; with ``ckpt`` the checkpoint round trip after it."""
+    to rank 0's host; with ``seq`` phase 13f's run of the same step with
+    sequence parallelism beside it; with ``ckpt`` the checkpoint round
+    trip after it."""
     import torch.distributed as dist
 
     from repro_torch.configs import registry
@@ -5768,6 +5968,10 @@ def mm_gate(torch, rank: int, mesh, arch: str, cut: dict, B: int,
         "flash": counts["flash_attention"], "launches": counts,
         "params": model.n_params(), "heads": plan.num_heads // plan.tp,
         "kv_heads": plan.num_kv_heads // plan.tp}
+    if seq:
+        out["seq"] = seq_gate(torch, rank, cfg, mesh, params, batch, grads,
+                              float(loss), {"flash": calls["kinds"]},
+                              kinds=True)
     t0 = time.perf_counter()
     got = rank0_leaves(torch, grads)
     out["gather_s"] = time.perf_counter() - t0
@@ -5840,9 +6044,9 @@ def mm_spmd_runs(torch, rank: int) -> dict:
               for k, (names, sizes) in MM_SPMD_MESHES.items()}
     results, pending = [], []
     for i, (arch, mesh, cut, B) in enumerate(MM_SPMD_RUNS):
+        whisper = (arch, mesh) == ("whisper-small", "d2m2")
         out, got, batch = mm_gate(torch, rank, meshes[mesh], arch, cut, B,
-                                  ckpt=(arch, mesh) == ("whisper-small",
-                                                        "d2m2"))
+                                  ckpt=whisper, seq=whisper)
         results.append(out)
         pending.append((out, got))
         last = i + 1 == len(MM_SPMD_RUNS) or MM_SPMD_RUNS[i + 1][0] != arch
@@ -5858,11 +6062,12 @@ def mm_spmd_runs(torch, rank: int) -> dict:
 
 
 def spmd_worker(rank: int, world: int, store: str) -> None:
-    """One rank of phases 13a, 13c, 13d and 13e
+    """One rank of phases 13a and 13c-13f
     (``torch.multiprocessing.spawn`` target): a gloo group on cuda:0, the
     pipeline on ranks 0 and 1, then 13c's gate and timed run, each config
-    of FAM_RUNS and each run of MM_SPMD_RUNS in turn; writes its results,
-    each phase's wall in the world beside them, under SPMD_DIR."""
+    of FAM_RUNS and each run of MM_SPMD_RUNS in turn, 13f's runs beside
+    those they repeat; writes its results, each phase's wall in the world
+    beside them, under SPMD_DIR."""
     import torch
     import torch.distributed as dist
 
@@ -5896,7 +6101,7 @@ def spmd_worker(rank: int, world: int, store: str) -> None:
 
 
 def spmd_world(torch) -> tuple:
-    """Phases 13a, 13c, 13d and 13e's 4-rank gloo world on cuda:0, spawned
+    """Phases 13a and 13c-13f's 4-rank gloo world on cuda:0, spawned
     once -> (each rank's results, the spawn's wall in s, the pipeline's
     output on the host)."""
     import shutil
@@ -5984,13 +6189,13 @@ def spmd_multimodal_check(card: str, ranks: list) -> dict:
 
 
 def spmd_path(torch, card: str) -> dict:
-    """Phase 13b in this process, then 13a, 13c, 13d and 13e in one
-    spawned world, then each one's checks."""
+    """Phase 13b in this process, then 13a and 13c-13f in one spawned
+    world, then each one's checks."""
     out = {"rescale": rescale_check(torch, card)}
     gc.collect()
     torch.cuda.empty_cache()
     ranks, out["world_s"], pipe_out = spmd_world(torch)
-    print(f"[{card}] phases 13a, 13c-13e: world spawned and run in "
+    print(f"[{card}] phases 13a, 13c-13f: world spawned and run in "
           f"{out['world_s']:.1f} s (13a {ranks[0]['13a_s']:.1f} s)")
     out["pipeline"] = pipeline_check(
         torch, card, [r["13a"] for r in ranks[:PIPE_P]], pipe_out)
@@ -6002,6 +6207,7 @@ def spmd_path(torch, card: str) -> dict:
     out["families"] = spmd_families_check(torch, card,
                                           [r["13d"] for r in ranks])
     out["multimodal"] = spmd_multimodal_check(card, ranks)
+    out["seq"] = spmd_seq_check(card, ranks)
     return out
 
 
@@ -6063,7 +6269,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     exp = timed("expandable serve path", expandable_path, torch, serve)
     spmd = timed("spmd on one card", spmd_path, torch, card)
-    fam, mms = spmd["families"], spmd["multimodal"]
+    fam, mms, seq = spmd["families"], spmd["multimodal"], spmd["seq"]
     timed("profile", profile_phase, torch,
           mp["runs"]["table2_mkDelayWorker32B"]["fused_launches"],
           osp["params"], osp["fig8_probs"])
@@ -6154,7 +6360,9 @@ def main() -> int:
                            + spmd["pipeline"]["launches"]
                            + spmd["train"]["flash_gate"]
                            + sum(spmd["train"]["timed_flash"])
-                           + fam["launches"]["flash"] + mms["launches"],
+                           + fam["launches"]["flash"] + mms["launches"]
+                           + seq["launches"]["flash"]
+                           + sum(seq["bf16"]["flash"]),
                            att["max_abs_err"]["flash_attention"], rep_flash,
                            att["rows"]["flash_attention"]),
              launches_by_path={
@@ -6169,8 +6377,11 @@ def main() -> int:
                  "sharded_train_gate": spmd["train"]["flash_gate"],
                  "sharded_train_bf16": sum(spmd["train"]["timed_flash"]),
                  "sharded_families_gate": fam["launches"]["flash"],
-                 "sharded_multimodal_gate": mms["launches"]},
+                 "sharded_multimodal_gate": mms["launches"],
+                 "sharded_seq_gates": seq["launches"]["flash"],
+                 "sharded_seq_bf16": sum(seq["bf16"]["flash"])},
              sharded_train_vs_plain=spmd["train"]["flash_vs_plain"],
+             sharded_seq_vs_plain=seq["held"]["flash"],
              sharded_families_vs_plain=fam["held"]["flash"],
              sharded_multimodal_vs_plain=mms["held"],
              per_train_step=train["run"]["per_step_flash"],
@@ -6181,13 +6392,16 @@ def main() -> int:
         dict(_kernel_entry("mamba_scan", src + "mamba_scan.cu",
                            "src/repro/kernels/mamba_scan.py:70",
                            rec["mamba2-780m"]["gate_counts"]["mamba_scan"]
-                           + fam["launches"]["scan"],
+                           + fam["launches"]["scan"]
+                           + seq["launches"]["scan"],
                            scan["max_abs_err"], rep_scan, scan["rows"]),
              launches_by_path={
                  "mamba2_serve_gate":
                      rec["mamba2-780m"]["gate_counts"]["mamba_scan"],
-                 "sharded_families_gate": fam["launches"]["scan"]},
-             sharded_families_vs_plain=fam["held"]["scan"]),
+                 "sharded_families_gate": fam["launches"]["scan"],
+                 "sharded_seq_gates": seq["launches"]["scan"]},
+             sharded_families_vs_plain=fam["held"]["scan"],
+             sharded_seq_vs_plain=seq["held"]["scan"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,7 @@ reference's ``launch/dryrun.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --out dryrun.json
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --sequence-parallel
 
 The reference lowers and compiles each cell's step for the production
 meshes (256 or 512 devices) and reads XLA's memory and cost analyses. The
@@ -26,30 +27,41 @@ the plan's specs, and
   (``tests/test_torch_dryrun.py``);
 - runs the step on meta tensors at one rank's rows
   (``rows_per_rank``: the global batch over the data axes, and for train
-  over the microbatches too), with the model at full (plan-padded) width:
-  forward and autograd backward of one microbatch for train, the prefill
-  or decode step otherwise. A decode cell keeps every cache entry of its
-  rows (the ``long_500k`` cell's cache sequence is sharded over the data
-  axis in the specs, not in this run). ``run_s`` is its wall time on the
+  over the microbatches too). A train cell runs at one device's shapes:
+  forward and autograd backward of one microbatch through the sharded
+  layers, on the device's shard of each weight (``plan.spec``: its heads,
+  columns, experts and vocabulary), inside an ``spmd.region`` of
+  ``spmd.MetaGroup`` s whose collectives only give their outputs' shapes.
+  A serving cell runs the prefill or decode step with the model at full
+  (plan-padded) width. A decode cell keeps every cache entry of its rows
+  (the ``long_500k`` cell's cache sequence is sharded over the data axis
+  in the specs, not in this run). ``run_s`` is the run's wall time on the
   host and ``flops_model`` the operations that
   ``torch.utils.flop_counter.FlopCounterMode`` counts in it: the products
-  outside the flash attention and the Mamba2 scan. It is not a per-device
-  count, nor the step's total: the run takes every head, every column and
-  the whole vocabulary (about ``tp`` times one device's share of those
-  products on a ``model`` axis of ``tp``) at one rank's rows. On meta
-  tensors those two (their kernels' wrappers and their
-  ``autograd.Function`` s' backward) give their outputs' layout and
-  compute nothing, so neither their work nor the host time of their plain
-  backward (hundreds of ops per chunk of the scan) is in the run;
+  outside the flash attention and the Mamba2 scan (``flops_scope`` says
+  which count it is). For a train cell it is one device's count of those
+  products in a microbatch (``"device"``: a product split over the model
+  axis counted at its ``1 / tp`` share, a replicated one whole; XLA's
+  cost analysis of the partitioned program, the reference's figure, also
+  counts the rest). For a serving cell it is the whole, unsharded model's
+  products at one rank's rows (``"unsharded"``: about ``tp`` times one
+  device's share). On meta tensors the flash attention and the scan
+  (their kernels' wrappers and their ``autograd.Function`` s' backward)
+  give their outputs' layout and compute nothing, so neither their work
+  nor the host time of their plain backward (hundreds of ops per chunk of
+  the scan) is in the run;
 - leaves ``temp_bytes_per_device`` null: XLA's temporary buffer belongs
   to its compiled program, and an eager PyTorch step has no counterpart.
 
 A cell whose run raises becomes an ``"ok": false`` record with its error,
 and the CLI exits 1 if any cell failed. Nothing is allocated and no card
-is used. ``--sequence-parallel`` (the reference's ``REPRO_SP=1``: the
-activations' sequence over the model axis) raises ``NotImplementedError``:
-it moves only activations, which the port does not place, so it would
-change none of these counts.
+is used. ``--sequence-parallel``, or ``REPRO_SP=1`` in the environment as
+the reference spells it, runs the train cells under
+``make_plan(..., sequence_parallel=True)``: the meta run splits the
+residual stream along the sequence over the model axis (a gather
+multiplies dimension 1 by ``tp``, a scatter divides it). The serving cells
+are as without it, as in the reference. It moves activations only, so
+the argument and output bytes are those without it.
 """
 from __future__ import annotations
 
@@ -57,6 +69,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import time
 import traceback
 from dataclasses import dataclass
@@ -73,16 +86,12 @@ from repro_torch.models import params as pm
 from repro_torch.models.layers import cdt
 from repro_torch.models.model import Model
 from repro_torch.serve.step import make_decode_step, make_prefill_step
+from repro_torch.sharding import spmd
 from repro_torch.sharding.plan import Spec, make_plan, mesh_axes
 from repro_torch.train.optimizer import make_optimizer
 from repro_torch.train.step import make_grad_fn
 
 SERVE_DTYPE = "bfloat16"  # the serving cells' weights, as the reference's
-
-SP_UNSUPPORTED = (
-    "sequence parallelism shards the activations' sequence over the model "
-    "axis; the port places no activation (no sequence-sharded residual "
-    "stream between the tensor-parallel regions), so it has nothing to run")
 
 #: the train step's metrics: the loss's, the optimizer's and the loss
 TRAIN_METRICS = ("nll", "z_loss", "accuracy", "tokens", "grad_norm", "lr",
@@ -152,6 +161,37 @@ def stand_ins(meta_tree, dtype: Optional[str] = None):
         dtype or m.dtype)), meta_tree)
 
 
+def device_stand_ins(meta_tree, plan, dtype: str):
+    """Meta tensors of one device's tensor-parallel shard of each leaf of
+    a ``ParamMeta`` tree: each dimension that the leaf's spec
+    (``plan.spec``) shards divided by its mesh axes' sizes (the plan pads
+    what it shards, so each divides evenly)."""
+    sizes = mesh_axes(plan.mesh)
+
+    def local(m):
+        spec = plan.spec(m.logical)
+        shape = []
+        for i, dim in enumerate(m.shape):
+            n = math.prod(sizes[a] for a in _axes(spec[i]))
+            if dim % n:
+                raise ValueError(f"dimension {i} of {tuple(m.shape)} does "
+                                 f"not split over {n} devices")
+            shape.append(dim // n)
+        return I.stand_in(tuple(shape), pm.torch_dtype(dtype))
+    return pm.tree_map(local, meta_tree)
+
+
+def meta_region(plan):
+    """An ``spmd.region`` over one device of ``plan`` 's mesh, in shape
+    only: ``spmd.MetaGroup`` s of the model axis and of the data axes
+    together, sequence-parallel where the plan is."""
+    sizes = mesh_axes(plan.mesh)
+    tp = spmd.MetaGroup(sizes["model"]) if "model" in sizes else None
+    dp = (spmd.MetaGroup(math.prod(sizes[a] for a in plan.dp_axes))
+          if plan.dp_axes else None)
+    return spmd.region(tp, dp, seq=plan.sequence_parallel)
+
+
 @dataclass
 class Lowered:
     """One cell's step: its inputs and outputs as meta tensors with their
@@ -193,17 +233,16 @@ def lower_cell(arch, shape, mesh, *, sequence_parallel: bool = False
     ``param_dtype`` with the optimizer state, the batch and the step;
     prefill and decode at bf16 weights, decode replicating the batch and
     sharding the cache sequence over ``data`` where the batch does not
-    divide the data axes (``long_500k``). ``sequence_parallel`` raises
-    (:data:`SP_UNSUPPORTED`)."""
-    if sequence_parallel:
-        raise NotImplementedError(SP_UNSUPPORTED)
+    divide the data axes (``long_500k``). ``sequence_parallel``: the
+    train step's plan splits the residual stream along the sequence over
+    the model axis (the serving cells are as without it)."""
     cfg = registry.get(arch) if isinstance(arch, str) else arch
     shape = registry.get_shape(shape) if isinstance(shape, str) else shape
     dp = dp_size(mesh)
     B, S = shape.global_batch, shape.seq_len
 
     if shape.kind == "train":
-        plan = make_plan(cfg, mesh)
+        plan = make_plan(cfg, mesh, sequence_parallel=sequence_parallel)
         model = Model(cfg, plan=plan, device="meta")
         meta = model.param_meta()
         opt = make_optimizer(cfg)
@@ -218,6 +257,11 @@ def lower_cell(arch, shape, mesh, *, sequence_parallel: bool = False
         mb = I.train_input_specs(cfg, dataclasses.replace(
             shape, global_batch=rows))
         grad_fn = make_grad_fn(model)
+        local = device_stand_ins(meta, plan, cfg.param_dtype)
+
+        def run():
+            with meta_region(plan):
+                return grad_fn(local, mb)
         return Lowered(
             mesh,
             (params, opt_state, I.train_input_specs(cfg, shape),
@@ -225,9 +269,11 @@ def lower_cell(arch, shape, mesh, *, sequence_parallel: bool = False
             specs + (I.train_input_shardings(cfg, plan), Spec()),
             (params, opt_state, metrics),
             specs + ({k: Spec() for k in names},),
-            lambda: grad_fn(params, mb),
+            run,
             {"kind": "train", "n_accum": n_accum,
-             "n_params": pm.n_params(meta), "rows_per_rank": rows})
+             "n_params": pm.n_params(meta), "rows_per_rank": rows,
+             "sequence_parallel": sequence_parallel,
+             "flops_scope": "device"})
 
     cfg_srv = cfg.replace(param_dtype=SERVE_DTYPE)
     if shape.kind == "prefill":
@@ -247,7 +293,7 @@ def lower_cell(arch, shape, mesh, *, sequence_parallel: bool = False
             (logits_spec, model.cache_specs()),
             lambda: step(mb),
             {"kind": "prefill", "n_params": model.n_params(),
-             "rows_per_rank": rows})
+             "rows_per_rank": rows, "flops_scope": "unsharded"})
 
     replicate_batch = B % dp != 0
     seq_axis = "data" if replicate_batch else None  # long_500k
@@ -268,16 +314,18 @@ def lower_cell(arch, shape, mesh, *, sequence_parallel: bool = False
         (logits, cache), (logits_spec, cache_sh),
         lambda: step(*mine),
         {"kind": "decode", "n_params": model.n_params(),
-         "rows_per_rank": rows})
+         "rows_per_rank": rows, "flops_scope": "unsharded"})
 
 
-def run_cell(arch: str, shape_name: str, mesh_kind: str) -> Dict[str, Any]:
+def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
+             sequence_parallel: bool = False) -> Dict[str, Any]:
     mesh = make_production_mesh(multi_pod=(mesh_kind == "multipod"))
     t0 = time.perf_counter()
     rec: Dict[str, Any] = {"arch": arch, "shape": shape_name,
                            "mesh": mesh_kind}
     try:
-        low = lower_cell(arch, shape_name, mesh)
+        low = lower_cell(arch, shape_name, mesh,
+                         sequence_parallel=sequence_parallel)
         rec.update(low.info)
         rec.update({
             "argument_bytes_per_device": low.argument_bytes(),
@@ -294,7 +342,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str) -> Dict[str, Any]:
               f"(lower {rec['lower_s']}s, meta run {rec['run_s']}s, "
               f"args/dev {rec['argument_bytes_per_device']}, "
               f"out/dev {rec['output_bytes_per_device']}, "
-              f"flops {rec['flops_model']:.4g})")
+              f"flops {rec['flops_model']:.4g} {rec['flops_scope']})")
     except Exception as e:  # noqa: BLE001 -- the record carries the error
         rec.update({"ok": False, "error": f"{type(e).__name__}: {e}",
                     "traceback": traceback.format_exc()[-2000:]})
@@ -312,10 +360,11 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--sequence-parallel", action="store_true",
-                    help="the reference's REPRO_SP=1 (not supported)")
+                    help="train cells with the residual stream split along "
+                         "the sequence over the model axis (also "
+                         "REPRO_SP=1, the reference's spelling)")
     args = ap.parse_args(argv)
-    if args.sequence_parallel:
-        raise NotImplementedError(SP_UNSUPPORTED)
+    sp = args.sequence_parallel or os.environ.get("REPRO_SP", "") == "1"
 
     meshes = ["pod", "multipod"] if args.mesh == "both" else [args.mesh]
     if args.all:
@@ -326,8 +375,8 @@ def main(argv=None):
         ap.error("give --arch and --shape, or --all")
 
     t0 = time.perf_counter()
-    results = [run_cell(arch, shape, mk) for arch, shape in cells
-               for mk in meshes]
+    results = [run_cell(arch, shape, mk, sequence_parallel=sp)
+               for arch, shape in cells for mk in meshes]
     n_ok = sum(r["ok"] for r in results)
     print(f"[dryrun] {n_ok}/{len(results)} cells OK in "
           f"{time.perf_counter() - t0:.1f} s")

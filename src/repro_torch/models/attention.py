@@ -269,9 +269,14 @@ def gqa_apply(p, x, cfg: ModelConfig, positions=None, kv_x=None,
     non-causal and cross-attention (no mask, any S and T). Windows keep
     :func:`_sdpa`. Inside an ``spmd.region`` the weights are this rank's
     heads, and the output projection's partial sums add up over the model
-    axis."""
+    axis. Under sequence parallelism x is this rank's sequence shard: it
+    is gathered on the way in (so S and the positions are the whole
+    sequence's) and the output is scattered back to the shard, which the
+    cross gate then multiplies (its gradient a partial sum:
+    ``spmd.seq_param``); ``kv_x`` (the image embeddings, the encoder
+    output) is whole and enters."""
+    x = spmd.enter_seq(x)
     B, S, _ = x.shape
-    x = spmd.enter(x)
     kv_x = x if kv_x is None else spmd.enter(kv_x)
     q, k, v = _qkv(p, x, kv_x, cfg)
     if positions is None:
@@ -287,9 +292,9 @@ def gqa_apply(p, x, cfg: ModelConfig, positions=None, kv_x=None,
     else:
         o = _sdpa(q, k, v, causal_mask(S, k.shape[1], 0, cfg.sliding_window,
                                        x.device))
-    o = spmd.leave(_out(o, p["wo"]))
+    o = spmd.leave_seq(_out(o, p["wo"]))
     if cross:
-        o = o * torch.tanh(p["gate"])
+        o = o * torch.tanh(spmd.seq_param(p["gate"]))
     return o, (k, v)
 
 
@@ -591,7 +596,16 @@ def mla_apply(p, x, cfg: ModelConfig, positions=None):
     ``k_rope``, which every rank's heads read, enter the region there (so
     the gradients of the down projections, their norms and x sum over the
     model axis once), and the output projection's partial sums add up over
-    the model axis. Without ``q_lora_rank`` x itself enters ``q_up``."""
+    the model axis. Without ``q_lora_rank`` x itself enters ``q_up``.
+
+    Under sequence parallelism x is this rank's sequence shard, and it is
+    gathered before the down projections (``spmd.whole_seq``), which run
+    on the whole sequence on every rank as without the flag: the latents
+    enter as above, so the gradient that reaches x is whole and the
+    gather's backward keeps this rank's chunk; the positions and the rope
+    are the whole sequence's. The output is scattered back to the shard
+    (``spmd.leave_seq``)."""
+    x = spmd.whole_seq(x)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None]
@@ -604,7 +618,7 @@ def mla_apply(p, x, cfg: ModelConfig, positions=None):
     k = torch.cat([k_nope, k_rope_in[:, :, None, :].expand(
         *k_nope.shape[:3], k_rope.shape[-1])], -1)
     o = _sdpa(q, k, v, causal_mask(S, S, 0, device=x.device))
-    return spmd.leave(_out(o, p["wo"])), (c_kv, k_rope)
+    return spmd.leave_seq(_out(o, p["wo"])), (c_kv, k_rope)
 
 
 def mla_cache_spec(plan, seq_axis=None):

@@ -120,15 +120,18 @@ def norm_params(cfg: ModelConfig, dim: Optional[int] = None, logical="embed"):
 
 
 def norm_apply(p, x, cfg: ModelConfig, cols: bool = False):
+    """Under sequence parallelism x is this rank's sequence shard of the
+    residual stream, so the scale's and bias's gradients sum over the
+    model axis (``spmd.seq_param``)."""
     dt = x.dtype
     x = x.float()
     if cfg.norm_type == "layernorm":
         x = x - mean_last(x, cols)
     var = mean_last(x.square(), cols)
     x = x * torch.rsqrt(var + cfg.norm_eps)
-    x = x * p["scale"].float()
+    x = x * spmd.seq_param(p["scale"]).float()
     if cfg.norm_type == "layernorm":
-        x = x + p["bias"].float()
+        x = x + spmd.seq_param(p["bias"]).float()
     return x.to(dt)
 
 
@@ -158,8 +161,11 @@ def mlp_apply(p, x, cfg: ModelConfig, cols: bool = False):
     """``p`` holds the weights in x's dtype; ``cols``: each product one
     column at a time (:func:`by_column`). Inside an ``spmd.region`` the
     weights are this rank's columns of the up products and rows of the
-    down product, whose partial outputs sum over the model axis."""
-    x = spmd.enter(x)
+    down product, whose partial outputs sum over the model axis (under
+    sequence parallelism x is a sequence shard, gathered on the way in, and
+    the output is scattered back to one: ``spmd.enter_seq`` /
+    ``leave_seq``)."""
+    x = spmd.enter_seq(x)
     mm = lambda t, w, name: tap(name, matmul(t, w, cols))
     if cfg.mlp_type == "swiglu":
         h = F.silu(mm(x, p["wg"], "gate")) * mm(x, p["wu"], "up")
@@ -167,7 +173,7 @@ def mlp_apply(p, x, cfg: ModelConfig, cols: bool = False):
         h = torch.square(F.relu(mm(x, p["wu"], "up")))
     else:  # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(mm(x, p["wu"], "up"), approximate="tanh")
-    return spmd.leave(tap("down", matmul(h, p["wd"], cols)))
+    return spmd.leave_seq(tap("down", matmul(h, p["wd"], cols)))
 
 
 # --- embeddings ----------------------------------------------------------------
@@ -183,7 +189,8 @@ def embed_params(cfg: ModelConfig, plan):
 
 def embed_apply(p, tokens, cfg: ModelConfig):
     """``p["embedding"]`` in the compute dtype (inside an ``spmd.region``
-    this rank's rows of the vocabulary)."""
+    this rank's rows of the vocabulary; under sequence parallelism the
+    lookup is this rank's sequence shard)."""
     if spmd.REGION is not None:
         return spmd.embed(p["embedding"], tokens)
     return p["embedding"][tokens.long()]
@@ -191,8 +198,9 @@ def embed_apply(p, tokens, cfg: ModelConfig):
 
 def unembed_apply(p, x, cfg: ModelConfig):
     """Logits over the vocabulary (inside an ``spmd.region`` over this
-    rank's share of it)."""
-    x = spmd.enter(x)
+    rank's share of it, for the whole sequence: under sequence parallelism
+    x is gathered first)."""
+    x = spmd.enter_seq(x)
     if cfg.tie_embeddings:
         logits = x @ p["embedding"].T
     else:

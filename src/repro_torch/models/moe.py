@@ -233,11 +233,17 @@ def moe_apply(p, x, cfg: ModelConfig, cols: bool = False
     The B * S tokens are dispatched in groups of ``cfg.moe_group_size``
     (one group when 0 or larger than B * S; inside an ``spmd.region`` B
     is this data rank's rows, so its groups are shard-local, as the
-    reference's under a mesh). A row's routes depend on the other rows of
+    reference's under a mesh). Under sequence parallelism x is this
+    rank's sequence shard: the router and the dispatch take it gathered
+    (``spmd.whole_seq``), so the groups and capacities are those of the
+    step without the flag, the combined output is scattered back to the
+    shard (``spmd.leave_seq``), and the shared experts gather their own
+    input as the MLP does. A row's routes depend on the other rows of
     its group (they share the capacity). ``cols`` (a decode
     chunk of 2..16 rows, ``L.by_column``) in one group: the group's
     routes, the rest a column at a time (:func:`_dispatch_cols`), and the
     shared experts as the MLP (:func:`L.mlp_apply`)."""
+    x_in, x = x, spmd.whole_seq(x)
     B, S, D = x.shape
     T = B * S
     gs = min(cfg.moe_group_size or T, T)
@@ -255,10 +261,10 @@ def moe_apply(p, x, cfg: ModelConfig, cols: bool = False
             outs.append(o)
             auxs.append(aux)
             zs.append(z)
-        out = spmd.leave(torch.cat(outs, dim=0).reshape(B, S, D))
+        out = spmd.leave_seq(torch.cat(outs, dim=0).reshape(B, S, D))
     out = L.tap("experts", out)
     if cfg.num_shared_experts:
-        out = out + L.mlp_apply(p["shared"], x, cfg, cols)
+        out = out + L.mlp_apply(p["shared"], x_in, cfg, cols)
     losses = {"moe_aux": torch.stack(auxs).mean(),
               "moe_z": torch.stack(zs).mean()}
     return out, losses

@@ -38,6 +38,15 @@ blocks before it flows back through the encoder (the image embeddings
 take none); the cross block's gate multiplies the output after its
 ``spmd.leave``, so every rank reads the whole output and the gate's
 gradient is whole on every rank, as a norm scale's is.
+
+Under sequence parallelism the text stream (vlm) and the decoder stream
+(whisper) are split along the sequence over the model axis: the cross
+blocks gather their query input as any attention block does, the gate
+then multiplies a sequence shard (its gradient summed over the model
+axis, as the norms' are: ``spmd.seq_param``), and whisper's decoder adds
+the sinusoid's rows of its own shard. The image embeddings and the
+encoder output are not split: they enter the cross K/V as without the
+flag, and whisper's encoder runs whole (``spmd.no_sequence_split``).
 """
 from __future__ import annotations
 
@@ -53,6 +62,7 @@ from repro_torch.models.transformer import (_stack, attn_block_apply,
                                             attn_block_decode,
                                             attn_block_params, depth, layer,
                                             layer_spec, run_block, zero_aux)
+from repro_torch.sharding import spmd
 from repro_torch.sharding.plan import Spec
 
 
@@ -254,20 +264,24 @@ def whisper_params(cfg: ModelConfig, plan):
 
 
 def whisper_encode(params, frames, cfg: ModelConfig):
-    """frames (B, F, d_model), precomputed (the conv frontend's stub)."""
+    """frames (B, F, d_model), precomputed (the conv frontend's stub). The
+    encoder runs whole over the model axis under sequence parallelism too
+    (``spmd.no_sequence_split``), as the reference puts no ``"seq"`` on it."""
     x = frames.to(L.cdt(cfg))
     x = x + sinusoidal(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
     for i in range(depth(params["enc"])):
         x = run_block(_enc_block, cfg, layer(params["enc"], i), x, cfg)
-    return L.norm_apply(params["enc_ln"], x, cfg)
+    with spmd.no_sequence_split():
+        return L.norm_apply(params["enc_ln"], x, cfg)
 
 
 def _enc_block(lp, x, cfg: ModelConfig):
-    h = L.norm_apply(lp["ln1"], x, cfg)
-    a, _ = attn.gqa_apply(lp["attn"], h, cfg, causal=False)
-    x = x + a
-    h = L.norm_apply(lp["ln2"], x, cfg)
-    return x + L.mlp_apply(lp["mlp"], h, cfg)
+    with spmd.no_sequence_split():  # inside: a remat's recompute takes it too
+        h = L.norm_apply(lp["ln1"], x, cfg)
+        a, _ = attn.gqa_apply(lp["attn"], h, cfg, causal=False)
+        x = x + a
+        h = L.norm_apply(lp["ln2"], x, cfg)
+        return x + L.mlp_apply(lp["mlp"], h, cfg)
 
 
 def _dec_block(lp, x, enc_out, cfg: ModelConfig):
@@ -288,7 +302,8 @@ def _whisper_forward(params, tokens, frames, cfg, max_len=None,
     enc_out = whisper_encode(params, frames, cfg)
     x = L.embed_apply(params["embed"], tokens, cfg)
     B, S = tokens.shape
-    x = x + sinusoidal(S, cfg.d_model, x.dtype, x.device)[None]
+    # under sequence parallelism x holds this rank's rows of the sequence
+    x = x + spmd.seq_chunk(sinusoidal(S, cfg.d_model, x.dtype, x.device)[None])
     selfs, cks, cvs = [], [], []
     for i in range(depth(params["dec"])):
         x, kv, (ck, cv) = run_block(_dec_block, cfg, layer(params["dec"], i),

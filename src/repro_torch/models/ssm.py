@@ -167,11 +167,13 @@ def ssm_apply(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """Train/prefill. x (B, S, D) -> (out, {"ssm": final state, "conv": the
     raw pre-conv tail}) — the state that seeds decode. Inside an
     ``spmd.region`` the heads, channels and state are this rank's (module
-    docstring)."""
+    docstring); under sequence parallelism x is this rank's sequence
+    shard, gathered on the way in (the conv and the scan take the whole
+    sequence) and the output scattered back to the shard."""
+    x = spmd.enter_seq(x)
     Bsz, S, _ = x.shape
     H, P = p["A_log"].shape[0], cfg.ssm_head_dim  # this rank's heads
     tp = cfg.ssm_heads // H
-    x = spmd.enter(x)
     z = x @ p["wz"]
     xr_raw = x @ p["wx"]
     xin = F.silu(_causal_conv(xr_raw, p["conv_w"], p["conv_b"],
@@ -187,7 +189,7 @@ def ssm_apply(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(Bsz, S, H * P)
     y = _gated_norm(y * F.silu(z), p["norm"], cfg, tp)
-    out = spmd.leave(y @ p["wo"])
+    out = spmd.leave_seq(y @ p["wo"])
     conv_raw = xr_raw.transpose(1, 2)[:, :, -(cfg.ssm_conv - 1):]
     return out, {"ssm": state, "conv": conv_raw.contiguous()}
 

@@ -21,14 +21,16 @@ names), standing in for the reference's ``PartitionSpec``;
 placements on a ``DeviceMesh``.
 
 The plan sizes the model's heads, KV heads and vocabulary
-(``models.model.Model(cfg, plan=...)``). The port places no activation:
-PyTorch places tensors explicitly and has no sharding hint, so
-:meth:`Plan.act` returns its input. The train step across ranks
-(``sharding/spmd.py``, ``train/step.py``) places its tensors itself:
-masters at :meth:`Plan.param_shardings`, gathered per microbatch (or once
-per step with ``hoist_gather``) to :meth:`Plan.tp_shardings`, and each
-data rank's rows of a microbatch, which form the MoE layer's dispatch
-groups by data shard as the reference's do under a mesh.
+(``models.model.Model(cfg, plan=...)``). PyTorch places tensors explicitly
+and has no sharding hint, so :meth:`Plan.act` returns its input. The
+train step across ranks (``sharding/spmd.py``, ``train/step.py``) places
+its tensors itself: masters at :meth:`Plan.param_shardings`, gathered per
+microbatch (or once per step with ``hoist_gather``) to
+:meth:`Plan.tp_shardings`, each data rank's rows of a microbatch, which
+form the MoE layer's dispatch groups by data shard as the reference's do
+under a mesh, and with ``sequence_parallel`` (the ``"seq"`` rule on the
+model axis) the residual stream's sequence split over the model axis
+between the tensor-parallel blocks.
 """
 from __future__ import annotations
 
@@ -178,6 +180,10 @@ def make_plan(
     replicate_batch: bool = False,
 ) -> Plan:
     """Resolve a parallelism plan for ``cfg`` on ``mesh``.
+
+    ``sequence_parallel``: the train step across ranks splits the residual
+    stream along the sequence over the model axis (``sharding/spmd.py``);
+    serving reads nothing of it.
 
     ``seq_shard_decode``: shard decode KV caches / sequences over the data
     axis (used by ``long_500k`` where global_batch=1 cannot feed the data

@@ -34,6 +34,35 @@ rank reads a sum whole that each holds a part of, the third operator,
   every data rank (the reference's ``router_topk`` over ``(n_dp, gs, E)``
   logits), with the aux terms counted once in the summed loss.
 
+Under sequence parallelism (``make_plan(..., sequence_parallel=True)``,
+the reference's ``"seq"`` rule on the model axis) the residual stream
+between the tensor-parallel blocks is split along the sequence over the
+model axis: each rank holds ``(B, S / tp, D)`` of it. Megatron's two
+sequence operators take the place of ``enter`` and ``leave`` at a block's
+edges (:func:`enter_seq`, :func:`leave_seq`): :func:`seq_gather`
+(all-gather along dim 1 forward, reduce-scatter backward) and
+:func:`seq_scatter` (reduce-scatter along dim 1 forward, all-gather
+backward). Where each sits:
+
+- ``seq_scatter``: after the embedding's lookup and every block's output
+  projection (attention's, the MLP's, the SSM's, the MoE combine).
+- ``seq_gather``: the input of the attention, MLP and Mamba2 blocks and of
+  the unembedding (the loss keeps the whole sequence).
+- :func:`seq_gather_whole` (all-gather forward, this rank's chunk of the
+  gradient backward): the input of the MoE layer and of MLA, which read
+  it whole on every rank (the router; the down projections) and enter
+  what their heads read themselves, so the gradient that comes back is
+  whole already. The MoE layer's dispatch groups stay those of the step
+  without the flag.
+- :func:`seq_param` (``enter`` under the flag): the replicated weights
+  read on a sequence shard, the norms' scales and biases and the cross
+  blocks' gates, whose gradients are partial sums.
+
+Weights and inputs that are not split along the sequence keep ``enter``
+(the image embeddings, the encoder output, the MoE combine weights), and
+whisper's encoder runs whole over the model axis
+(:func:`no_sequence_split`), as the reference puts no ``"seq"`` on it.
+
 Outside a region every one of them is the identity, and serving is
 untouched. A region's "data" group spans every data axis of the mesh
 (:func:`dp_group`: ``pod`` and ``data`` together on a 3-D mesh), so the
@@ -57,13 +86,41 @@ import torch
 import torch.distributed as dist
 
 
+class MetaGroup(NamedTuple):
+    """A process group in shape only, for a run on meta tensors (the dry
+    run): its size and this rank's index in it. Its collectives give
+    their outputs' shapes and move nothing: an all-reduce copies, a
+    gather multiplies the gathered dimension by ``size``, a scatter
+    divides it."""
+    size: int
+    rank: int = 0
+
+
+def group_size(group) -> int:
+    """The ranks of ``group`` (a process group or a :class:`MetaGroup`)."""
+    if isinstance(group, MetaGroup):
+        return group.size
+    return dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This rank's index in ``group`` (a process group or a
+    :class:`MetaGroup`)."""
+    if isinstance(group, MetaGroup):
+        return group.rank
+    return dist.get_rank(group)
+
+
 class Region(NamedTuple):
     """The process groups of a forward across ranks: ``tp`` over the
     model axis (and this rank's index in it), ``dp`` over the data axes
-    (the loss's token count sums over it; None: one rank)."""
+    (the loss's token count sums over it; None: one rank); ``seq``: the
+    residual stream split along the sequence over ``tp`` (sequence
+    parallelism)."""
     tp: Optional[object]
     tp_rank: int
     dp: Optional[object]
+    seq: bool = False
 
     def group(self, axis: str):
         """The group of ``axis``, "model" or "data" (every data axis;
@@ -80,16 +137,35 @@ REGION: Optional[Region] = None
 
 
 @contextlib.contextmanager
-def region(tp_group=None, dp_group=None):
+def region(tp_group=None, dp_group=None, seq: bool = False):
     """Within the block the model's forward runs tensor-parallel over
-    ``tp_group``; the previous region is restored on exit."""
+    ``tp_group`` (and with ``seq`` sequence-parallel over it too); the
+    groups may be :class:`MetaGroup` s. The previous region is restored
+    on exit."""
     global REGION
     prev = REGION
     REGION = Region(tp_group,
-                    dist.get_rank(tp_group) if tp_group is not None else 0,
-                    dp_group)
+                    group_rank(tp_group) if tp_group is not None else 0,
+                    dp_group, bool(seq and tp_group is not None))
     try:
         yield REGION
+    finally:
+        REGION = prev
+
+
+@contextlib.contextmanager
+def no_sequence_split():
+    """Within the block the current region's activations are whole along
+    the sequence (whisper's encoder): the sequence operators act as
+    ``enter`` and ``leave``. A block run under activation checkpointing
+    opens it inside the checkpointed function, so that its recomputed
+    forward takes the same operators."""
+    global REGION
+    prev = REGION
+    if REGION is not None:
+        REGION = REGION._replace(seq=False)
+    try:
+        yield
     finally:
         REGION = prev
 
@@ -97,7 +173,7 @@ def region(tp_group=None, dp_group=None):
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """A reduced copy of ``x`` over ``group`` (x itself untouched)."""
     y = x.clone()
-    if group is not None:
+    if group is not None and not isinstance(group, MetaGroup):
         dist.all_reduce(y, op=op, group=group)
     return y
 
@@ -153,7 +229,7 @@ class _AllSum(torch.autograd.Function):
 def size(axis: str = "model") -> int:
     """The ranks of the current region's ``axis`` (1 outside a region)."""
     group = None if REGION is None else REGION.group(axis)
-    return 1 if group is None else dist.get_world_size(group)
+    return 1 if group is None else group_size(group)
 
 
 def all_sum(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
@@ -171,13 +247,129 @@ def all_sum(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of a vocabulary-sharded table (this rank's ``V / tp`` rows
     from ``tp_rank * V / tp``): each rank looks up the tokens in its rows,
-    zeros for the others, and the sum over the model axis is the lookup."""
+    zeros for the others, and the sum over the model axis is the lookup
+    (under sequence parallelism this rank's chunk of the sequence of it:
+    :func:`leave_seq`)."""
     r = REGION
     n = table.shape[0]
     local = tokens.long() - r.tp_rank * n
     mine = (local >= 0) & (local < n)
     rows = table[local.clamp(0, n - 1)] * mine[..., None].to(table.dtype)
-    return leave(rows)
+    return leave_seq(rows)
+
+
+# --- sequence parallelism: the residual stream split along the sequence --------
+
+def _check_seq(S: int, n: int) -> None:
+    if S % n:
+        raise ValueError(f"sequence parallelism: a sequence of S = {S} does "
+                         f"not split evenly over tp = {n} ranks")
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather_dim(x, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_dim(g, 1, ctx.group), None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        _check_seq(x.shape[1], group_size(group))
+        return _scatter_dim(x, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, 1, ctx.group), None
+
+
+class _SeqGatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n, ctx.rank = group_size(group), group_rank(group)
+        return _gather_dim(x, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.n, dim=1)[ctx.rank].contiguous(), None
+
+
+def seq_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' sequence shards ``x`` (B, S / n, ...) of ``group``
+    joined along dim 1 in rank order, (B, S, ...); the backward
+    reduce-scatters the gradient along dim 1 (its readers' partial
+    gradients summed, this rank's chunk kept)."""
+    return _SeqGather.apply(x, group)
+
+
+def seq_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's chunk along dim 1 of the sum of the ranks' ``x`` (B, S,
+    ...) over ``group``, (B, S / n, ...); the backward all-gathers the
+    gradient along dim 1. Raises ``ValueError`` where S does not split
+    evenly over the group."""
+    return _SeqScatter.apply(x, group)
+
+
+def seq_gather_whole(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`seq_gather` forward, for readers whose gradient comes back
+    whole on every rank (their own ``enter`` s summed it): the backward
+    keeps this rank's chunk of it and moves nothing."""
+    return _SeqGatherWhole.apply(x, group)
+
+
+def seq_on() -> bool:
+    """Whether the current region splits the residual stream along the
+    sequence."""
+    return REGION is not None and REGION.seq
+
+
+def enter_seq(x: torch.Tensor) -> torch.Tensor:
+    """The input of a tensor-parallel block: under sequence parallelism
+    the sequence gathered (:func:`seq_gather`), else :func:`enter`."""
+    if seq_on():
+        return seq_gather(x, REGION.tp)
+    return enter(x)
+
+
+def leave_seq(x: torch.Tensor) -> torch.Tensor:
+    """A block's partial output: under sequence parallelism this rank's
+    sequence chunk of its sum (:func:`seq_scatter`), else :func:`leave`."""
+    if seq_on():
+        return seq_scatter(x, REGION.tp)
+    return leave(x)
+
+
+def whole_seq(x: torch.Tensor) -> torch.Tensor:
+    """The input of a layer that reads it whole on every rank and enters
+    what its heads read itself (the MoE layer, MLA): under sequence
+    parallelism the sequence gathered (:func:`seq_gather_whole`), else x."""
+    if seq_on():
+        return seq_gather_whole(x, REGION.tp)
+    return x
+
+
+def seq_param(w: torch.Tensor) -> torch.Tensor:
+    """A replicated weight read on the residual stream: under sequence
+    parallelism it reads a sequence shard, so its gradient is a partial
+    sum over the model axis (:func:`enter`); else w."""
+    return enter(w) if seq_on() else w
+
+
+def seq_chunk(x: torch.Tensor) -> torch.Tensor:
+    """This rank's chunk along dim 1 of ``x``, whole on every rank, under
+    sequence parallelism (a position table of the residual stream's
+    rows); else x."""
+    if not seq_on():
+        return x
+    n = group_size(REGION.tp)
+    _check_seq(x.shape[1], n)
+    return x.chunk(n, dim=1)[REGION.tp_rank]
 
 
 # --- the data axes: their group, FSDP's gather and scatter -------------------
@@ -215,8 +407,13 @@ def dp_group(mesh, axes):
 
 
 def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The ranks' ``x`` of ``group`` joined along ``dim``, in rank order."""
-    n = dist.get_world_size(group)
+    """The ranks' ``x`` of ``group`` joined along ``dim``, in rank order
+    (a :class:`MetaGroup`: an empty tensor of that shape)."""
+    n = group_size(group)
+    if isinstance(group, MetaGroup):
+        shape = list(x.shape)
+        shape[dim] *= n
+        return x.new_empty(shape)
     x = x.contiguous()
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
@@ -225,12 +422,14 @@ def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 
 def _scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """This rank's chunk along ``dim`` of the sum of ``x`` over ``group``."""
-    n = dist.get_world_size(group)
+    """This rank's chunk along ``dim`` of the sum of ``x`` over ``group``
+    (a :class:`MetaGroup`: an empty tensor of its shape)."""
+    n = group_size(group)
     parts = x.chunk(n, dim=dim)
     out = torch.empty_like(parts[0], memory_format=torch.contiguous_format)
-    dist.reduce_scatter_tensor(out, torch.cat(parts).contiguous(),
-                               group=group)
+    if not isinstance(group, MetaGroup):
+        dist.reduce_scatter_tensor(out, torch.cat(parts).contiguous(),
+                                   group=group)
     return out
 
 

@@ -56,6 +56,17 @@ step's, not the one-process step's. The MoE aux and z terms are the
 whole batch's on every data rank (``models/moe.py``), so each rank's
 loss adds its ``1 / dp`` share of them, and they are reported at the
 batch's value, not summed over the data axes.
+
+Under a plan made with ``sequence_parallel=True`` (the reference's
+``"seq"`` rule on the model axis, reached through ``make_plan`` and the
+dry run's ``--sequence-parallel``) the region also splits the residual
+stream along the sequence over the model axis: each rank holds its
+``S / tp`` rows of every microbatch row between the tensor-parallel
+blocks, gathered at a block's input and scattered at its output
+(``sharding/spmd.py``), with ``hoist_gather`` off or on, under remat (the
+recomputed forward makes the same collectives in the same order on every
+rank) and on either mesh. S must split evenly over the model axis. The
+loss, the gradients and the update are the step's without the flag.
 """
 from __future__ import annotations
 
@@ -257,7 +268,7 @@ def make_sharded_grad_fn(model: Model, n_accum: int = 1,
                                           t.placements)
                         for x, f, t in zip(leaves, fsdp, tp)]
         grads, loss, ms = None, 0.0, []
-        with spmd.region(tp_group, dp_group):
+        with spmd.region(tp_group, dp_group, seq=plan.sequence_parallel):
             for mb in _split_batch(batch, n_accum):
                 mine = {k: _rank_rows(v, dp_rank, dp_n)
                         for k, v in mb.items()}

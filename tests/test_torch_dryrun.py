@@ -26,6 +26,11 @@ kernels' meta branches against the JAX package.
 - **Meta branches.** On meta tensors the flash and scan wrappers return
   their plain versions' shapes and dtypes and launch nothing.
 - **Meta runs.** One cell of each family runs its step on meta tensors.
+  A train cell runs at one device's shapes (its shard of each weight,
+  inside a region of shape-only groups): its ``flops_model`` equals a
+  count worked out from a reduced config's shapes, and under sequence
+  parallelism (``--sequence-parallel``, ``REPRO_SP=1``) the train cells
+  run, ok, with the bytes of the cells without it.
 """
 import dataclasses
 import math
@@ -369,13 +374,96 @@ def test_reference_explicit_mesh_fault_is_pinned():
     assert port.act(x, "batch", None) is x
 
 
-def test_sequence_parallel_raises():
-    """The reference's ``REPRO_SP=1`` moves only activations, which the
-    port does not place: the argument and the flag raise rather than give
-    the same counts under another name."""
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
-        D.lower_cell("llama3.2-1b", "train_4k", make_production_mesh(),
-                     sequence_parallel=True)
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
-        D.main(["--arch", "llama3.2-1b", "--shape", "train_4k",
-                "--sequence-parallel"])
+# --- sequence parallelism and the per-device count ----------------------------------
+
+SP_CELLS = [("llama3.2-1b", "pod"), ("llama3.2-1b", "multipod"),
+            ("whisper-small", "pod"), ("whisper-small", "multipod")]
+
+
+def _bytes(arch, mesh_kind, sp):
+    low = D.lower_cell(arch, "train_4k", make_production_mesh(
+        multi_pod=mesh_kind == "multipod"), sequence_parallel=sp)
+    return low.argument_bytes(), low.output_bytes()
+
+
+@pytest.mark.parametrize("arch,mesh_kind", SP_CELLS)
+def test_sequence_parallel_lower_cell(arch, mesh_kind):
+    """``lower_cell(..., sequence_parallel=True)``: the train cell's meta
+    run goes through the sharded layers with the residual stream split
+    along the sequence, ok, with the argument and output bytes of the cell
+    without the flag (it moves activations only) and the same products."""
+    rec = D.run_cell(arch, "train_4k", mesh_kind, sequence_parallel=True)
+    assert rec["ok"], rec.get("error")
+    assert rec["sequence_parallel"] and rec["flops_scope"] == "device"
+    assert (rec["argument_bytes_per_device"],
+            rec["output_bytes_per_device"]) == _bytes(arch, mesh_kind, False)
+    assert rec["flops_model"] == D.run_cell(arch, "train_4k",
+                                            mesh_kind)["flops_model"]
+
+
+@pytest.mark.parametrize("how", ["flag", "REPRO_SP"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "whisper-small"])
+def test_sequence_parallel_cli(arch, how, monkeypatch):
+    """``--sequence-parallel``, and ``REPRO_SP=1`` as the reference spells
+    it, run the train cell on both production meshes with the flag: ok,
+    the bytes of the cell without it."""
+    argv = ["--arch", arch, "--shape", "train_4k", "--mesh", "both"]
+    if how == "flag":
+        argv.append("--sequence-parallel")
+    else:
+        monkeypatch.setenv("REPRO_SP", "1")
+    recs = D.main(argv)
+    assert [r["mesh"] for r in recs] == ["pod", "multipod"]
+    for r in recs:
+        assert r["ok"] and r["sequence_parallel"], r.get("error")
+        assert (r["argument_bytes_per_device"],
+                r["output_bytes_per_device"]) == _bytes(arch, r["mesh"],
+                                                        False)
+
+
+def test_sequence_parallel_leaves_serving_cells():
+    """Serving cells are as without the flag, as in the reference: the
+    same record but for the walls."""
+    walls = ("lower_s", "run_s")
+    for shape in ("prefill_32k", "decode_32k"):
+        a = D.run_cell("llama3.2-1b", shape, "pod", sequence_parallel=True)
+        b = D.run_cell("llama3.2-1b", shape, "pod")
+        assert a["ok"] and a["flops_scope"] == "unsharded"
+        assert {k: v for k, v in a.items() if k not in walls} == \
+            {k: v for k, v in b.items() if k not in walls}
+
+
+@pytest.mark.parametrize("sp", [False, True], ids=["whole", "sequence"])
+def test_flops_model_is_one_devices_count(sp):
+    """A train cell's ``flops_model`` is one device's: reduced llama3.2-1b
+    (2 layers, d 64, 4 / 2 heads of 16, d_ff 128, a tied vocabulary of
+    256) over a shape-only ``{data 4, model 2}`` at B 8, S 64 runs one
+    microbatch of 2 rows a device. Each product of x (T, n) by a weight
+    (n, m) counts 2 T n m forward and twice that backward (the input's
+    and the weight's gradients): every product of this config is split
+    over the model axis and counts at its 1 / tp share (heads, kv heads,
+    MLP columns, vocabulary rows); a replicated one would count whole. The
+    flash attention is not counted (a kernel). Sequence parallelism moves
+    activations and keeps the count."""
+    from repro_torch.launch.mesh import MeshShape
+    cfg = registry.get("llama3.2-1b").reduced()
+    mesh = MeshShape(("data", "model"), (4, 2))
+    low = D.lower_cell(cfg, ShapeSpec("train_small", 64, 8, "train"), mesh,
+                       sequence_parallel=sp)
+    assert low.info["n_accum"] == 1 and low.info["rows_per_rank"] == 2
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        low.run()
+    tp, T = 2, 2 * 64
+    d, dh, ff, V = cfg.d_model, cfg.head_dim, cfg.d_ff, 256
+    split = lambda n, m, parts: (n, m // parts)  # noqa: E731
+    per_layer = [split(d, cfg.num_heads * dh, tp),       # wq
+                 split(d, cfg.num_kv_heads * dh, tp),    # wk
+                 split(d, cfg.num_kv_heads * dh, tp),    # wv
+                 (cfg.num_heads * dh // tp, d),          # wo
+                 split(d, ff, tp), split(d, ff, tp),     # wg, wu
+                 (ff // tp, d)]                          # wd
+    products = per_layer * cfg.num_layers + [split(d, V, tp)]  # unembed
+    assert cfg.tie_embeddings and cfg.remat == "none"
+    want = sum(3 * 2 * T * n * m for n, m in products)
+    assert fc.get_total_flops() == want

@@ -1338,7 +1338,7 @@ KW = dict(num_heads=4, num_kv_heads=2, head_dim=64, d_model=256, d_ff=512,
           dtype="float32")
 
 
-def work(rank, world, store):
+def work(rank, world, store, sp):
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
@@ -1356,7 +1356,7 @@ def work(rank, world, store):
     mesh = make_host_mesh(model=2)  # (data 1, model 2) over the two ranks
     cfg = registry.get("llama3.2-1b").reduced().replace(**KW)
     opt = make_optimizer(cfg)
-    model = Model(cfg, plan=make_plan(cfg, mesh))
+    model = Model(cfg, plan=make_plan(cfg, mesh, sequence_parallel=sp))
     params, state = init_sharded(model, opt, 0)
     g = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (4, 129), device=dev,
@@ -1381,16 +1381,11 @@ def work(rank, world, store):
 
 
 if __name__ == "__main__":
-    mp.spawn(work, args=(2, sys.argv[1]), nprocs=2)
+    mp.spawn(work, args=(2, sys.argv[1], sys.argv[2] == "1"), nprocs=2)
 """
 
 
-def test_sharded_step_two_ranks_on_the_card(cuda, tmp_path):
-    """Two gloo ranks on cuda:0 over a (data 1, model 2) mesh, reduced
-    llama3.2-1b with heads of 64 (the flash kernel's), float32: the
-    gradients of the sharded step, each rank's flash kernel on its two
-    query heads and one kv head, equal the one-process step's within 1e-4
-    of each leaf's largest magnitude."""
+def _sharded_step_on_the_card(tmp_path, sp: bool):
     import os
     import subprocess
     import sys
@@ -1399,7 +1394,23 @@ def test_sharded_step_two_ranks_on_the_card(cuda, tmp_path):
     env = dict(os.environ, PYTHONPATH=os.path.join(
         os.path.dirname(__file__), "..", "src"))
     run = subprocess.run([sys.executable, str(script),
-                          str(tmp_path / "store")], env=env,
+                          str(tmp_path / "store"), str(int(sp))], env=env,
                          capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stderr[-3000:]
     assert run.stdout.count("SHARDED_OK") == 2
+
+
+def test_sharded_step_two_ranks_on_the_card(cuda, tmp_path):
+    """Two gloo ranks on cuda:0 over a (data 1, model 2) mesh, reduced
+    llama3.2-1b with heads of 64 (the flash kernel's), float32: the
+    gradients of the sharded step, each rank's flash kernel on its two
+    query heads and one kv head, equal the one-process step's within 1e-4
+    of each leaf's largest magnitude."""
+    _sharded_step_on_the_card(tmp_path, False)
+
+
+def test_sharded_step_sequence_parallel_on_the_card(cuda, tmp_path):
+    """The same step with sequence parallelism (the residual stream split
+    along the sequence over the two ranks): the same gradients and flash
+    launches."""
+    _sharded_step_on_the_card(tmp_path, True)
